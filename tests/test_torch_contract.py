@@ -1,0 +1,122 @@
+"""The port's contracts that hold on any machine:
+
+* a kernel wrapper given CPU tensors takes its plain version and counts
+  no launch; given tensors on another device it raises (no fallback);
+* no module of surf_tpu_torch, nor chip_smoke.py, imports jax or
+  anything of surf_tpu (checked on the import statements with ``ast``:
+  ``surf_tpu_torch`` itself starts with ``surf_tpu``);
+* the entry point refuses to run without a card unless asked for the CPU.
+
+The kernels themselves only run on the card: ``test_kernels_match_plain``
+is marked ``cuda`` and skips here (``python3 chip_smoke.py`` holds every
+kernel against its plain version at the main path's shapes)."""
+
+import ast
+import os
+
+import numpy as np
+import pytest
+import torch
+
+from surf_tpu_torch import _build
+from surf_tpu_torch.ops import grid_sample as gs, sparse as sp
+from surf_tpu_torch.nn import reg_net
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def _small_grid(RNG, device="cpu"):
+    parents = torch.tensor([[0, 0, 0], [1, 1, 0], [1, 1, 1]], device=device)
+    pvalid = torch.ones(3, dtype=torch.bool, device=device)
+    cvalid = torch.from_numpy(RNG.rand(24) < 0.7).to(device)
+    grid = sp.make_grid(parents, pvalid, cvalid, 4)
+    storage = torch.from_numpy(RNG.randn(24, 3).astype(np.float32)).to(device)
+    return grid, storage
+
+
+def _calls(device):
+    """Each kernel's wrapper on small inputs (the same for every device)."""
+    RNG = np.random.RandomState(2)
+    t = lambda a: torch.from_numpy(np.asarray(a, np.float32)).to(device)
+    grid, storage = _small_grid(RNG, device)
+    idx = torch.from_numpy(RNG.randint(-1, 10, size=(7, 27)).astype(np.int32)).to(device)
+    return {
+        "bilinear_sample_2d": lambda: gs.bilinear_sample(
+            t(RNG.randn(2, 5, 6, 3)), t(RNG.uniform(-1.2, 1.2, (2, 9, 2)))),
+        "trilinear_sample_3d": lambda: gs.trilinear_sample(
+            t(RNG.randn(4, 5, 3, 2)), t(RNG.uniform(-1.2, 1.2, (9, 3)))),
+        "sparse_trilinear_multi": lambda: sp.sparse_trilinear_multi(
+            [(grid, storage)], t(RNG.uniform(-1.1, 1.1, (9, 3))), derivs=True),
+        "gather_conv": lambda: reg_net.gather_conv(
+            t(RNG.randn(10, 4)), idx, t(RNG.randn(27, 4, 5))),
+    }
+
+
+@pytest.mark.parametrize("name", sorted(_build.launches))
+def test_cpu_tensors_take_plain_version_without_a_launch(name):
+    before = dict(_build.launches)
+    out = _calls("cpu")[name]()
+    first = out[0] if isinstance(out, tuple) else out
+    assert first.device.type == "cpu" and torch.isfinite(first).all()
+    assert _build.launches == before
+
+
+@pytest.mark.parametrize("name", sorted(_build.launches))
+def test_other_devices_raise(name):
+    with pytest.raises((ValueError, NotImplementedError, RuntimeError)):
+        _calls("meta")[name]()
+
+
+def _imports(path):
+    tree = ast.parse(open(path).read(), filename=path)
+    names = []
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names += [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
+            names.append(node.module)
+        elif isinstance(node, ast.Call) and getattr(node.func, "id", None) == "__import__" \
+                and node.args and isinstance(node.args[0], ast.Constant):
+            names.append(str(node.args[0].value))
+    return names
+
+
+def _forbidden(name):
+    top = name.split(".")[0]
+    return top in ("jax", "jaxlib", "surf_tpu")
+
+
+def test_port_imports_no_jax_and_no_surf_tpu():
+    files = [os.path.join(ROOT, "chip_smoke.py")]
+    for d, _, fs in os.walk(os.path.join(ROOT, "surf_tpu_torch")):
+        files += [os.path.join(d, f) for f in fs if f.endswith(".py")]
+    assert len(files) > 20
+    bad = [(os.path.relpath(f, ROOT), n) for f in files for n in _imports(f)
+           if _forbidden(n)]
+    assert not bad, bad
+    assert _forbidden("surf_tpu.ops") and not _forbidden("surf_tpu_torch.ops")
+
+
+def test_entry_point_needs_a_card_unless_cpu(monkeypatch):
+    from surf_tpu_torch import main
+    assert main.parse_args([]).device == "cuda"
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(SystemExit):
+        main.main(["--conf", os.path.join(ROOT, "confs", "surf_synthetic_full.conf")])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(_build.launches))
+def test_kernels_match_plain(name):
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    before = _build.launches[name]
+    got = _calls("cuda")[name]()
+    torch.cuda.synchronize()
+    assert _build.launches[name] == before + 1
+    ref = _calls("cpu")[name]()
+    got = got if isinstance(got, tuple) else (got,)
+    ref = ref if isinstance(ref, tuple) else (ref,)
+    for g, r in zip(got, ref):
+        if r is not None:
+            torch.testing.assert_close(g.cpu().float(), r.float(), rtol=1e-5, atol=1e-5)
