@@ -6,8 +6,9 @@
 Phases, one line each (any failure exits non-zero, with no result line):
 
 1. device: the card's name and power limit (nvidia-smi), torch and CUDA;
-2. build: the four hand-written kernels (surf_tpu_torch/csrc/*.cu) with
-   nvcc for sm_90a, one process per source, in parallel;
+2. build: the eight hand-written kernels (surf_tpu_torch/csrc/*.cu: K1-K4
+   and the backward kernels K1b-K3b and K4w) with nvcc for sm_90a, one
+   process per source, in parallel;
 3. ragged: every kernel against its plain PyTorch version on odd shapes
    with out-of-range points;
 4. validate: the port's main path, ``Validator.validate`` on
@@ -18,16 +19,27 @@ Phases, one line each (any failure exits non-zero, with no result line):
 5. warm: a second validate, for warm metrics, with every gather_conv call
    of ``apply_hybrid`` recorded; its cascade must equal the first one's
    bit for bit;
-6. kernels: each kernel against its plain version at its main-path call
+6. kernels: K1-K4 against their plain versions at their validate call
    sites (the validate's own stages, volumes, images and recorded K4
    inputs), with median times (CUDA events) of the kernel, the plain
    version and, where one PyTorch call computes the same function, that
    call, and the bound: the bytes the function must read and write (each
    distinct texel, voxel or row once) at the card's memory rate, or its
    f32 operations at the card's peak, whichever takes longer;
-7. reference: the tiny model on the card against the same model on the
+7. train: the port's training path, a ``Trainer`` on the same
+   configuration at full width (5 views of 480x640, 512 rays, 4 stages
+   to 704^3), 3 steps: one cold, two warm.  Every kernel's launch count
+   is zeroed just before the steps and read just after; the backward
+   kernels must each have run.  The loss must be finite and the
+   parameters of both optimizer groups must move.  Prints s/step and the
+   peak memory.  The largest call of each kind of each backward kernel
+   in the last step is recorded; K1b, K2b, K3b and K4w are then held
+   against their plain versions and measured on those calls as in 6;
+8. reference: the tiny model on the card against the same model on the
    CPU (plain versions, themselves held against the JAX package by the
-   tier-1 tests).
+   tier-1 tests): a validate build + render, and one training step's
+   loss terms and gradients, also against the same step on the card with
+   every kernel swapped for its plain version.
 
 The last three lines are the kernels JSON, the nvidia-smi line and the
 result line ``{"ok": true, "device": {...}}``.  The port's numeric settings
@@ -37,6 +49,7 @@ all comparisons are in full f32.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import statistics
@@ -49,6 +62,14 @@ F32_FLOPS_PER_S = 67e12            # f32 outside the tensor cores
 
 TINY = """
 general { base_exp_dir = ./exp/tiny }
+train_dataset {
+    dataset_name = SyntheticDataset
+    num_src_view = 2
+    img_hw = [64, 80]
+    n_rays = 64
+    n_scenes = 2
+    n_views_total = 6
+}
 val_dataset {
     dataset_name = SyntheticDataset
     num_src_view = 2
@@ -57,7 +78,29 @@ val_dataset {
     n_scenes = 1
     n_views_total = 6
 }
-train { val_ray_chunk = 4096 }
+train {
+    val_ray_chunk = 4096
+    lr_conf { feat_lr = 1e-3  mlp_lr = 5e-4 }
+    epochs = 2
+    anneal_end = 1
+    warmup = 1
+    alpha = 0.02
+    save_freq = 1
+    loss {
+        color_weight = 1.0
+        sparse_weight = 0.02
+        igr_weight = 0.1
+        sparse_scale_factor = 100
+        mfc_weight = 1.0
+        smooth_weight = 0.0001
+        depth_weight = 0.0
+        ptloss_weight = 1.0
+        pseudo_auxi_depth_weight = 1.0
+        pseudo_sdf_weight = 1.0
+        stage_weights = [0.5, 1.0]
+        pseudo_depth_weight = 1.0
+    }
+}
 model {
     range_ratios = [1.0, 0.4]
     feature_network { d_in = 3  d_base = 8  d_out = [4, 4] }
@@ -187,23 +230,61 @@ def ragged_checks(dev):
         storage = torch.randn(len(parents) * 8, C, device=dev, generator=g) \
             * cvalid[:, None]
         stages.append((grid, storage.contiguous()))
-    pts = torch.rand(3001, 3, device=dev, generator=g) * 2.3 - 1.15
+    pts3 = torch.rand(3001, 3, device=dev, generator=g) * 2.3 - 1.15
     for ns in (1, 4):
-        got = sp.sparse_trilinear_multi(stages[:ns], pts, derivs=True)
-        ref = sp.sparse_trilinear_multi_plain(stages[:ns], pts, derivs=True)
+        got = sp.sparse_trilinear_multi(stages[:ns], pts3, derivs=True)
+        ref = sp.sparse_trilinear_multi_plain(stages[:ns], pts3, derivs=True)
         if not torch.equal(got[1], ref[1]):
             fail("K3 ragged: occupancy differs")
         for name, a, b in zip(("feats", "jac", "hmix"), (got[0], got[2], got[3]),
                               (ref[0], ref[2], ref[3])):
             out.append(check_close(f"K3 ragged {name}", a, b, 1e-5,
                                    1e-5 * max(b.abs().max().item(), 1.0)))
+    got = sp.sparse_trilinear_multi(stages, pts3, third=True)
+    ref = sp.sparse_trilinear_multi_plain(stages, pts3, third=True)
+    for name, a, b in zip(("feats", "jac", "hmix", "third"), got[:1] + got[2:],
+                          ref[:1] + ref[2:]):
+        out.append(check_close(f"K3 training variant {name}", a, b, 1e-5, 1e-5 * scale(b)))
     # K4: odd channel counts, misses (-1)
     x = torch.randn(1003, 13, device=dev, generator=g)
     idx = torch.randint(-1, 1003, (2011, 27), device=dev, generator=g).to(torch.int32)
     w = torch.randn(27, 13, 7, device=dev, generator=g)
     out.append(check_close("K4 ragged", reg_net.gather_conv(x, idx, w),
                            reg_net.gather_conv_plain(x, idx, w), 1e-4, 1e-4))
+    # backward kernels (f32 atomics: sums in a run-dependent order)
+    for align in (True, False):
+        img = torch.randn(3, 37, 53, 5, device=dev, generator=g)
+        co = torch.rand(3, 1001, 2, device=dev, generator=g) * 2.6 - 1.3
+        ct = torch.randn(3, 1001, 5, device=dev, generator=g)
+        for a, b in zip(gs.bilinear_sample_bwd(img, co, ct, align_corners=align),
+                        gs.bilinear_sample_bwd_plain(img, co, ct, align_corners=align)):
+            out.append(check_close("K1b ragged", a, b, 1e-5, 1e-5 * scale(b)))
+        for dt in (torch.float32, torch.bfloat16):
+            vol = torch.randn(13, 9, 11, 3, device=dev, generator=g).to(dt)
+            pts = torch.rand(2003, 3, device=dev, generator=g) * 2.5 - 1.25
+            ct = torch.randn(2003, 3, device=dev, generator=g)
+            for a, b in zip(gs.trilinear_sample_bwd(vol, pts, ct, align_corners=align),
+                            gs.trilinear_sample_bwd_plain(vol, pts, ct, align_corners=align)):
+                # a bf16 gradient may round to the neighbouring bf16 value
+                out.append(check_close(f"K2b ragged {dt}", a, b,
+                                       2.0 ** -7 if b.dtype == torch.bfloat16 else 1e-5,
+                                       1e-5 * scale(b)))
+    n, C = pts3.shape[0], sum(s.shape[1] for _, s in stages)
+    cts = [torch.randn(*sh, device=dev, generator=g)
+           for sh in ((n, C), (n, 3, C), (n, 3, C), (n, C))]
+    for a, b in zip(sp.sparse_trilinear_multi_bwd(stages, pts3, *cts),
+                    sp.sparse_trilinear_multi_bwd_plain(stages, pts3, *cts)):
+        out.append(check_close("K3b ragged", a, b, 1e-5, 1e-5 * scale(b)))
+    ct = torch.randn(2011, 7, device=dev, generator=g)
+    ref = reg_net.gather_conv_dw_plain(x, idx, ct)
+    out.append(check_close("K4w ragged", reg_net.gather_conv_dw(x, idx, ct), ref, 1e-4,
+                           1e-4 * scale(ref)))
     return max(out)
+
+
+def scale(t):
+    """max(1, max |t|): the size against which a sum's rounding is stated."""
+    return max(t.abs().max().item() if t.numel() else 0.0, 1.0)
 
 
 # ---------------------------------------------------------------------------
@@ -231,9 +312,9 @@ def warm_validate(v):
     hybrid, gconv = reg_net.apply_hybrid, reg_net.gather_conv
     calls, cur = [], {}
 
-    def rec_hybrid(params, state, grid, feats):
+    def rec_hybrid(params, state, grid, feats, **kw):
         cur["grid"], cur["i"] = grid, 0
-        return hybrid(params, state, grid, feats)
+        return hybrid(params, state, grid, feats, **kw)
 
     def rec_gconv(x, idx, w):
         calls.append((cur["grid"], cur["i"], x, idx, w))
@@ -527,7 +608,307 @@ def main_path_kernels(v, launches, k4_calls):
 
 
 # ---------------------------------------------------------------------------
-# phase 7: tiny model, card against CPU
+# phase 7: training at full width, and the backward kernels at its call sites
+# ---------------------------------------------------------------------------
+
+FWD_KERNELS = ("bilinear_sample_2d", "trilinear_sample_3d", "sparse_trilinear_multi",
+               "gather_conv")
+BWD_KERNELS = ("bilinear_sample_2d_bwd", "trilinear_sample_3d_bwd",
+               "sparse_trilinear_multi_bwd", "gather_conv_dw")
+
+
+def record_backward_calls():
+    """Wrap the four backward kernels' wrappers (the autograd functions
+    call them by module attribute) to keep, per kernel and per kind of
+    call (which gradients / cotangents it takes), the arguments of its
+    largest call.  Returns (records, calls, restore)."""
+    from surf_tpu_torch.ops import grid_sample as gs, sparse as sp
+    from surf_tpu_torch.nn import reg_net
+    where = {"bilinear_sample_2d_bwd": (gs, "bilinear_sample_bwd"),
+             "trilinear_sample_3d_bwd": (gs, "trilinear_sample_bwd"),
+             "sparse_trilinear_multi_bwd": (sp, "sparse_trilinear_multi_bwd"),
+             "gather_conv_dw": (reg_net, "gather_conv_dw")}
+    size = {"bilinear_sample_2d_bwd": lambda a: a[2].numel(),
+            "trilinear_sample_3d_bwd": lambda a: a[2].numel(),
+            "sparse_trilinear_multi_bwd": lambda a: a[1].shape[0],
+            "gather_conv_dw": lambda a: a[1].numel() * a[2].shape[1]}
+    kind = {"bilinear_sample_2d_bwd": lambda a, k: (k.get("need_images", True),
+                                                   k.get("need_coords", True)),
+            "trilinear_sample_3d_bwd": lambda a, k: (k.get("need_volume", True),
+                                                    k.get("need_coords", True)),
+            "sparse_trilinear_multi_bwd": lambda a, k: tuple(c is not None for c in a[2:]),
+            "gather_conv_dw": lambda a, k: ()}
+    records, calls, orig = {}, {}, {}
+
+    def wrap(name, fn):
+        def rec(*a, **k):
+            key = (name, kind[name](a, k))
+            calls[name] = calls.get(name, 0) + 1
+            n = size[name](a)
+            if n >= records.get(key, (-1,))[0]:
+                records[key] = (n, a, k)
+            return fn(*a, **k)
+        return rec
+
+    for name, (mod, attr) in where.items():
+        orig[name] = getattr(mod, attr)
+        setattr(mod, attr, wrap(name, orig[name]))
+
+    def restore():
+        for name, (mod, attr) in where.items():
+            setattr(mod, attr, orig[name])
+    return records, calls, restore
+
+
+def train_phase(conf_path, n_steps=3, dev="cuda"):
+    """A Trainer at full width: ``n_steps`` steps on the first scenes, the
+    launch counts zeroed before and read after; the last step's backward
+    calls recorded.  (``dev`` "cpu" rehearses the phase without a card.)"""
+    import math
+    import torch
+    from surf_tpu_torch import _build
+    from surf_tpu_torch.config import ConfigFactory
+    from surf_tpu_torch.train import Trainer
+    from surf_tpu_torch.validate import to_device
+    conf = ConfigFactory.parse_file(conf_path)
+    cuda = dev == "cuda"
+    t = Trainer(conf, device=dev, seed=0,
+                base_exp_dir=os.path.join(HERE, "exp", "chip_smoke_train"))
+    n = len(t.dataset)
+    batches = [to_device(t.dataset[i], dev) for i in range(n_steps)]
+    before = {g["name"]: [p.detach().clone() for p in g["params"]]
+              for g in t.optimizer.param_groups}
+    if cuda:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    _build.reset_launches()
+    times, per_step, last = [], [], dict(_build.launches)
+    for i in range(n_steps):
+        if i == n_steps - 1:
+            records, calls, restore = record_backward_calls()
+        t0 = time.time()
+        try:
+            res = t.step(batches[i], i / n)
+            if cuda:
+                torch.cuda.synchronize()
+        finally:
+            if i == n_steps - 1:
+                restore()
+        times.append(time.time() - t0)
+        now = dict(_build.launches)
+        per_step.append({k: now[k] - last[k] for k in now})
+        last = now
+        say("train", f"step {i} ({'cold' if i == 0 else 'warm'}): {times[-1]:.3f} s, "
+            f"active_voxels={t.active_voxels.tolist()} "
+            + " ".join(f"{k}={v:.5g}" for k, v in res.items()))
+        if not all(math.isfinite(v) for v in res.values()):
+            fail(f"train: non-finite loss terms at step {i}: {res}")
+    launches = dict(_build.launches)
+    peak = torch.cuda.max_memory_allocated() if cuda else 0
+    moved = {name: sum(int(not torch.equal(a, p.detach())) for a, p in zip(
+        before[name], g["params"])) for name, g in
+        ((g["name"], g) for g in t.optimizer.param_groups)}
+    sizes = {g["name"]: len(g["params"]) for g in t.optimizer.param_groups}
+    metrics = {"cold_step_s": times[0], "warm_s_per_step": statistics.mean(times[1:]),
+               "warm_steps_s": times[1:], "peak_mem_gb": peak / 2 ** 30,
+               "launches_per_step": per_step[-1], "params_moved": moved,
+               "params_per_group": sizes, "backward_calls_last_step": calls}
+    say("train", json.dumps(metrics))
+    say("train", "kernels " + json.dumps(launches))
+    missing = [k for k, v in launches.items() if v <= 0]
+    if missing:
+        fail(f"train: the training path launched no {missing}")
+    if any(moved[g] == 0 for g in moved):
+        fail(f"train: no parameter moved in some group: {moved}")
+    return launches, records, metrics
+
+
+def bwd_bound(name, a, k, got):
+    """(bound_ms, bound_by, what) for one recorded backward call."""
+    import torch
+    from surf_tpu_torch.ops import sparse as sp
+    if name == "bilinear_sample_2d_bwd":
+        img, co, ct = a
+        V, N, C = ct.shape
+        need_img, need_co = k.get("need_images", True), k.get("need_coords", True)
+        moved = nbytes(co) + nbytes(ct)
+        if need_img:
+            moved += nbytes(img)                       # the gradient image, written
+        if need_co:
+            co_n, align = co, k.get("align_corners", True)
+            if not k.get("normalized", True):
+                H, W = img.shape[1:3]
+                co_n = torch.stack([co[..., 0] * (2.0 / (W - 1)) - 1.0,
+                                    co[..., 1] * (2.0 / (H - 1)) - 1.0], -1)
+                align = True
+            moved += distinct_taps(img.shape[:3], co_n, align) * C * 4 + nbytes(co)
+        what = (f"image {tuple(img.shape)}, {N} points x {V} views, d_image={need_img}, "
+                f"d_coords={need_co}")
+        return (*bound(moved, V * N * C * 4 * (2 * need_img + 2 * need_co)), what)
+    if name == "trilinear_sample_3d_bwd":
+        vol, co, ct = a
+        N, C = ct.shape
+        need_vol, need_co = k.get("need_volume", True), k.get("need_coords", True)
+        moved = nbytes(co) + nbytes(ct) + (nbytes(vol) if need_vol else 0)
+        if need_co:
+            moved += distinct_taps(vol.shape[:3], co, k.get("align_corners", True)) \
+                * C * vol.element_size() + nbytes(co)
+        what = (f"volume {tuple(vol.shape)} {str(vol.dtype).split('.')[-1]}, {N} points, "
+                f"d_volume={need_vol}, d_coords={need_co}")
+        return (*bound(moved, N * C * 8 * (2 * need_vol + 2 * need_co)), what)
+    if name == "sparse_trilinear_multi_bwd":
+        stages, pts, cts = a[0], a[1], a[2:]
+        n = pts.shape[0]
+        ctot = sum(s.shape[1] for _, s in stages)
+        moved = nbytes(pts) + sum(nbytes(c) for c in cts if c is not None) \
+            + sum(s.shape[0] * s.shape[1] * 4 for _, s in stages)
+        off = sp.child_offsets(pts.device)
+        for g, _ in stages:
+            res, half = g.res, g.res // 2
+            c0 = torch.floor((pts + 1.0) * 0.5 * (res - 1)).long()
+            vox = torch.cat([c0 + off[j] for j in range(8)]).clamp(0, res - 1)
+            p = vox >> 1
+            pidx = (p[:, 0] * half + p[:, 1]) * half + p[:, 2]
+            rows, _ = sp.lookup_rows(g, vox)
+            present = g.parent_table.reshape(-1)[pidx] >= 0
+            moved += torch.unique(pidx).numel() * 4 + torch.unique(rows[present]).numel()
+        terms = 1 + sum(3 if c is not None and c.dim() == 3 else 1
+                        for c in cts if c is not None)
+        what = (f"{n} points, stages {[g.res for g, _ in stages]}, {ctot} channels, "
+                f"cotangents of (feats, jac, hmix, third) = "
+                f"{[c is not None for c in cts]}")
+        return (*bound(moved, n * ctot * 8 * 2 * terms), what)
+    x, idx, ct = a
+    R, T = idx.shape
+    present = idx[idx >= 0]
+    rows_read = torch.unique(present).numel()
+    Cin, Cout = x.shape[1], ct.shape[1]
+    moved = idx.numel() * 4 + rows_read * Cin * 4 + nbytes(ct) + T * Cin * Cout * 4
+    what = (f"{R} rows x {T} taps ({present.numel()} present, {rows_read} distinct rows of "
+            f"x read), {Cin} -> {Cout} channels")
+    return (*bound(moved, 2 * present.numel() * Cin * Cout), what)
+
+
+def bwd_library(name, a, k):
+    """One PyTorch call computing the same function, or None."""
+    import torch
+    if name == "bilinear_sample_2d_bwd":
+        img, co, ct = a
+        align = k.get("align_corners", True)
+        if not k.get("normalized", True):
+            H, W = img.shape[1:3]
+            co = torch.stack([co[..., 0] * (2.0 / (W - 1)) - 1.0,
+                              co[..., 1] * (2.0 / (H - 1)) - 1.0], -1)
+            align = True
+        inp = img.permute(0, 3, 1, 2).contiguous()
+        grid = co[:, None].contiguous()
+        go = ct.permute(0, 2, 1)[:, :, None].contiguous()
+        mask = [k.get("need_images", True), k.get("need_coords", True)]
+        return lambda: torch.ops.aten.grid_sampler_2d_backward(go, inp, grid, 0, 0, align,
+                                                               mask)
+    if name == "trilinear_sample_3d_bwd":
+        vol, co, ct = a
+        inp = vol.float().permute(3, 0, 1, 2)[None].contiguous()
+        grid = co.flip(-1)[None, None, None].contiguous()
+        go = ct.t()[None, :, None, None].contiguous()
+        mask = [k.get("need_volume", True), k.get("need_coords", True)]
+        align = k.get("align_corners", True)
+        return lambda: torch.ops.aten.grid_sampler_3d_backward(go, inp, grid, 0, 0, align,
+                                                               mask)
+    return None
+
+
+def bwd_entry(name, rec):
+    from surf_tpu_torch.ops import grid_sample as gs, sparse as sp
+    from surf_tpu_torch.nn import reg_net
+    fns = {"bilinear_sample_2d_bwd": (gs.bilinear_sample_bwd, gs.bilinear_sample_bwd_plain),
+           "trilinear_sample_3d_bwd": (gs.trilinear_sample_bwd,
+                                       gs.trilinear_sample_bwd_plain),
+           "sparse_trilinear_multi_bwd": (sp.sparse_trilinear_multi_bwd,
+                                          sp.sparse_trilinear_multi_bwd_plain),
+           "gather_conv_dw": (reg_net.gather_conv_dw, reg_net.gather_conv_dw_plain)}
+    fn, plain = fns[name]
+    _, a, k = rec
+    got, ref = fn(*a, **k), plain(*a, **k)
+    got = got if isinstance(got, (tuple, list)) else (got,)
+    ref = ref if isinstance(ref, (tuple, list)) else (ref,)
+    err = 0.0
+    for x, y in zip(got, ref):
+        if y is None:
+            continue
+        # f32 atomics sum in a run-dependent order; a bf16 gradient may
+        # round to the neighbouring bf16 value
+        rtol = 2.0 ** -7 if str(y.dtype) == "torch.bfloat16" else 1e-4
+        err = max(err, check_close(f"{name} train call", x, y, rtol, 1e-5 * scale(y)))
+    b_ms, b_by, what = bwd_bound(name, a, k, got)
+    lib = bwd_library(name, a, k)
+    return {"shape": what, "max_abs_err": err,
+            "ms": time_ms(lambda: fn(*a, **k)),
+            "plain_ms": time_ms(lambda: plain(*a, **k), 3),
+            "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": time_ms(lib) if lib is not None else None}
+
+
+BWD_ROWS = {
+    "bilinear_sample_2d_bwd": ("surf_tpu/ops/grid_sample.py:102",
+                               "torch.ops.aten.grid_sampler_2d_backward, NCHW copy"),
+    "trilinear_sample_3d_bwd": ("surf_tpu/ops/grid_sample.py:355",
+                                "torch.ops.aten.grid_sampler_3d_backward, f32 NCDHW "
+                                "copy, axes flipped"),
+    "sparse_trilinear_multi_bwd": ("surf_tpu/ops/sparse.py:422",
+                                   "none: no one PyTorch call scatters into a sparse "
+                                   "voxel set"),
+    "gather_conv_dw": ("surf_tpu/nn/reg_net.py:368",
+                       "none: no one PyTorch call does a gathered sparse convolution's "
+                       "weight gradient"),
+}
+
+
+def backward_kernels(launches, records, dense_conv0=None):
+    """One row per backward kernel: its largest call of the train step
+    heads it, the largest call of each other kind is ``also_checked``.
+    ``dense_conv0`` (x, idx) adds K4w on the validate's 704^3 conv0 table
+    (a densely active stage, as a trained model's is) with a random
+    cotangent."""
+    import torch
+    rows = []
+    src = {"sparse_trilinear_multi_bwd": "surf_tpu_torch/csrc/sparse_trilinear.cu",
+           "gather_conv_dw": "surf_tpu_torch/csrc/gather_conv.cu"}
+    for name in BWD_KERNELS:
+        # largest first; of equal size, the call with the most cotangents
+        recs = sorted((r for key, r in records.items() if key[0] == name),
+                      key=lambda r: (-r[0], -sum(x is not None for x in r[1])))
+        if not recs:
+            fail(f"train: no {name} call was recorded")
+        if name == "gather_conv_dw" and dense_conv0 is not None:
+            x, idx = dense_conv0
+            g = torch.Generator(device=x.device).manual_seed(3)
+            ct = torch.randn(idx.shape[0], 8, device=x.device, generator=g)
+            recs.append((0, (x, idx, ct), {}))
+        if name == "gather_conv_dw":
+            # the wrapper narrows an int64 table on each call: time the
+            # kernel on the narrowed one
+            recs = [(n_, (a_[0], a_[1].to(torch.int32).contiguous(), a_[2]), k_)
+                    for n_, a_, k_ in recs]
+        entries = [bwd_entry(name, r) for r in recs]
+        if name == "gather_conv_dw" and dense_conv0 is not None:
+            entries[-1]["shape"] = ("the validate's 704^3 conv0 table, a random "
+                                    "cotangent: " + entries[-1]["shape"])
+        replaces, library = BWD_ROWS[name]
+        r = {"name": name, "route": "cuda",
+             "source": src.get(name, "surf_tpu_torch/csrc/grid_sample.cu"),
+             "replaces": replaces, "launches": launches[name], **entries[0],
+             "tolerance": "|err| <= 1e-5 max(max|plain|, 1) + 1e-4 |plain| (bf16: "
+                          "one bf16 step)", "library": library}
+        if len(entries) > 1:
+            r["also_checked"] = entries[1:]
+        say("kernel", json.dumps(r))
+        rows.append(r)
+    return rows
+
+
+# ---------------------------------------------------------------------------
+# phase 8: tiny model, card against CPU
 # ---------------------------------------------------------------------------
 
 def reference_check():
@@ -581,8 +962,96 @@ def reference_check():
         err = max(err, check_close(f"reference {k}", rg[k].cpu(), rc[k], 1e-4, 1e-4))
     err = max(err, check_close("reference lattice", torch.from_numpy(ug),
                                torch.from_numpy(uc), 1e-4, 1e-4))
-    return err
+    return max(err, reference_train_step(conf))
 
+
+@contextlib.contextmanager
+def plain_versions():
+    """Every kernel's wrapper replaced by its plain PyTorch version (the
+    callers and the autograd functions look the wrappers up as module
+    attributes at call time), so the same code runs with no kernel."""
+    from surf_tpu_torch.ops import grid_sample as gs, sparse as sp
+    from surf_tpu_torch.nn import reg_net
+    swaps = [(gs, "bilinear_sample", gs.bilinear_sample_plain),
+             (gs, "bilinear_sample_bwd", gs.bilinear_sample_bwd_plain),
+             (gs, "trilinear_sample", gs.trilinear_sample_plain),
+             (gs, "trilinear_sample_bwd", gs.trilinear_sample_bwd_plain),
+             (sp, "sparse_trilinear_multi", sp.sparse_trilinear_multi_plain),
+             (sp, "sparse_trilinear_multi_bwd", sp.sparse_trilinear_multi_bwd_plain),
+             (reg_net, "gather_conv", reg_net.gather_conv_plain),
+             (reg_net, "gather_conv_dw", reg_net.gather_conv_dw_plain)]
+    orig = [getattr(m, n) for m, n, _ in swaps]
+    for m, n, f in swaps:
+        setattr(m, n, f)
+    try:
+        yield
+    finally:
+        for (m, n, _), f in zip(swaps, orig):
+            setattr(m, n, f)
+
+
+def reference_train_step(conf):
+    """One tiny training step's loss terms and gradients on the CPU, on the
+    card with the kernels and on the card with the plain versions: the
+    same parameters, batch and probe points, unperturbed, with the hybrid
+    U-Net at stage 1 so every backward kernel runs.  Loss terms, card
+    against CPU, within 1e-4 relative.  Each gradient leaf, kernels
+    against plain versions on the card, within 1e-3 of its largest entry
+    (atomics and sums in another order, through three orders of
+    differentiation); card against CPU within 5e-3: the plain PyTorch ops
+    themselves (cuBLAS, the card's exp and log in the softplus(100x) MLP)
+    move the SDF net's gradients by about 2e-3 from the CPU's.  Plus 1e-6
+    for the three leaves whose gradient is 0 by softmax shift invariance,
+    given by all as round-off."""
+    import torch
+    from surf_tpu_torch import _build
+    from surf_tpu_torch.nn.core import tree_leaves
+    from surf_tpu_torch.train import Trainer
+    from surf_tpu_torch.utils import to_numpy_tree, to_torch_tree
+    from surf_tpu_torch.validate import to_device
+    out_dir = os.path.join(HERE, "exp", "chip_smoke_tiny_train")
+    runs = {}
+    for name in ("cpu", "cuda", "cuda plain"):
+        dev = name.split()[0]
+        if dev == "cpu":
+            tr = Trainer(conf, device="cpu", base_exp_dir=out_dir)
+            init = (to_numpy_tree(tr.params), to_numpy_tree(tr.state))
+        else:
+            tr = Trainer(conf, device="cuda", base_exp_dir=out_dir,
+                         params=to_torch_tree(init[0], "cuda"),
+                         state=to_torch_tree(init[1], "cuda"))
+        tr.static["dense_unet_max_res"] = 16
+        tr.static["implicit_surface"] = dict(tr.static["implicit_surface"], perturb=0.0)
+        batch = to_device(tr.dataset[0], dev)
+        probe = torch.linspace(-0.9, 0.9, 3072, device=dev).reshape(1024, 3)
+        _build.reset_launches()
+        with plain_versions() if name.endswith("plain") else contextlib.nullcontext():
+            res, _ = tr.loss(batch, 1.0, 0.5, perturb=False, pts_random=probe)
+            res["loss"].backward()
+        runs[name] = (res, dict(_build.launches),
+                      [t.grad.detach().cpu() for t in tree_leaves(tr.params)])
+    missing = [k for k in BWD_KERNELS if runs["cuda"][1][k] <= 0]
+    if missing or any(runs["cuda plain"][1].values()):
+        fail(f"reference: the tiny train step on the card launched no {missing}, or "
+             f"the plain run launched {runs['cuda plain'][1]}")
+    err = 0.0
+    (rc, _, gc), (rg, _, gg), (_, _, gp) = runs["cpu"], runs["cuda"], runs["cuda plain"]
+    for k in rc:
+        a = rg[k].detach().cpu().reshape(1) if torch.is_tensor(rg[k]) else torch.tensor([rg[k]])
+        b = rc[k].detach().reshape(1) if torch.is_tensor(rc[k]) else torch.tensor([rc[k]])
+        err = max(err, check_close(f"reference train {k}", a, b, 1e-4, 1e-5))
+    for what, ref, rel in (("plain versions on the card", gp, 1e-3), ("CPU", gc, 5e-3)):
+        worst = 0.0
+        for a, b in zip(gg, ref):
+            d, scale = (a - b).abs().max().item(), b.abs().max().item()
+            if d > rel * scale + 1e-6:
+                fail(f"reference train: a gradient leaf differs from the {what} by "
+                     f"{d:.3e} > {rel * scale + 1e-6:.3e}")
+            if scale > 1e-6:
+                worst = max(worst, d / scale)
+        say("reference", f"train step gradients against the {what}: worst leaf "
+            f"{worst:.3e} of its largest entry")
+    return err
 
 def main():
     import torch
@@ -616,7 +1085,8 @@ def main():
 
     t0 = time.time()
     err = ragged_checks(torch.device("cuda"))
-    say("ragged", f"K1-K4 match their plain versions, max abs err {err:.3e} "
+    say("ragged", f"K1-K4, K1b-K3b and K4w match their plain versions, max abs err "
+        f"{err:.3e} "
         f"({time.time() - t0:.1f} s)")
 
     conf = ConfigFactory.parse_file(conf_path)
@@ -637,7 +1107,7 @@ def main():
         f"{m['mesh_faces']} f) peak_mem_gb="
         f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} wall_s={wall:.1f}")
     say("validate", "kernels " + json.dumps(launches))
-    missing = [k for k, n in launches.items() if n <= 0]
+    missing = [k for k in FWD_KERNELS if launches[k] <= 0]
     if missing:
         fail(f"the main path launched no {missing}")
     if not m["finite"]:
@@ -659,13 +1129,27 @@ def main():
     del cold
 
     rows = main_path_kernels(v, launches, k4_calls)
+    # the 704^3 conv0 (x, table) of the validate, for K4w on a dense stage
+    dense_conv0 = next((c[2], c[3].to(torch.int32)) for c in k4_calls
+                       if c[0].res == 704 and c[1] == 0)
     v.last_scene = k4_calls = None
+    del v
     torch.cuda.empty_cache()
 
     t0 = time.time()
+    train_launches, records, _ = train_phase(conf_path)
+    for r in rows:
+        r["launches_in_train"] = train_launches[r["name"]]
+    torch.cuda.empty_cache()
+    rows += backward_kernels(train_launches, records, dense_conv0)
+    del records, dense_conv0
+    torch.cuda.empty_cache()
+    say("train", f"phase and backward kernel checks: {time.time() - t0:.1f} s")
+
+    t0 = time.time()
     err = reference_check()
-    say("reference", f"tiny model on the card matches the CPU plain path, max abs "
-        f"err {err:.3e} ({time.time() - t0:.1f} s)")
+    say("reference", f"tiny model (validate and one training step) on the card matches "
+        f"the CPU plain path, max abs err {err:.3e} ({time.time() - t0:.1f} s)")
     say("total", f"{time.time() - t_start:.1f} s")
 
     print(json.dumps({"kernels": rows}))

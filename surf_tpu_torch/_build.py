@@ -152,7 +152,9 @@ def stream_of(t):
 # launches of each hand-written kernel: a wrapper adds one where it
 # launches its kernel, and nowhere else (the CPU path adds nothing)
 launches = {"bilinear_sample_2d": 0, "trilinear_sample_3d": 0,
-            "sparse_trilinear_multi": 0, "gather_conv": 0}
+            "sparse_trilinear_multi": 0, "gather_conv": 0,
+            "bilinear_sample_2d_bwd": 0, "trilinear_sample_3d_bwd": 0,
+            "sparse_trilinear_multi_bwd": 0, "gather_conv_dw": 0}
 
 
 def reset_launches():

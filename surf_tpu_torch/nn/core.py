@@ -97,6 +97,15 @@ def linear_apply(p, x):
     return y
 
 
+def tree_leaves(tree):
+    """The leaves of a pytree of dicts and lists, in order."""
+    if isinstance(tree, dict):
+        return [x for v in tree.values() for x in tree_leaves(v)]
+    if isinstance(tree, (list, tuple)):
+        return [x for v in tree for x in tree_leaves(v)]
+    return [tree]
+
+
 def materialize_weight_norm(tree):
     """Fold every weight-norm (v, g) pair into w = v * g / ||v|| (the
     reference's torch weight_norm(dim=0) on an (out, in) weight)."""
@@ -199,7 +208,7 @@ def conv3d_transpose_apply(p, x):
 
 
 # ---------------------------------------------------------------------------
-# masked batch norm (eval mode)
+# masked batch norm
 # ---------------------------------------------------------------------------
 
 def batch_norm_init(c, device=None):
@@ -207,10 +216,25 @@ def batch_norm_init(c, device=None):
             {"mean": torch.zeros(c, device=device), "var": torch.ones(c, device=device)})
 
 
-def masked_batch_norm_apply(params, state, x, mask):
-    """BatchNorm with running statistics over a capacity-padded set,
-    zeroed outside ``mask`` (x (..., C); mask broadcastable to x[..., 0])."""
+def masked_batch_norm_apply(params, state, x, mask, *, training=False,
+                            momentum=0.1, eps=1e-5):
+    """BatchNorm over the active rows of a capacity-padded set, zeroed
+    outside ``mask`` (x (..., C); mask broadcastable to x[..., 0]).  In
+    training the statistics are the batch's over the mask (torchsparse's
+    BatchNorm over the active set) and the running statistics move by
+    torch's momentum rule with the unbiased variance.  Returns (y,
+    new_state); the new state is detached."""
     m = mask.to(x.dtype)[..., None]
-    y = (x - state["mean"]) * torch.rsqrt(state["var"] + 1e-5) * params["scale"] \
-        + params["bias"]
-    return y * m
+    if training:
+        dims = tuple(range(x.dim() - 1))
+        n = torch.clamp(m.sum(), min=1.0)
+        mean = (x * m).sum(dims) / n
+        var = (((x - mean) ** 2) * m).sum(dims) / n
+        unbiased = var * n / torch.clamp(n - 1.0, min=1.0)
+        new_state = {"mean": ((1 - momentum) * state["mean"] + momentum * mean).detach(),
+                     "var": ((1 - momentum) * state["var"] + momentum * unbiased).detach()}
+    else:
+        mean, var = state["mean"], state["var"]
+        new_state = state
+    y = (x - mean) * torch.rsqrt(var + eps) * params["scale"] + params["bias"]
+    return y * m, new_state

@@ -1,5 +1,5 @@
 """NeuS renderer over the sparse volume cascade (torch counterpart of
-surf_tpu/nn/implicit_surface.py, value path of validation).
+surf_tpu/nn/implicit_surface.py).
 
 * ``build_z_vals``: n_samples[0] uniform samples over [near, far] plus
   surface-centric bands around the softmax-expected surface of a
@@ -7,8 +7,10 @@ surf_tpu/nn/implicit_surface.py, value path of validation).
 * ``render_core``: the SDF MLP with grad and H.1 (K3 + autograd), the
   occupancy mask from the same K3 launch (SDF pinned to 100 outside),
   the colour fetch (K1) and blending, NeuS alpha compositing and the
-  first zero crossing.  The NCC patch warp at the crossing
-  (``surface_patch_warp``) is training-only and not part of this port yet.
+  first zero crossing; given patch features (training), the homography
+  patch warp at the crossing for the NCC loss.  In training the SDF
+  outputs, grad and H.1 keep their graph to the parameters and the stage
+  storages.
 """
 
 from __future__ import annotations
@@ -16,9 +18,9 @@ from __future__ import annotations
 import torch
 
 from . import core, sdf_net, blending_net, variance
-from ..ops.grid_sample import trilinear_sample_3d
-from ..ops.sparse import stage_features
+from ..ops.grid_sample import trilinear_sample_3d, resize_bilinear_2d
 from ..ops.feature_lookup import lookup_feature, lookup_feature_fused, fuse_pyramid
+from ..ops.homography import surface_patch_warp
 
 
 def init(gen, conf, device=None):
@@ -68,7 +70,9 @@ def build_z_vals(static, rays_o, rays_d, near, far, matching_volume,
     z_d = near + (far - near) * torch.linspace(0.0, 1.0, static["n_depth"],
                                                device=dev)[None]
     pts = rays_o[:, None, :] + rays_d[:, None, :] * z_d[..., None]
-    density = trilinear_sample_3d(matching_volume, pts, align_corners=False)[..., 0]
+    # the surface localization carries no gradient
+    density = trilinear_sample_3d(matching_volume.detach(), pts,
+                                  align_corners=False)[..., 0]
     surf_z = (z_d * torch.softmax(density, dim=-1)).sum(-1, keepdim=True)
     for ratio, ns in zip(static["sample_ranges"][1:], static["n_samples"][1:]):
         lo, hi = _band(surf_z, base_range * ratio, near, far)
@@ -78,6 +82,20 @@ def build_z_vals(static, rays_o, rays_d, near, far, matching_volume,
             z_s = z_s + t * (hi - lo) / ns
         z_all.append(z_s)
     return torch.sort(torch.cat(z_all, dim=-1), dim=-1).values
+
+
+def prepare_patch_features(features, match_features, step):
+    """Per-scene patch-warp feature image, outside the graph: the 3 finest
+    maps upsampled to full resolution and concatenated, from the frozen
+    matching feature network from step 2 on (implicit_surface.py:230-243
+    of the reference).  Maps are finest-first."""
+    def cat3(maps):
+        hw = maps[0].shape[1:3]
+        return torch.cat([maps[0]] + [resize_bilinear_2d(m, hw) for m in maps[1:3]], -1)
+
+    with torch.no_grad():
+        use_live = match_features is None or step is None or step < 2
+        return cat3(features if use_live else match_features)
 
 
 def neus_alpha_weights(sdf, gradients, dirs, dists, pts, vmask_f, inv_s,
@@ -141,12 +159,22 @@ def neus_zero_crossing(sdf, grads_rs, mid_z, vmask_f, inside_sphere, ray_cos):
     return mid_inside, z_sdf0, z_sdf0 * ray_cos[:, None] * mid_inside
 
 
+def _needs_graph(tree, stages):
+    """Whether the SDF outputs must keep their graph: grad is on and a
+    parameter or a stage storage requires it (training)."""
+    return torch.is_grad_enabled() and any(
+        t.requires_grad for t in core.tree_leaves(tree) + [s for _, s in stages])
+
+
 def render_core(params, static, rays_o, rays_d, z_vals, sample_dist, stages,
                 features, imgs, intrs, c2ws, cos_anneal_ratio,
-                fused_colors=None, generator=None):
+                fused_colors=None, generator=None, warp_feats=None,
+                pts_random=None):
     """stages: [(VoxelGrid, storage (P*8, C))] fine-to-coarse; features:
-    FPN maps finest-first.  Returns the reference's render outputs except
-    the patch-warp pair (ref_gray_val / sampled_gray_val)."""
+    FPN maps finest-first; warp_feats: ``prepare_patch_features`` output,
+    or None to skip the patch warp (the reference's ref_gray_val /
+    sampled_gray_val, which only the training loss reads); pts_random:
+    the 1024 random SDF probe points, drawn from ``generator`` if None."""
     nr, ns = z_vals.shape
     sdf_p, sdf_s = params["sdf_network"], static["sdf"]
     dev = z_vals.device
@@ -159,7 +187,7 @@ def render_core(params, static, rays_o, rays_d, z_vals, sample_dist, stages,
     # SDF, features, grad and H.1, and the visibility mask, from one K3
     # launch per pass; pinned to +100 outside the active set
     sdf_out, grads_all, smooth_all, vmask = sdf_net.value_features_grads_occ(
-        sdf_p, sdf_s, pts, stages)
+        sdf_p, sdf_s, pts, stages, create_graph=_needs_graph(sdf_p, stages))
     vmask_f = vmask.float()
     sdf = torch.where(vmask[:, None], sdf_out[:, :1], torch.full_like(sdf_out[:, :1], 100.0))
     gradients = grads_all * vmask_f[:, None]
@@ -194,20 +222,39 @@ def render_core(params, static, rays_o, rays_d, z_vals, sample_dist, stages,
                     / (inside_sphere.sum() + 1e-5))
 
     # random sparse-SDF sample (reference lines 174-178)
-    pts_random = torch.rand((1024, 3), generator=generator, device=dev) * 2.0 - 1.0
+    if pts_random is None:
+        pts_random = torch.rand((1024, 3), generator=generator, device=dev) * 2.0 - 1.0
     rnd_out, rnd_mask = sdf_net.apply_occ(sdf_p, sdf_s, pts_random, stages)
     sdf_random = rnd_out[:, :1] * rnd_mask[:, None].float()
 
-    mid_inside, _, sdf_depth = neus_zero_crossing(
+    mid_inside, z_sdf0, sdf_depth = neus_zero_crossing(
         sdf, grads_rs, mid_z, vmask_f, inside_sphere, ray_cos)
+    warp = {}
+    if warp_feats is not None:
+        # patch warp at the first zero crossing (reference lines 218-237):
+        # differentiable through the crossing's depth, with the normal
+        # (from a detached SDF pass) and the patch features held fixed
+        z0 = torch.where((z_sdf0 < 0) | (z_sdf0 > z_vals.max()),
+                         torch.zeros_like(z_sdf0), z_sdf0)
+        pts_sdf0 = rays_o + rays_d * z0
+        detached = [(g, st.detach()) for g, st in stages]
+        sdf_p0 = {"layers": [{k: v.detach() for k, v in lin.items()}
+                             for lin in sdf_p["layers"]]}
+        grad0, _ = sdf_net.gradient(sdf_p0, sdf_s, pts_sdf0.detach(), detached)
+        gnorm = torch.linalg.norm(grad0, dim=-1, keepdim=True)
+        grad0 = grad0 / torch.where(gnorm <= 0, torch.full_like(gnorm, 1e-8), gnorm)
+        normal0 = (grad0 @ c2ws[0, :3, :3]).detach()
+        warp["ref_gray_val"], warp["sampled_gray_val"] = surface_patch_warp(
+            pts_sdf0, normal0, warp_feats, intrs, c2ws)
     return {
+        **warp,
         "mid_inside_sphere": mid_inside,
         "smooth_error": smooth_error,
         "color_fine": color,
         "render_depth": render_depth,
         "valid_mask": valid_mask,
         "sparse_sdf": torch.cat([sdf_random, sdf]),
-        "mid_z_vals": mid_z,
+        "mid_z_vals": mid_z.detach(),
         "gradients": grads_rs,
         "normal": normal,
         "s_val": 1.0 / inv_s,
@@ -222,19 +269,33 @@ def render_core(params, static, rays_o, rays_d, z_vals, sample_dist, stages,
 
 def render(params, static, rays_o, rays_d, near, far, matching_volume, stages,
            features, imgs, intrs, c2ws, cos_anneal_ratio=1.0, fused_colors=None,
-           generator=None):
+           generator=None, *, match_features=None, step=None, warp_feats=None,
+           pts_random=None):
     """Surface-centric z-vals then ``render_core``.  ``generator`` drives
     the z jitter (``render.perturb``) and the random SDF probe; None means
-    no jitter.  Callers rendering many chunks pass ``fuse_pyramid`` once."""
+    no jitter.  Callers rendering many chunks pass ``fuse_pyramid`` once.
+    Training passes ``match_features`` and ``step`` (or ``warp_feats``):
+    the patch warp for the NCC loss runs only then."""
     params = core.materialize_weight_norm(params)
     if near.shape[0] == 1:
         near = near.expand(rays_o.shape[0], 1)
         far = far.expand(rays_o.shape[0], 1)
     if fused_colors is None and static.get("fused_pyramid", False):
         fused_colors = fuse_pyramid(imgs, features)
+    if warp_feats is None and match_features is not None:
+        warp_feats = prepare_patch_features(features, match_features, step)
     z_vals = build_z_vals(static, rays_o, rays_d, near, far, matching_volume,
                           generator)
     return render_core(params, static, rays_o, rays_d, z_vals,
                        2.0 / static["n_samples"][0], stages, features, imgs,
                        intrs, c2ws, cos_anneal_ratio, fused_colors=fused_colors,
-                       generator=generator)
+                       generator=generator, warp_feats=warp_feats,
+                       pts_random=pts_random)
+
+
+def pseudo_sdf(params, static, pseudo_pts, stages):
+    """|SDF| supervision at the pseudo points (implicit_surface.py:425-434
+    of the reference): the SDF there, zero outside the active set."""
+    sdf_p = core.materialize_weight_norm(params)["sdf_network"]
+    out, occ = sdf_net.apply_occ(sdf_p, static["sdf"], pseudo_pts, stages)
+    return out[:, :1] * occ[:, None].float()

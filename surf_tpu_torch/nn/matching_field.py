@@ -1,6 +1,6 @@
 """Matching field: per-view depth maps rendered from the 1-channel density
 volume, which drive the cascade's sparsification (torch counterpart of
-surf_tpu/nn/matching_field.py, value path).
+surf_tpu/nn/matching_field.py).
 
 Per view: a ray grid at ``img_hw / depth_res_levels[stage]``; per ray
 ``n_samples_depths[stage]`` z-vals in the stage's band and, after stage 0,
@@ -47,12 +47,19 @@ def depth_render(rays_o, rays_d, near, far, c2w, matching_volume, n_samples,
 
 
 def apply(conf_static, ipts, matching_volume, stage_idx, range_ratios,
-          pre_depths=None, *, grad_views_only=False):
+          pre_depths=None, *, grad_views_only=False, perturb=False,
+          generator=None):
     """Per-view depth maps at the stage's resolution level.
     ipts: imgs (nv, H, W, 3), intrs/c2ws (nv, 4, 4), near_fars (nv, 2),
     optional src_idx.  Returns (depths (nv, H, W), occ_regs (nv,)).
     With ``grad_views_only`` (the last stage) only the reference and
-    source views {0, src_idx} are rendered; the others stay zero."""
+    source views {0, src_idx} are rendered; the others stay zero.
+
+    Gradients flow only through views {0, src_idx} (matching_field.py:
+    129-133 of the reference): when the volume requires grad the other
+    views render value-only, outside the graph, and the two grad views
+    render differentiably.  ``perturb`` jitters the grad views' samples
+    with numbers drawn from ``generator``; the other views never jitter."""
     intrs, c2ws, near_fars = ipts["intrs"], ipts["c2ws"], ipts["near_fars"]
     img_h, img_w = ipts["imgs"].shape[1:3]
     dev = intrs.device
@@ -61,14 +68,16 @@ def apply(conf_static, ipts, matching_volume, stage_idx, range_ratios,
     h, w = img_h // level, img_w // level
     pixels = make_pixel_grid((img_h, img_w), (h, w), device=dev)
     nv = intrs.shape[0]
+    src_idx = int(ipts.get("src_idx", 0))
+    grad_views = sorted({0, src_idx})
 
-    def per_view(v):
+    def per_view(v, volume, t_rand):
         rays_o, rays_d = pixels_to_rays(pixels, intrs[v], c2ws[v])
         near_ori, far_ori = near_fars[v, 0], near_fars[v, 1]
         if pre_depths is not None:
             px = torch.floor(pixels[:, 0]).long()
             py = torch.floor(pixels[:, 1]).long()
-            pre_z = pre_depths[v][py, px] / ray_z_cos(rays_d, c2ws[v])
+            pre_z = pre_depths[v].detach()[py, px] / ray_z_cos(rays_d, c2ws[v])
             base_range = far_ori - near_ori
             near_s, far_s = _band_from_depth(
                 pre_z, base_range * range_ratios[stage_idx], near_ori, far_ori)
@@ -79,20 +88,26 @@ def apply(conf_static, ipts, matching_volume, stage_idx, range_ratios,
         else:
             near = near_ori.expand(rays_o.shape[0], 1)
             far = far_ori.expand(rays_o.shape[0], 1)
-        d, occ = depth_render(rays_o, rays_d, near, far, c2ws[v],
-                              matching_volume, n_samples)
+        d, occ = depth_render(rays_o, rays_d, near, far, c2ws[v], volume,
+                              n_samples, t_rand=t_rand)
         d = d.reshape(h, w)
         if level != 1:
             d = resize_bilinear_2d(d[..., None], (img_h, img_w))[..., 0]
         return d, occ
 
-    if grad_views_only:
-        src_idx = int(ipts.get("src_idx", 0))
-        views = sorted({0, src_idx})
-    else:
-        views = range(nv)
-    depths = torch.zeros((nv, img_h, img_w), device=dev)
-    occ_regs = torch.zeros((nv,), device=dev)
+    zero_d = torch.zeros((img_h, img_w), device=dev)
+    zero_o = torch.zeros((), device=dev)
+    depths, occ_regs = [zero_d] * nv, [zero_o] * nv
+    views = grad_views if grad_views_only else range(nv)
+    if torch.is_grad_enabled() and matching_volume.requires_grad:
+        with torch.no_grad():
+            for v in views:
+                if v not in grad_views:
+                    depths[v], occ_regs[v] = per_view(v, matching_volume.detach(), None)
+        views = grad_views
     for v in views:
-        depths[v], occ_regs[v] = per_view(v)
-    return depths, occ_regs
+        t_rand = None
+        if perturb and v in grad_views:
+            t_rand = torch.rand((h * w, 1), generator=generator, device=dev) - 0.5
+        depths[v], occ_regs[v] = per_view(v, matching_volume, t_rand)
+    return torch.stack(depths), torch.stack(occ_regs)

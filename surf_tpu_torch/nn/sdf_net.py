@@ -11,7 +11,10 @@ counterpart of surf_tpu/nn/sdf_net.py).
 
 Output (n, d_out): the SDF (divided by ``scale``) then the features.
 ``gradient`` / ``value_features_grads`` give grad(sdf) and H.1 through
-autograd of K3's ``StageFeatures`` (twice differentiable).
+autograd of K3's ``SparseTrilinear``; with ``create_graph`` (training)
+all three outputs stay differentiable with respect to the parameters and
+the stage storages (the eikonal term reads grad(sdf), the smoothness
+term H.1).
 """
 
 from __future__ import annotations
@@ -123,23 +126,27 @@ def sdf_only(params, static, pts, stages):
     return apply(params, static, pts, stages)[:, :1]
 
 
-def value_features_grads_occ(params, static, pts, stages):
+def value_features_grads_occ(params, static, pts, stages, *, create_graph=False):
     """(out (n, d_out), grad sdf (n, 3), H.1 (n, 3), occupancy (n,)):
     grad = d sum(sdf)/d pts with the graph kept, H.1 = d (grad . 1)/d pts
-    (H is symmetric); per point, since points do not interact."""
+    (H is symmetric); per point, since points do not interact.  With
+    ``create_graph`` the outputs keep their graph (training); otherwise
+    they are detached."""
     with torch.enable_grad():
         p = pts.detach().requires_grad_(True)
         out, occ = apply_occ(params, static, p, stages)
         g, = torch.autograd.grad(out[:, 0].sum(), p, create_graph=True)
-        h, = torch.autograd.grad(g, p, torch.ones_like(g))
+        h, = torch.autograd.grad(g, p, torch.ones_like(g), create_graph=create_graph)
+    if create_graph:
+        return out, g, h, occ
     return out.detach(), g.detach(), h.detach(), occ
 
 
 def value_features_grads(params, static, pts, stages):
-    """(out (n, d_out), grad sdf (n, 3), H.1 (n, 3))."""
+    """(out (n, d_out), grad sdf (n, 3), H.1 (n, 3)), detached."""
     return value_features_grads_occ(params, static, pts, stages)[:3]
 
 
 def gradient(params, static, pts, stages):
-    """(grad sdf (n, 3), H.1 (n, 3))."""
+    """(grad sdf (n, 3), H.1 (n, 3)), detached."""
     return value_features_grads(params, static, pts, stages)[1:]

@@ -14,6 +14,11 @@ Two hand-written kernels live here (csrc/grid_sample.cu):
 * K2 ``trilinear_sample`` — the values of ``_trilinear_core_cm`` /
   ``trilinear_sample_3d`` / ``PackedVolume``.
 
+Their backward kernels (training) are K1b ``bilinear_sample_bwd`` and
+K2b ``trilinear_sample_bwd``.  ``bilinear_sample_2d`` and
+``trilinear_sample_3d`` are differentiable: they run through
+``torch.autograd.Function``s whose backward is K1b / K2b.
+
 Each wrapper launches its kernel for CUDA tensors and takes the plain
 PyTorch version beside it only for CPU tensors.
 """
@@ -23,6 +28,7 @@ from __future__ import annotations
 import ctypes
 
 import torch
+from torch.autograd.function import once_differentiable
 
 from .. import _build
 
@@ -90,16 +96,111 @@ def bilinear_sample(images, coords, *, normalized=True, align_corners=True):
     return out
 
 
+def _coord_scale(size, normalized, align_corners):
+    """d(unnormalized coordinate) / d(coordinate)."""
+    if not normalized:
+        return 1.0
+    return 0.5 * (size - 1) if align_corners else 0.5 * size
+
+
+def bilinear_sample_bwd_plain(images, coords, ct, *, normalized=True,
+                              align_corners=True, need_images=True,
+                              need_coords=True):
+    """Plain version of K1b: the VJP of ``bilinear_sample_plain`` for the
+    cotangent ct (V, N, C).  Returns (d_images (V, H, W, C) | None,
+    d_coords (V, N, 2) | None); corner indices carry no gradient."""
+    V, H, W, C = images.shape
+    x, y = coords[..., 0], coords[..., 1]
+    if normalized:
+        x = _unnormalize(x, W, align_corners)
+        y = _unnormalize(y, H, align_corners)
+    x0f, y0f = torch.floor(x), torch.floor(y)
+    fx, fy = x - x0f, y - y0f
+    x0, y0 = x0f.long(), y0f.long()
+    flat = images.reshape(V * H * W, C)
+    vbase = (torch.arange(V, device=images.device) * (H * W))[:, None]
+    d_flat = torch.zeros_like(flat) if need_images else None
+    dx = dy = 0.0
+    for ox, oy in ((0, 0), (1, 0), (0, 1), (1, 1)):
+        cx, cy = x0 + ox, y0 + oy
+        valid = ((cx >= 0) & (cx < W) & (cy >= 0) & (cy < H)).to(images.dtype)
+        idx = (vbase + cy.clamp(0, H - 1) * W + cx.clamp(0, W - 1)).reshape(-1)
+        wx = fx if ox else 1.0 - fx
+        wy = fy if oy else 1.0 - fy
+        if need_images:
+            d_flat.index_add_(0, idx, (ct * (wx * wy * valid)[..., None]).reshape(-1, C))
+        if need_coords:
+            s = (flat[idx].reshape(V, -1, C) * ct).sum(-1) * valid
+            dx = dx + s * (1.0 if ox else -1.0) * wy
+            dy = dy + s * (1.0 if oy else -1.0) * wx
+    d_coords = None
+    if need_coords:
+        d_coords = torch.stack([dx * _coord_scale(W, normalized, align_corners),
+                                dy * _coord_scale(H, normalized, align_corners)], -1)
+    return (d_flat.reshape(V, H, W, C) if need_images else None), d_coords
+
+
+def bilinear_sample_bwd(images, coords, ct, *, normalized=True,
+                        align_corners=True, need_images=True, need_coords=True):
+    """K1b wrapper.  Same contract as ``bilinear_sample_bwd_plain``; f32
+    images (V, H, W, C), coords (V, N, 2) and ct (V, N, C)."""
+    if images.device.type == "cpu" and coords.device.type == "cpu":
+        return bilinear_sample_bwd_plain(
+            images, coords, ct, normalized=normalized, align_corners=align_corners,
+            need_images=need_images, need_coords=need_coords)
+    _build.require_cuda("bilinear_sample_bwd", images, coords, ct)
+    V, H, W, C = images.shape
+    N = coords.shape[1]
+    if images.dtype != torch.float32 or coords.dtype != torch.float32 \
+            or ct.dtype != torch.float32 or tuple(ct.shape) != (V, N, C) \
+            or tuple(coords.shape) != (V, N, 2):
+        raise ValueError("bilinear_sample_bwd: needs f32 images (V,H,W,C), "
+                         "coords (V,N,2) and ct (V,N,C)")
+    d_img = torch.zeros_like(images) if need_images else None
+    d_co = torch.empty_like(coords) if need_coords else None
+    fn = _build.kernel_fn("grid_sample", "bilinear_sample_2d_bwd",
+                          [_P, _P, _P, _P, _P, _I, _I, _I, _I, _L, _I, _I, _P])
+    _build.check(fn(images.data_ptr(), coords.data_ptr(), ct.data_ptr(),
+                    d_img.data_ptr() if need_images else None,
+                    d_co.data_ptr() if need_coords else None,
+                    V, H, W, C, N, int(normalized), int(align_corners),
+                    _build.stream_of(images)), "bilinear_sample_2d_bwd")
+    _build.launches["bilinear_sample_2d_bwd"] += 1
+    return d_img, d_co
+
+
+class _BilinearSample(torch.autograd.Function):
+    """K1 with K1b as its backward (first order only)."""
+
+    @staticmethod
+    def forward(ctx, images, coords, normalized, align_corners):
+        ctx.save_for_backward(images, coords)
+        ctx.flags = (normalized, align_corners)
+        return bilinear_sample(images, coords, normalized=normalized,
+                               align_corners=align_corners)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, ct):
+        images, coords = ctx.saved_tensors
+        normalized, align_corners = ctx.flags
+        d_img, d_co = bilinear_sample_bwd(
+            images, coords, ct.float().contiguous(), normalized=normalized,
+            align_corners=align_corners, need_images=ctx.needs_input_grad[0],
+            need_coords=ctx.needs_input_grad[1])
+        return d_img, d_co, None, None
+
+
 def bilinear_sample_2d(image, coords, *, normalized=True, align_corners=True):
     """Bilinear sample of one image (H, W, C) at coords (..., 2), or of a
     view batch (V, H, W, C) at coords (V, ..., 2).  Returns (..., C) /
-    (V, ..., C)."""
+    (V, ..., C).  Differentiable in the image and the coordinates (K1b)."""
     batched = image.dim() == 4
     imgs = image if batched else image[None]
     lead = coords.shape[:-1]
     co = coords.reshape(imgs.shape[0], -1, 2).float().contiguous()
-    out = bilinear_sample(imgs.float().contiguous(), co, normalized=normalized,
-                          align_corners=align_corners)
+    imgs = imgs.float().contiguous()
+    out = _BilinearSample.apply(imgs, co, normalized, align_corners)
     C = imgs.shape[-1]
     return out.reshape(*lead, C)
 
@@ -199,13 +300,112 @@ def trilinear_sample(volume, coords, *, normalized=True, align_corners=True):
     return out
 
 
+def trilinear_sample_bwd_plain(volume, coords, ct, *, normalized=True,
+                               align_corners=True, need_volume=True,
+                               need_coords=True):
+    """Plain version of K2b: the VJP of ``trilinear_sample_plain`` for the
+    cotangent ct (N, C).  Returns (d_volume in the volume's dtype, summed
+    in f32 | None, d_coords (N, 3) | None)."""
+    X, Y, Z, C = volume.shape
+    x, y, z = coords[..., 0], coords[..., 1], coords[..., 2]
+    if normalized:
+        x = _unnormalize(x, X, align_corners)
+        y = _unnormalize(y, Y, align_corners)
+        z = _unnormalize(z, Z, align_corners)
+    x0f, y0f, z0f = torch.floor(x), torch.floor(y), torch.floor(z)
+    fx, fy, fz = x - x0f, y - y0f, z - z0f
+    gx, gy, gz = 1.0 - fx, 1.0 - fy, 1.0 - fz
+    x0, y0, z0 = x0f.long(), y0f.long(), z0f.long()
+    flat = volume.reshape(X * Y * Z, C)
+    d_flat = torch.zeros((X * Y * Z, C), dtype=torch.float32,
+                         device=volume.device) if need_volume else None
+    dx = dy = dz = 0.0
+    for k in range(8):
+        ox, oy, oz = (k >> 2) & 1, (k >> 1) & 1, k & 1
+        cx, cy, cz = x0 + ox, y0 + oy, z0 + oz
+        valid = ((cx >= 0) & (cx < X) & (cy >= 0) & (cy < Y) & (cz >= 0)
+                 & (cz < Z)).float()
+        idx = ((cx.clamp(0, X - 1) * Y + cy.clamp(0, Y - 1)) * Z
+               + cz.clamp(0, Z - 1)).reshape(-1)
+        wx, wy, wz = (fx if ox else gx), (fy if oy else gy), (fz if oz else gz)
+        if need_volume:
+            d_flat.index_add_(0, idx, ct * (wx * wy * wz * valid)[..., None])
+        if need_coords:
+            s = (flat[idx].float() * ct).sum(-1) * valid
+            dx = dx + s * (1.0 if ox else -1.0) * wy * wz
+            dy = dy + s * wx * (1.0 if oy else -1.0) * wz
+            dz = dz + s * wx * wy * (1.0 if oz else -1.0)
+    d_coords = None
+    if need_coords:
+        d_coords = torch.stack([dx * _coord_scale(X, normalized, align_corners),
+                                dy * _coord_scale(Y, normalized, align_corners),
+                                dz * _coord_scale(Z, normalized, align_corners)], -1)
+    d_vol = d_flat.reshape(X, Y, Z, C).to(volume.dtype) if need_volume else None
+    return d_vol, d_coords
+
+
+def trilinear_sample_bwd(volume, coords, ct, *, normalized=True,
+                         align_corners=True, need_volume=True, need_coords=True):
+    """K2b wrapper.  Same contract as ``trilinear_sample_bwd_plain``; an
+    f32 or bf16 volume (X, Y, Z, C), f32 coords (N, 3) and ct (N, C)."""
+    if volume.device.type == "cpu" and coords.device.type == "cpu":
+        return trilinear_sample_bwd_plain(
+            volume, coords, ct, normalized=normalized, align_corners=align_corners,
+            need_volume=need_volume, need_coords=need_coords)
+    _build.require_cuda("trilinear_sample_bwd", volume, coords, ct)
+    X, Y, Z, C = volume.shape
+    N = coords.shape[0]
+    if volume.dtype not in (torch.float32, torch.bfloat16) \
+            or coords.dtype != torch.float32 or ct.dtype != torch.float32 \
+            or tuple(coords.shape) != (N, 3) or tuple(ct.shape) != (N, C):
+        raise ValueError("trilinear_sample_bwd: needs an f32/bf16 volume "
+                         "(X,Y,Z,C), f32 coords (N,3) and ct (N,C)")
+    d_vol = torch.zeros(volume.shape, dtype=torch.float32,
+                        device=volume.device) if need_volume else None
+    d_co = torch.empty_like(coords) if need_coords else None
+    fn = _build.kernel_fn("grid_sample", "trilinear_sample_3d_bwd",
+                          [_P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _L, _I, _I, _P])
+    _build.check(fn(volume.data_ptr(), int(volume.dtype == torch.bfloat16),
+                    coords.data_ptr(), ct.data_ptr(),
+                    d_vol.data_ptr() if need_volume else None,
+                    d_co.data_ptr() if need_coords else None,
+                    X, Y, Z, C, N, int(normalized), int(align_corners),
+                    _build.stream_of(volume)), "trilinear_sample_3d_bwd")
+    _build.launches["trilinear_sample_3d_bwd"] += 1
+    if need_volume:
+        d_vol = d_vol.to(volume.dtype)
+    return d_vol, d_co
+
+
+class _TrilinearSample(torch.autograd.Function):
+    """K2 with K2b as its backward (first order only)."""
+
+    @staticmethod
+    def forward(ctx, volume, coords, normalized, align_corners):
+        ctx.save_for_backward(volume, coords)
+        ctx.flags = (normalized, align_corners)
+        return trilinear_sample(volume, coords, normalized=normalized,
+                                align_corners=align_corners)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, ct):
+        volume, coords = ctx.saved_tensors
+        normalized, align_corners = ctx.flags
+        d_vol, d_co = trilinear_sample_bwd(
+            volume, coords, ct.float().contiguous(), normalized=normalized,
+            align_corners=align_corners, need_volume=ctx.needs_input_grad[0],
+            need_coords=ctx.needs_input_grad[1])
+        return d_vol, d_co, None, None
+
+
 def trilinear_sample_3d(volume, coords, *, normalized=True, align_corners=True):
     """Trilinear sample of a volume (X, Y, Z, C) at coords (..., 3) ->
-    (..., C) f32."""
+    (..., C) f32.  Differentiable in the volume and the coordinates (K2b)."""
     lead = coords.shape[:-1]
-    out = trilinear_sample(volume.contiguous(),
-                           coords.reshape(-1, 3).float().contiguous(),
-                           normalized=normalized, align_corners=align_corners)
+    vol = volume.contiguous()
+    co = coords.reshape(-1, 3).float().contiguous()
+    out = _TrilinearSample.apply(vol, co, normalized, align_corners)
     return out.reshape(*lead, volume.shape[-1])
 
 

@@ -10,9 +10,11 @@ Feature storage for a stage is any ``(P * 8, C)`` tensor indexed by
 The hand-written kernel K3 (csrc/sparse_trilinear.cu) serves every render
 and mesh lookup: ``sparse_trilinear_multi`` returns the features of all
 stages, their nearest occupancy and, in render mode, the derivatives
-with respect to the point.  ``StageFeatures`` wraps it for autograd so
+with respect to the point.  ``SparseTrilinear`` wraps it for autograd so
 that ``grad(sdf)`` and ``grad(grad(sdf) . 1)`` (the SDF net's gradient and
-H.1) flow through the kernel's own derivative outputs.
+H.1) flow through the kernel's own derivative outputs, and so that all of
+them are differentiable with respect to the stage storages (training):
+the storage gradient is the kernel K3b (``sparse_trilinear_multi_bwd``).
 """
 
 from __future__ import annotations
@@ -117,9 +119,35 @@ _I = ctypes.c_int
 _L = ctypes.c_longlong
 
 
-def _stage_plain(grid, storage, pts, derivs):
-    """One stage of the plain K3: (feats, occ, jac, hmix) with jac/hmix
-    (n, 3, C) or None."""
+def _corner_terms(f, s, k):
+    """Per-corner coefficients of slot k at cell fractions f (n, 3) and
+    derivative scale s: (w, (dw/dx, dw/dy, dw/dz), (d2w/dxdy, d2w/dxdz,
+    d2w/dydz), d3w/dxdydz)."""
+    ox, oy, oz = (k >> 2) & 1, (k >> 1) & 1, k & 1
+    fx, fy, fz = f[:, 0], f[:, 1], f[:, 2]
+    wx, wy, wz = (fx if ox else 1.0 - fx), (fy if oy else 1.0 - fy), \
+        (fz if oz else 1.0 - fz)
+    sx, sy, sz = (s if ox else -s), (s if oy else -s), (s if oz else -s)
+    return (wx * wy * wz, (sx * wy * wz, wx * sy * wz, wx * wy * sz),
+            (sx * sy * wz, sx * wy * sz, wx * sy * sz), sx * sy * sz)
+
+
+def _cell(grid, pts):
+    """Trilinear cell of ``pts`` at the stage's resolution: (fractions
+    (n, 3), derivative scale, [(rows, valid) of the 8 corners, clamped to
+    the border before the lookup])."""
+    res = grid.res
+    coords = (pts + 1.0) * 0.5 * (res - 1)
+    c0 = torch.floor(coords)
+    c0i = c0.long()
+    off = child_offsets(pts.device)
+    corners = [lookup_rows(grid, (c0i + off[k]).clamp(0, res - 1)) for k in range(8)]
+    return coords - c0, 0.5 * (res - 1), corners
+
+
+def _stage_plain(grid, storage, pts, derivs, third=False):
+    """One stage of the plain K3: (feats, occ, jac, hmix, third) with
+    jac/hmix (n, 3, C) or None, third (n, C) or None."""
     res = grid.res
     n = pts.shape[0]
     nc = ((pts + 1.0) * res - 1.0) * 0.5
@@ -128,155 +156,270 @@ def _stage_plain(grid, storage, pts, derivs):
     _, nvalid = lookup_rows(grid, ni.clamp(0, res - 1))
     occ = nvalid & inside
 
-    coords = (pts + 1.0) * 0.5 * (res - 1)
-    c0 = torch.floor(coords)
-    f = coords - c0
-    c0i = c0.long()
-    fx, fy, fz = f[:, 0], f[:, 1], f[:, 2]
-    gx, gy, gz = 1.0 - fx, 1.0 - fy, 1.0 - fz
-    s = 0.5 * (res - 1)
+    f, s, corners = _cell(grid, pts)
     C = storage.shape[-1]
     val = torch.zeros((n, C), dtype=torch.float32, device=pts.device)
-    jac = hmix = None
+    jac = hmix = t3 = None
     if derivs:
         jac = torch.zeros((n, 3, C), dtype=torch.float32, device=pts.device)
         hmix = torch.zeros((n, 3, C), dtype=torch.float32, device=pts.device)
-    off = child_offsets(pts.device)
-    for k in range(8):
-        ox, oy, oz = (k >> 2) & 1, (k >> 1) & 1, k & 1
-        corner = (c0i + off[k]).clamp(0, res - 1)
-        rows, valid = lookup_rows(grid, corner)
+    if third:
+        t3 = torch.zeros((n, C), dtype=torch.float32, device=pts.device)
+    for k, (rows, valid) in enumerate(corners):
         vals = gather_feats(storage, rows, valid)
-        wx, wy, wz = (fx if ox else gx), (fy if oy else gy), (fz if oz else gz)
-        val = val + vals * (wx * wy * wz)[:, None]
+        w, dw, d2w, d3w = _corner_terms(f, s, k)
+        val = val + vals * w[:, None]
         if derivs:
-            sx, sy, sz = (s if ox else -s), (s if oy else -s), (s if oz else -s)
-            jac[:, 0] += vals * (sx * wy * wz)[:, None]
-            jac[:, 1] += vals * (wx * sy * wz)[:, None]
-            jac[:, 2] += vals * (wx * wy * sz)[:, None]
-            hmix[:, 0] += vals * (sx * sy * wz)[:, None]
-            hmix[:, 1] += vals * (sx * wy * sz)[:, None]
-            hmix[:, 2] += vals * (wx * sy * sz)[:, None]
-    return val, occ, jac, hmix
+            for a in range(3):
+                jac[:, a] += vals * dw[a][:, None]
+                hmix[:, a] += vals * d2w[a][:, None]
+        if third:
+            t3 += vals * d3w
+    return val, occ, jac, hmix, t3
 
 
-def sparse_trilinear_multi_plain(stages, pts, *, derivs=False):
+def sparse_trilinear_multi_plain(stages, pts, *, derivs=False, third=False):
     """Plain version of K3.  stages: [(VoxelGrid, storage (P*8, C)), ...];
     pts (n, 3) in [-1, 1]^3.  Returns (feats (n, sum C), occ (n,) bool,
-    jac (n, 3, sum C) | None, hmix (n, 3, sum C) | None); hmix holds
-    d2/dxdy, d2/dxdz, d2/dydz."""
-    outs = [_stage_plain(g, s, pts, derivs) for g, s in stages]
+    jac (n, 3, sum C) | None, hmix (n, 3, sum C) | None), and with
+    ``third`` also d3/dxdydz (n, sum C); hmix holds d2/dxdy, d2/dxdz,
+    d2/dydz."""
+    outs = [_stage_plain(g, s, pts, derivs or third, third) for g, s in stages]
     feats = torch.cat([o[0] for o in outs], dim=-1)
     occ = outs[0][1]
     for o in outs[1:]:
         occ = occ | o[1]
-    if not derivs:
-        return feats, occ, None, None
-    return (feats, occ, torch.cat([o[2] for o in outs], dim=-1),
-            torch.cat([o[3] for o in outs], dim=-1))
-
-
-def sparse_trilinear_multi(stages, pts, *, derivs=False):
-    """K3 wrapper: one launch over up to 4 stages.  Same contract as
-    ``sparse_trilinear_multi_plain``."""
-    pts = pts.detach()
-    if pts.device.type == "cpu":
-        return sparse_trilinear_multi_plain(stages, pts, derivs=derivs)
-    if not 1 <= len(stages) <= 4:
-        raise ValueError("sparse_trilinear_multi: 1 to 4 stages")
-    pts = pts.float().contiguous()
-    tensors = [pts]
-    for g, s in stages:
-        if s.dtype != torch.float32 or g.parent_table.dtype != torch.int32 \
-                or g.cvalid.dtype != torch.bool:
-            raise ValueError("sparse_trilinear_multi: needs int32 tables, bool "
-                             "cvalid and f32 storage")
-        tensors += [g.parent_table, g.cvalid, s]
-    _build.require_cuda("sparse_trilinear_multi", *tensors)
-    n = pts.shape[0]
-    Cs = [int(s.shape[-1]) for _, s in stages]
-    ctot = sum(Cs)
-    dev = pts.device
-    feats = torch.empty((n, ctot), dtype=torch.float32, device=dev)
-    occ = torch.empty((n,), dtype=torch.bool, device=dev)
-    jac = hmix = None
-    if derivs:
-        jac = torch.empty((n, 3, ctot), dtype=torch.float32, device=dev)
-        hmix = torch.empty((n, 3, ctot), dtype=torch.float32, device=dev)
-    ns = len(stages)
-    arr_l = ctypes.c_longlong * ns
-    arr_i = ctypes.c_int * ns
-    tables = arr_l(*[g.parent_table.data_ptr() for g, _ in stages])
-    cvalids = arr_l(*[g.cvalid.data_ptr() for g, _ in stages])
-    storages = arr_l(*[s.data_ptr() for _, s in stages])
-    res = arr_i(*[g.res for g, _ in stages])
-    cs = arr_i(*Cs)
-    fn = _build.kernel_fn("sparse_trilinear", "sparse_trilinear_multi",
-                          [_P, _L, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P])
-    _build.check(fn(pts.data_ptr(), n, ns, ctypes.addressof(tables),
-                    ctypes.addressof(cvalids), ctypes.addressof(storages),
-                    ctypes.addressof(res), ctypes.addressof(cs),
-                    feats.data_ptr(), occ.data_ptr(),
-                    jac.data_ptr() if derivs else None,
-                    hmix.data_ptr() if derivs else None,
-                    _build.stream_of(pts)), "sparse_trilinear_multi")
-    _build.launches["sparse_trilinear_multi"] += 1
+    jac = hmix = t3 = None
+    if derivs or third:
+        jac = torch.cat([o[2] for o in outs], dim=-1)
+        hmix = torch.cat([o[3] for o in outs], dim=-1)
+    if third:
+        t3 = torch.cat([o[4] for o in outs], dim=-1)
+        return feats, occ, jac, hmix, t3
     return feats, occ, jac, hmix
 
 
-def _mixed_times(gg, g, hmix):
-    """d/dpts of sum_a gg[a] * (g . J[a]) given the mixed second
-    derivatives (the pure ones vanish inside a trilinear cell)."""
-    S = torch.einsum("nc,nkc->nk", g, hmix)          # S_xy, S_xz, S_yz
-    sxy, sxz, syz = S[:, 0], S[:, 1], S[:, 2]
-    gx, gy, gz = gg[:, 0], gg[:, 1], gg[:, 2]
-    return torch.stack([gy * sxy + gz * sxz,
-                        gx * sxy + gz * syz,
-                        gx * sxz + gy * syz], dim=-1)
+def _stage_args(stages, what, check_storage=True):
+    """Per-stage pointer and size arrays of the kernels' C interface."""
+    for g, s in stages:
+        if g.parent_table.dtype != torch.int32 or g.cvalid.dtype != torch.bool \
+                or (check_storage and s.dtype != torch.float32):
+            raise ValueError(f"{what}: needs int32 tables, bool cvalid and f32 "
+                             f"storage")
+    if not 1 <= len(stages) <= 4:
+        raise ValueError(f"{what}: 1 to 4 stages")
+    ns = len(stages)
+    arr_l = ctypes.c_longlong * ns
+    arr_i = ctypes.c_int * ns
+    return (arr_l(*[g.parent_table.data_ptr() for g, _ in stages]),
+            arr_l(*[g.cvalid.data_ptr() for g, _ in stages]),
+            arr_i(*[g.res for g, _ in stages]),
+            arr_i(*[int(s.shape[-1]) for _, s in stages]))
 
 
-class _JacobianT(torch.autograd.Function):
-    """d_pts = J^T g, differentiable once more (through g and, via the
-    mixed second derivatives, through pts)."""
+def sparse_trilinear_multi(stages, pts, *, derivs=False, third=False):
+    """K3 wrapper: one launch over up to 4 stages.  Same contract as
+    ``sparse_trilinear_multi_plain`` (``third`` takes the training
+    variant of the kernel)."""
+    pts = pts.detach()
+    if pts.device.type == "cpu":
+        return sparse_trilinear_multi_plain(stages, pts, derivs=derivs, third=third)
+    pts = pts.float().contiguous()
+    tables, cvalids, res, cs = _stage_args(stages, "sparse_trilinear_multi")
+    _build.require_cuda("sparse_trilinear_multi", pts,
+                        *[t for g, s in stages for t in (g.parent_table, g.cvalid, s)])
+    n = pts.shape[0]
+    ctot = sum(cs)
+    dev = pts.device
+    feats = torch.empty((n, ctot), dtype=torch.float32, device=dev)
+    occ = torch.empty((n,), dtype=torch.bool, device=dev)
+    jac = hmix = t3 = None
+    if derivs or third:
+        jac = torch.empty((n, 3, ctot), dtype=torch.float32, device=dev)
+        hmix = torch.empty((n, 3, ctot), dtype=torch.float32, device=dev)
+    storages = (ctypes.c_longlong * len(stages))(*[s.data_ptr() for _, s in stages])
+    common = [pts.data_ptr(), n, len(stages), ctypes.addressof(tables),
+              ctypes.addressof(cvalids), ctypes.addressof(storages),
+              ctypes.addressof(res), ctypes.addressof(cs), feats.data_ptr(),
+              occ.data_ptr(), jac.data_ptr() if jac is not None else None,
+              hmix.data_ptr() if hmix is not None else None]
+    if third:
+        t3 = torch.empty((n, ctot), dtype=torch.float32, device=dev)
+        fn = _build.kernel_fn("sparse_trilinear", "sparse_trilinear_multi_third",
+                              [_P, _L, _I] + [_P] * 11)
+        rc = fn(*common, t3.data_ptr(), _build.stream_of(pts))
+    else:
+        fn = _build.kernel_fn("sparse_trilinear", "sparse_trilinear_multi",
+                              [_P, _L, _I] + [_P] * 10)
+        rc = fn(*common, _build.stream_of(pts))
+    _build.check(rc, "sparse_trilinear_multi")
+    _build.launches["sparse_trilinear_multi"] += 1
+    if third:
+        return feats, occ, jac, hmix, t3
+    return feats, occ, jac, hmix
+
+
+# ---------------------------------------------------------------------------
+# K3b: gradient with respect to the stage storages
+# ---------------------------------------------------------------------------
+
+def sparse_trilinear_multi_bwd_plain(stages, pts, ct_feats=None, ct_jac=None,
+                                     ct_hmix=None, ct_third=None):
+    """Plain version of K3b: the storage gradients [(P*8, C) per stage] of
+    ``sum(ct_feats * feats + ct_jac * jac + ct_hmix * hmix + ct_third *
+    third)``; any cotangent may be None (zero)."""
+    grads, coff = [], 0
+    for grid, storage in stages:
+        C = storage.shape[-1]
+        sl = slice(coff, coff + C)
+        coff += C
+        f, s, corners = _cell(grid, pts)
+        d = torch.zeros((storage.shape[0], C), dtype=torch.float32, device=pts.device)
+        for k, (rows, valid) in enumerate(corners):
+            w, dw, d2w, d3w = _corner_terms(f, s, k)
+            coef = 0.0
+            if ct_feats is not None:
+                coef = coef + ct_feats[:, sl] * w[:, None]
+            for a in range(3):
+                if ct_jac is not None:
+                    coef = coef + ct_jac[:, a, sl] * dw[a][:, None]
+                if ct_hmix is not None:
+                    coef = coef + ct_hmix[:, a, sl] * d2w[a][:, None]
+            if ct_third is not None:
+                coef = coef + ct_third[:, sl] * d3w
+            if isinstance(coef, torch.Tensor):
+                d.index_add_(0, rows, coef * valid[:, None].float())
+        grads.append(d)
+    return grads
+
+
+def sparse_trilinear_multi_bwd(stages, pts, ct_feats=None, ct_jac=None,
+                               ct_hmix=None, ct_third=None):
+    """K3b wrapper: one launch over up to 4 stages.  Same contract as
+    ``sparse_trilinear_multi_bwd_plain``."""
+    pts = pts.detach()
+    if pts.device.type == "cpu":
+        return sparse_trilinear_multi_bwd_plain(stages, pts, ct_feats, ct_jac,
+                                                ct_hmix, ct_third)
+    pts = pts.float().contiguous()
+    cts = [None if c is None else c.detach().float().contiguous()
+           for c in (ct_feats, ct_jac, ct_hmix, ct_third)]
+    tables, cvalids, res, cs = _stage_args(stages, "sparse_trilinear_multi_bwd",
+                                           check_storage=False)
+    _build.require_cuda("sparse_trilinear_multi_bwd", pts,
+                        *[t for g, _ in stages for t in (g.parent_table, g.cvalid)],
+                        *[c for c in cts if c is not None])
+    n = pts.shape[0]
+    grads = [torch.zeros((s.shape[0], s.shape[-1]), dtype=torch.float32,
+                         device=pts.device) for _, s in stages]
+    gptr = (ctypes.c_longlong * len(stages))(*[g.data_ptr() for g in grads])
+    fn = _build.kernel_fn("sparse_trilinear", "sparse_trilinear_multi_bwd",
+                          [_P, _L, _I] + [_P] * 10)
+    _build.check(fn(pts.data_ptr(), n, len(stages), ctypes.addressof(tables),
+                    ctypes.addressof(cvalids), ctypes.addressof(gptr),
+                    ctypes.addressof(res), ctypes.addressof(cs),
+                    *[None if c is None else c.data_ptr() for c in cts],
+                    _build.stream_of(pts)), "sparse_trilinear_multi_bwd")
+    _build.launches["sparse_trilinear_multi_bwd"] += 1
+    return grads
+
+
+class _StorageGrad(torch.autograd.Function):
+    """K3b inside a backward that builds a graph (``create_graph``): the
+    storage gradient is exact, and differentiating it once more raises
+    (nothing in the training graph asks for it)."""
 
     @staticmethod
-    def forward(ctx, pts, g, jac, hmix):
-        ctx.save_for_backward(g, jac, hmix)
-        return torch.einsum("nc,nac->na", g, jac)
+    def forward(ctx, stages, pts, ct_feats, ct_jac, ct_hmix, ct_third):
+        return tuple(sparse_trilinear_multi_bwd(stages, pts, ct_feats, ct_jac,
+                                                ct_hmix, ct_third))
 
     @staticmethod
-    def backward(ctx, gg):
-        g, jac, hmix = ctx.saved_tensors
-        d_g = torch.einsum("na,nac->nc", gg, jac)
-        return _mixed_times(gg, g, hmix), d_g, None, None
+    def backward(ctx, *_):
+        raise NotImplementedError("sparse_trilinear: the derivative of the storage "
+                                  "gradient is not implemented")
 
 
-class StageFeatures(torch.autograd.Function):
-    """(feats, occ) = K3(stages, pts) with gradients w.r.t. ``pts`` only
-    (twice differentiable)."""
+def _pts_grad(ct_feats, ct_jac, ct_hmix, jac, hmix, third):
+    """d/dpts of sum(ct_feats * F + ct_jac * J + ct_hmix * H) inside a
+    trilinear cell: J gives the first term, the mixed second derivatives
+    the second (the pure ones vanish), d3/dxdydz the third (every other
+    third derivative vanishes).  Differentiable through jac, hmix, third."""
+    d = torch.zeros_like(jac[:, :, 0])
+    if ct_feats is not None:
+        d = d + torch.einsum("nc,nac->na", ct_feats, jac)
+    if ct_jac is not None:
+        hxy, hxz, hyz = hmix[:, 0], hmix[:, 1], hmix[:, 2]
+        gx, gy, gz = ct_jac[:, 0], ct_jac[:, 1], ct_jac[:, 2]
+        d = d + torch.stack([(gy * hxy + gz * hxz).sum(-1),
+                             (gx * hxy + gz * hyz).sum(-1),
+                             (gx * hxz + gy * hyz).sum(-1)], -1)
+    if ct_hmix is not None:
+        # d(H_xy)/dz = d(H_xz)/dy = d(H_yz)/dx = d3/dxdydz
+        d = d + torch.stack([(ct_hmix[:, 2] * third).sum(-1),
+                             (ct_hmix[:, 1] * third).sum(-1),
+                             (ct_hmix[:, 0] * third).sum(-1)], -1)
+    return d
+
+
+class SparseTrilinear(torch.autograd.Function):
+    """K3 as a function of (pts, storage_0..3): outputs (feats, occ) and,
+    when ``pts`` requires grad, the derivative outputs jac and hmix (and
+    third, when a storage requires grad as well), every one
+    differentiable with respect to every storage (K3b) and to ``pts``
+    (through the next derivative output), to any order the training graph
+    asks for."""
 
     @staticmethod
-    def forward(ctx, pts, stages):
-        feats, occ, jac, hmix = sparse_trilinear_multi(
-            stages, pts, derivs=pts.requires_grad)
-        if jac is not None:
-            ctx.save_for_backward(pts, jac, hmix)
-        ctx.mark_non_differentiable(occ)
-        return feats, occ
+    def forward(ctx, pts, grids, derivs, third, *storages):
+        stages = list(zip(grids, storages))
+        outs = sparse_trilinear_multi(stages, pts, derivs=derivs, third=third)
+        ctx.mark_non_differentiable(outs[1])
+        # outputs that no gradient reaches come to backward as None, not
+        # zeros: their terms (and K3b's reads of them) are skipped
+        ctx.set_materialize_grads(False)
+        ctx.grids, ctx.derivs, ctx.third = grids, derivs, third
+        keep = [o for o in outs if o is not None and o.dtype != torch.bool]
+        ctx.save_for_backward(pts, *storages, *keep)
+        return tuple(o for o in outs if o is not None)
 
     @staticmethod
-    def backward(ctx, g_feats, _g_occ):
-        pts, jac, hmix = ctx.saved_tensors
-        return _JacobianT.apply(pts, g_feats, jac, hmix), None
+    def backward(ctx, ct_feats, _ct_occ, *cts):
+        saved = ctx.saved_tensors
+        ns = len(ctx.grids)
+        pts, storages, outs = saved[0], saved[1:1 + ns], saved[1 + ns:]
+        stages = list(zip(ctx.grids, storages))
+        ct_jac, ct_hmix, ct_third = (list(cts) + [None] * 3)[:3]
+        d_pts = None
+        if ctx.needs_input_grad[0]:
+            _, jac, hmix = outs[:3]
+            third = outs[3] if ctx.third else None
+            if ct_hmix is not None and third is None:
+                # no storage needs a gradient: d3/dxdydz is a constant here
+                third = sparse_trilinear_multi([(g, s.detach()) for g, s in stages],
+                                               pts, third=True)[4]
+            d_pts = _pts_grad(ct_feats, ct_jac, ct_hmix, jac, hmix, third)
+        d_st = [None] * ns
+        if any(ctx.needs_input_grad[4:]) and any(
+                c is not None for c in (ct_feats, ct_jac, ct_hmix, ct_third)):
+            args = (stages, pts, ct_feats, ct_jac, ct_hmix, ct_third)
+            d_st = _StorageGrad.apply(*args) if torch.is_grad_enabled() \
+                else sparse_trilinear_multi_bwd(*args)
+            d_st = [d if need else None
+                    for d, need in zip(d_st, ctx.needs_input_grad[4:])]
+        return (d_pts, None, None, None, *d_st)
 
 
 def stage_features(stages, pts):
     """Concatenated stage features (n, sum C) and nearest occupancy (n,),
-    differentiable (twice) w.r.t. ``pts`` when it requires grad."""
-    if pts.requires_grad and torch.is_grad_enabled():
-        return StageFeatures.apply(pts, stages)
-    feats, occ, _, _ = sparse_trilinear_multi(stages, pts)
-    return feats, occ
+    differentiable with respect to ``pts`` (to third order) and to every
+    storage when they require grad."""
+    storages = [s for _, s in stages]
+    derivs = torch.is_grad_enabled() and pts.requires_grad
+    third = derivs and any(s.requires_grad for s in storages)
+    outs = SparseTrilinear.apply(pts, tuple(g for g, _ in stages), derivs, third,
+                                 *storages)
+    return outs[0], outs[1]
 
 
 def sparse_trilinear(grid: VoxelGrid, storage, pts):

@@ -62,10 +62,16 @@ def main(argv=None):
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         v.validate()
         torch.cuda.synchronize()
-    wall_s = time.time() - t0
+    report(prof, PHASES, time.time() - t0, args.out, smi)
+
+
+def report(prof, phases, wall_s, out, smi):
+    """Print the profiled pass: its busy share, each phase's host and
+    device time with its heaviest kernels, and the kernels by device time
+    (all of them in ``<out>/kernels.txt``)."""
     # the phase ranges show up twice: as host ranges and as spans on the
     # device timeline; neither is a kernel
-    is_kernel = lambda e: e.device_type == DeviceType.CUDA and e.key not in PHASES
+    is_kernel = lambda e: e.device_type == DeviceType.CUDA and e.key not in phases
     run = [e for e in prof.events() if is_kernel(e)]
     device_s = sum(e.time_range.elapsed_us() for e in run) / 1e6
     print("[profiled] " + json.dumps({"wall_s": wall_s, "device_s": device_s,
@@ -74,7 +80,7 @@ def main(argv=None):
     # phase ends in a synchronise, and backward kernels launched from the
     # autograd thread are not children of the range
     for e in prof.events():
-        if e.key in PHASES and e.device_type == DeviceType.CPU:
+        if e.key in phases and e.device_type == DeviceType.CPU:
             a, b = e.time_range.start, e.time_range.end
             by_name = {}
             for k in run:
@@ -90,7 +96,7 @@ def main(argv=None):
                 flush=True)
     kernels = sorted((e for e in prof.key_averages() if is_kernel(e)),
                      key=lambda e: -e.device_time_total)
-    with open(os.path.join(args.out, "kernels.txt"), "w") as f:
+    with open(os.path.join(out, "kernels.txt"), "w") as f:
         f.write(f"{smi}\nkernel\tcalls\tdevice_ms\tshare_of_device_time\n")
         for e in kernels:
             f.write(f"{e.key}\t{e.count}\t{e.device_time_total / 1e3}\t"
@@ -100,7 +106,6 @@ def main(argv=None):
             "name": e.key[:120], "calls": e.count,
             "device_ms": e.device_time_total / 1e3,
             "share": e.device_time_total / 1e6 / device_s}), flush=True)
-
 
 if __name__ == "__main__":
     main()

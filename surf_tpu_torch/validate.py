@@ -64,7 +64,7 @@ class Validator:
     @torch.no_grad()
     def build(self, ipts):
         features = feature_net.apply(self.params["feature_network"], ipts["imgs"])
-        outputs, stages, matching = surf.build_volumes(
+        outputs, stages, matching, _ = surf.build_volumes(
             self.params, self.state, self.static, ipts, features)
         return outputs, stages, matching, features
 

@@ -49,6 +49,17 @@ def _calls(device):
             [(grid, storage)], t(RNG.uniform(-1.1, 1.1, (9, 3))), derivs=True),
         "gather_conv": lambda: reg_net.gather_conv(
             t(RNG.randn(10, 4)), idx, t(RNG.randn(27, 4, 5))),
+        "bilinear_sample_2d_bwd": lambda: gs.bilinear_sample_bwd(
+            t(RNG.randn(2, 5, 6, 3)), t(RNG.uniform(-1.2, 1.2, (2, 9, 2))),
+            t(RNG.randn(2, 9, 3))),
+        "trilinear_sample_3d_bwd": lambda: gs.trilinear_sample_bwd(
+            t(RNG.randn(4, 5, 3, 2)), t(RNG.uniform(-1.2, 1.2, (9, 3))),
+            t(RNG.randn(9, 2))),
+        "sparse_trilinear_multi_bwd": lambda: tuple(sp.sparse_trilinear_multi_bwd(
+            [(grid, storage)], t(RNG.uniform(-1.1, 1.1, (9, 3))), t(RNG.randn(9, 3)),
+            t(RNG.randn(9, 3, 3)), t(RNG.randn(9, 3, 3)), t(RNG.randn(9, 3)))),
+        "gather_conv_dw": lambda: reg_net.gather_conv_dw(
+            t(RNG.randn(10, 4)), idx, t(RNG.randn(7, 5))),
     }
 
 
@@ -103,6 +114,15 @@ def test_entry_point_needs_a_card_unless_cpu(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(SystemExit):
         main.main(["--conf", os.path.join(ROOT, "confs", "surf_synthetic_full.conf")])
+
+
+def test_train_entry_point_needs_a_card_unless_cpu(monkeypatch):
+    from surf_tpu_torch import main
+    assert main.parse_args(["--mode", "train"]).device == "cuda"
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(SystemExit):
+        main.main(["--conf", os.path.join(ROOT, "confs", "surf_synthetic_full.conf"),
+                   "--mode", "train"])
 
 
 @pytest.mark.cuda

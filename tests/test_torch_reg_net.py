@@ -14,7 +14,7 @@ import torch
 
 from surf_tpu.nn import core as jcore, reg_net as jrn
 from surf_tpu.ops import sparse as jsp
-from surf_tpu_torch.convert import _tree_to_torch
+from surf_tpu_torch.utils import to_torch_tree
 from surf_tpu_torch.nn import core as tcore, reg_net as trn
 from surf_tpu_torch.ops import sparse as tsp
 
@@ -38,8 +38,8 @@ def _setup(res, p_keep, c_in, d_base, seed):
     state = jax.tree.map(lambda x: x + jnp.asarray(RNG.rand(*x.shape) * 0.3, x.dtype), state)
     params = jax.tree.map(lambda x: x + jnp.asarray(RNG.randn(*x.shape) * 0.05, x.dtype),
                           params)
-    tp = _tree_to_torch(jax.tree.map(np.asarray, params), None)
-    ts = _tree_to_torch(jax.tree.map(np.asarray, state), None)
+    tp = to_torch_tree(jax.tree.map(np.asarray, params))
+    ts = to_torch_tree(jax.tree.map(np.asarray, state))
     return (jg, params, state, jnp.asarray(feats)), (tg, tp, ts, torch.from_numpy(feats))
 
 
@@ -48,10 +48,10 @@ def test_reg_net_matches_jax(path):
     (jg, jp, js, jf), (tg, tp, ts, tf) = _setup(16, 0.4, 8, 8, 0)
     if path == "hybrid":
         out_j, mid_j, _ = jrn.apply_hybrid(jp, js, jg, jf, training=False)
-        out_t, mid_t = trn.apply_hybrid(tp, ts, tg, tf)
+        out_t, mid_t, _ = trn.apply_hybrid(tp, ts, tg, tf)
     else:
         out_j, mid_j, _ = jrn.apply_dense(jp, js, jg, jf, training=False)
-        out_t, mid_t = trn.apply_dense(tp, ts, tg, tf)
+        out_t, mid_t, _ = trn.apply_dense(tp, ts, tg, tf)
     live = np.asarray(jg.cvalid)
     np.testing.assert_allclose(mid_t.numpy()[live], np.asarray(mid_j)[live],
                                atol=2e-4, rtol=1e-4)
@@ -92,12 +92,17 @@ def test_gather_conv_plain_matches_each_jax_conv():
     ]
     for ref, got in cases:
         np.testing.assert_allclose(got.numpy(), np.asarray(ref), atol=1e-4, rtol=1e-5)
-    # parents -> dense: compare at the written (active) cells
+    # parents -> dense: compare at the written (active) cells, each written
+    # by its canonical parent
     ref = np.asarray(jrn.down_conv_parent_to_dense(jnp.asarray(w), jnp.asarray(xp),
                                                    jg, pactive, r4))
-    vals = trn.gather_conv(torch.from_numpy(xp), trn._down_dense_index(tg, tpact), wt)
-    cells = (tg.parents >> 1)[tpact].numpy()
-    np.testing.assert_allclose(vals[tpact].numpy(),
+    canon = trn._canonical_parents(tg, tpact)
+    np.testing.assert_array_equal(canon.numpy(),
+                                  np.asarray(jrn._canonical_parent_mask(jg, pactive)))
+    vals = trn.gather_conv(torch.from_numpy(xp), trn._down_dense_index(tg, tpact, canon),
+                           wt)
+    cells = (tg.parents >> 1)[canon].numpy()
+    np.testing.assert_allclose(vals[canon].numpy(),
                                ref[cells[:, 0], cells[:, 1], cells[:, 2]],
                                atol=1e-4, rtol=1e-5)
 

@@ -85,7 +85,7 @@ def test_k3_plain_values_and_occupancy_match_jax(stages):
 def test_k3_grad_and_hessian_row_sum_match_jax(stages):
     """grad and H.1 of a nonlinear head on the features: JAX by
     jax.grad/jax.jvp through sparse_trilinear, the port through
-    StageFeatures (the kernel's J and mixed second derivatives)."""
+    SparseTrilinear (the kernel's J and mixed second derivatives)."""
     jst, tst = stages
     pts = _pts(600, -0.98, 0.98)
     W = RNG.randn(21, 4).astype(np.float32) * 0.5
