@@ -25,7 +25,12 @@ Phases, one line each (any failure exits non-zero, with no result line):
    version and, where one PyTorch call computes the same function, that
    call, and the bound: the bytes the function must read and write (each
    distinct texel, voxel or row once) at the card's memory rate, or its
-   f32 operations at the card's peak, whichever takes longer;
+   f32 operations at the card's peak, whichever takes longer.  Then the
+   grid-form convs (row 7: the four ops indexed through the voxel and
+   parent tables, which no path calls) on the warm validate's own 352^3
+   and 704^3 grids and recorded inputs: forward, dX and dW by K4/K4w
+   against their plain versions, each op's value equal to the
+   neighbour-row K4 call on the same input on live rows;
 7. train: the port's training path, a ``Trainer`` on the same
    configuration at full width (5 views of 480x640, 512 rays, 4 stages
    to 704^3), 3 steps: one cold, two warm.  Every kernel's launch count
@@ -34,15 +39,28 @@ Phases, one line each (any failure exits non-zero, with no result line):
    parameters of both optimizer groups must move.  Prints s/step and the
    peak memory.  The largest call of each kind of each backward kernel
    in the last step is recorded; K1b, K2b, K3b and K4w are then held
-   against their plain versions and measured on those calls as in 6;
-8. reference: the tiny model on the card against the same model on the
+   against their plain versions and measured on those calls as in 6.
+   The trainer saves its checkpoint;
+8. finetune: a ``Finetuner`` on confs/surf_synthetic_finetune.conf (5
+   views of 576x800, 512 rays, 4 stages to 704^3) resumes from that
+   checkpoint as ``--resume`` does, in a temporary directory the phase
+   deletes; ``init_volumes``, then 3 steps (one cold, two warm) with every
+   launch count zeroed before them: K3 and K3b must have run, the loss
+   must be finite and the implicit surface and every stage's storage
+   must move.  Then one ``validate_finetune`` (512^3 mesh, non-empty) and
+   a ``save_finetune`` read back as ``--load_vol`` reads it, bit for bit
+   (the bf16 matching volume included).  Prints s/step, peak memory,
+   ``mesh_s`` and ``render_rays_per_s``;
+9. reference: the tiny model on the card against the same model on the
    CPU (plain versions, themselves held against the JAX package by the
    tier-1 tests): a validate build + render, and one training step's
    loss terms and gradients, also against the same step on the card with
    every kernel swapped for its plain version.
 
-The last three lines are the kernels JSON, the nvidia-smi line and the
-result line ``{"ok": true, "device": {...}}``.  The port's numeric settings
+No path calls the grid-form convs: their row's ``launches`` counts the
+calls of the four ops during the validate, train and finetune phases
+(0).  The last three lines are the kernels JSON, the nvidia-smi line and
+the result line ``{"ok": true, "device": {...}}``.  The port's numeric settings
 (``surf_tpu_torch.card.set_numerics``: no TF32) hold in every phase, so
 all comparisons are in full f32.
 """
@@ -608,6 +626,170 @@ def main_path_kernels(v, launches, k4_calls):
 
 
 # ---------------------------------------------------------------------------
+# phase 6b: the grid-form convs (row 7) on the validate's own grids
+# ---------------------------------------------------------------------------
+
+# recorded apply_hybrid call index -> (grid-form op, input on children,
+# cotangent mask, its output mask); the backward: (paired table, flip, dX mask)
+GRID_OPS = {0: "subm_conv_child", 1: "down_conv_child_to_parent",
+            2: "subm_conv_parent", 5: "up_conv_parent_to_child"}
+
+
+# the four grid-form ops as nn.reg_net defines them, and how often any
+# path called them (``count_grid_form_calls`` wraps the module attributes)
+GRID_FNS = {}
+GRID_CALLS = {"n": 0}
+
+
+def count_grid_form_calls():
+    from surf_tpu_torch.nn import reg_net
+    for name in GRID_OPS.values():
+        fn = GRID_FNS[name] = getattr(reg_net, name)
+
+        def counted(*a, _fn=fn, **k):
+            GRID_CALLS["n"] += 1
+            return _fn(*a, **k)
+        setattr(reg_net, name, counted)
+
+
+def grid_op_tables(op, grid, pactive):
+    """(forward table, cotangent mask, output mask or None, (dX table,
+    flip, dX mask)) of one grid-form op, as ``nn.reg_net`` builds them."""
+    from surf_tpu_torch.nn import reg_net as rn
+    cval = grid.cvalid
+    if op == "subm_conv_child":
+        t = rn.grid_child_table(grid)
+        return t, cval, cval, (t, True, cval)
+    if op == "subm_conv_parent":
+        t = rn.grid_parent_table(grid, pactive)
+        return t, pactive, pactive, (t, True, pactive)
+    if op == "down_conv_child_to_parent":
+        return rn.grid_down_table(grid), pactive, None, (rn.grid_up_table(grid, pactive),
+                                                        False, cval)
+    return rn.grid_up_table(grid, pactive), cval, cval, (rn.grid_down_table(grid), False,
+                                                         pactive)
+
+
+def grid_index_bytes(grid, op):
+    """Bytes of the index inputs the JAX op reads: the parent coordinates
+    (P x 3 int32), the distinct parent-table cells its lookups consult (the
+    3^3 parent neighbourhoods; 2^3 for the stride-2 down conv), cvalid
+    (one byte a child) for the child lookups and child outputs, pactive
+    (one byte a parent) for the parent lookups."""
+    import torch
+    from surf_tpu_torch.nn.reg_net import _OFFSETS_NP
+    half = grid.res // 2
+    off = torch.as_tensor(_OFFSETS_NP, device=grid.parents.device)
+    if op == "down_conv_child_to_parent":
+        off = off[(off <= 0).all(-1)]
+    cells = grid.parents[:, None, :] + off
+    inb = ((cells >= 0) & (cells < half)).all(-1)
+    lin = (cells[..., 0] * half + cells[..., 1]) * half + cells[..., 2]
+    P = grid.parents.shape[0]
+    n = P * 12 + torch.unique(lin[inb]).numel() * 4 + P * 8
+    return n + (P if op != "subm_conv_child" else 0)
+
+
+def grid_form_kernels(k4_calls):
+    """Row 7: the four grid-form convs on the warm validate's 352^3 and
+    704^3 grids, each on the input its neighbour-row conv took there.
+    Forward, dX and dW by K4/K4w against their plain versions (the
+    tolerances of rows 6/6w); each op's value (through its autograd
+    function) against the neighbour-row K4 call on live rows; its dX and
+    dW through autograd against the plain versions."""
+    import torch
+    from surf_tpu_torch.nn import reg_net as rn
+    fwd, bwd_x, bwd_w, eq = [], [], [], []
+    for grid, i, x, idx_nbr, w27 in k4_calls:
+        if i not in GRID_OPS:
+            continue
+        op = GRID_OPS[i]
+        pactive = grid.pvalid & grid.cvalid.reshape(-1, 8).any(1)
+        table, ct_mask, out_mask, (t_b, flip, dx_mask) = grid_op_tables(op, grid, pactive)
+        idx, idx_b = table.to(torch.int32).contiguous(), t_b.to(torch.int32).contiguous()
+        del table, t_b
+        Cin, Cout = w27.shape[1], w27.shape[2]
+        w_b = (w27.flip(0) if flip else w27).transpose(1, 2).contiguous()
+        g = torch.Generator(device=x.device).manual_seed(11 + i)
+        ct = (torch.randn(idx.shape[0], Cout, device=x.device, generator=g)
+              * ct_mask[:, None]).contiguous()
+        what = f"{grid.res}^3 {op}"
+        ib = grid_index_bytes(grid, op)
+
+        def entry(name, fn, plain, inp, tab, c_out, out_bytes, flops, tol):
+            got, ref = fn(), plain()
+            err = check_close(f"row 7 {what} {name}", got, ref, tol, tol * scale(ref))
+            present = tab[tab >= 0]
+            rows_read = torch.unique(present).numel()
+            b_ms, b_by = bound(ib + rows_read * inp.shape[1] * 4 + out_bytes, flops)
+            return {"shape": f"{what} {name}: {tab.shape[0]} rows x 27 taps "
+                             f"({present.numel()} present, {rows_read} distinct rows read), "
+                             f"{inp.shape[1]} -> {c_out} channels, {grid.parents.shape[0]} "
+                             "parents",
+                    "max_abs_err": err, "ms": time_ms(fn), "plain_ms": time_ms(plain, 3),
+                    "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
+
+        n_present = int((idx >= 0).sum())
+        nb_present = int((idx_b >= 0).sum())
+        fwd.append(entry("forward", lambda: rn.gather_conv(x, idx, w27),
+                         lambda: rn.gather_conv_plain(x, idx, w27), x, idx, Cout,
+                         nbytes(w27) + idx.shape[0] * Cout * 4,
+                         2 * n_present * Cin * Cout, 1e-4))
+        bwd_x.append(entry("dX", lambda: rn.gather_conv(ct, idx_b, w_b),
+                           lambda: rn.gather_conv_plain(ct, idx_b, w_b), ct, idx_b, Cin,
+                           nbytes(w_b) + idx_b.shape[0] * Cin * 4,
+                           2 * nb_present * Cin * Cout, 1e-4))
+        bwd_w.append(entry("dW", lambda: rn.gather_conv_dw(x, idx, ct),
+                           lambda: rn.gather_conv_dw_plain(x, idx, ct), x, idx, Cout,
+                           nbytes(ct) + nbytes(w27), 2 * n_present * Cin * Cout, 1e-4))
+        # the op itself (its autograd function on the card) against the
+        # neighbour-row conv on the same input, and its gradients
+        xr = x.detach().clone().requires_grad_(True)
+        wr = w27.reshape(3, 3, 3, Cin, Cout).detach().clone().requires_grad_(True)
+        extra = () if op == "subm_conv_child" else (pactive,)
+        y = GRID_FNS.get(op, getattr(rn, op))(wr, xr, grid, *extra)
+        live = ct_mask if out_mask is None else out_mask
+        nbr = rn.gather_conv(x, idx_nbr.to(torch.int32).contiguous(), w27)
+        d = check_close(f"row 7 {what} against the neighbour-row conv", y.detach()[live],
+                        nbr[live], 1e-4, 1e-4 * scale(nbr[live]))
+        dx, dw = torch.autograd.grad((y * ct).sum(), (xr, wr))
+        check_close(f"row 7 {what} autograd dX", dx,
+                    rn.gather_conv_plain(ct, idx_b, w_b) * dx_mask[:, None], 1e-4,
+                    1e-4 * scale(dx))
+        check_close(f"row 7 {what} autograd dW", dw.reshape(27, Cin, Cout),
+                    rn.gather_conv_dw_plain(x, idx, ct), 1e-4, 1e-4 * scale(dw))
+        eq.append({"op": what, "max_abs_diff_live_rows": d,
+                   "bit_equal_live_rows": bool(torch.equal(y.detach()[live], nbr[live]))})
+        del xr, wr, y, dx, dw, nbr, idx, idx_b, ct
+        if x.is_cuda:
+            torch.cuda.empty_cache()
+    say("kernel", "row 7 against the neighbour-row convs: " + json.dumps(eq))
+
+    def head(entries):
+        """The finest grid's subm_conv_child first (as row 6 heads with conv0)."""
+        res = max(c[0].res for c in k4_calls)
+        j = next(k for k, e in enumerate(entries)
+                 if e["shape"].startswith(f"{res}^3 subm_conv_child"))
+        return [entries[j]] + entries[:j] + entries[j + 1:]
+    tol = "|err| <= 1e-4 max(max|plain|, 1) + 1e-4 |plain|"
+    rows = [{"name": "gather_conv (grid-form tables)", "route": "cuda",
+             "source": "surf_tpu_torch/csrc/gather_conv.cu",
+             "replaces": "surf_tpu/nn/reg_net.py:566", "launches": 0,
+             **head(fwd)[0], "also_checked": head(fwd)[1:] + bwd_x, "tolerance": tol,
+             "library": "none: no one PyTorch call does a gathered sparse convolution",
+             "against_neighbour_rows": eq},
+            {"name": "gather_conv_dw (grid-form tables)", "route": "cuda",
+             "source": "surf_tpu_torch/csrc/gather_conv.cu",
+             "replaces": "surf_tpu/nn/reg_net.py:574", "launches": 0,
+             **head(bwd_w)[0], "also_checked": head(bwd_w)[1:], "tolerance": tol,
+             "library": "none: no one PyTorch call does a gathered sparse convolution's "
+                        "weight gradient"}]
+    for r in rows:
+        say("kernel", json.dumps(r))
+    return rows
+
+
+# ---------------------------------------------------------------------------
 # phase 7: training at full width, and the backward kernels at its call sites
 # ---------------------------------------------------------------------------
 
@@ -720,7 +902,7 @@ def train_phase(conf_path, n_steps=3, dev="cuda"):
         fail(f"train: the training path launched no {missing}")
     if any(moved[g] == 0 for g in moved):
         fail(f"train: no parameter moved in some group: {moved}")
-    return launches, records, metrics
+    return launches, records, metrics, t.save(n_steps - 1)
 
 
 def bwd_bound(name, a, k, got):
@@ -908,7 +1090,115 @@ def backward_kernels(launches, records, dense_conv0=None):
 
 
 # ---------------------------------------------------------------------------
-# phase 8: tiny model, card against CPU
+# phase 8: per-scene finetune at full width, from the train phase's checkpoint
+# ---------------------------------------------------------------------------
+
+def finetune_phase(ckpt, n_steps=3, dev="cuda", conf_path=None):
+    """A Finetuner on confs/surf_synthetic_finetune.conf resumed from
+    ``ckpt`` (``--resume``): ``init_volumes``, ``n_steps`` steps on the
+    loop's first batches with the launch counts zeroed before them, one
+    ``validate_finetune`` and a ``save_finetune`` read back as
+    ``--load_vol`` reads it.  Everything is written under a temporary
+    directory that the phase deletes.  (``dev`` "cpu" with a tiny
+    ``conf_path`` rehearses the phase without a card.)"""
+    import math
+    import shutil
+    import tempfile
+    import torch
+    from surf_tpu_torch import _build
+    from surf_tpu_torch.config import ConfigFactory
+    from surf_tpu_torch.finetune import Finetuner
+    from surf_tpu_torch.utils import resume_from
+    from surf_tpu_torch.validate import to_device
+    cuda = dev == "cuda"
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize()
+    conf = ConfigFactory.parse_file(
+        conf_path or os.path.join(HERE, "confs", "surf_synthetic_finetune.conf"))
+    os.makedirs(os.path.join(HERE, "exp"), exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_finetune_", dir=os.path.join(HERE, "exp"))
+    try:
+        sync()
+        t0 = time.time()
+        f = Finetuner(conf, device=dev, seed=0, base_exp_dir=tmp, resume=ckpt,
+                      mesh_resolution=512 if cuda else 24)
+        sync()
+        init_s = time.time() - t0
+        say("finetune", f"resumed from {os.path.basename(ckpt)}, init_volumes included: "
+            f"{init_s:.3f} s, active_voxels="
+            f"{[int(g.cvalid.sum()) for g in f.vol_state['grids']]}")
+        ds = f.dataset
+        perm = f.host_rng.permutation(ds.num_views)
+        batches = [to_device(ds.get_random_rays(int(perm[i % len(perm)]), rng=f.host_rng), dev)
+                   for i in range(n_steps)]
+        before = {g["name"]: [p.detach().clone() for p in g["params"]]
+                  for g in f.optimizer.param_groups}
+        if cuda:
+            torch.cuda.reset_peak_memory_stats()
+        _build.reset_launches()
+        times = []
+        for i in range(n_steps):
+            t0 = time.time()
+            res = f.step(batches[i], i)
+            sync()
+            times.append(time.time() - t0)
+            say("finetune", f"step {i} ({'cold' if i == 0 else 'warm'}): {times[-1]:.3f} s "
+                + " ".join(f"{k}={v:.5g}" for k, v in res.items()))
+            if not all(math.isfinite(v) for v in res.values()):
+                fail(f"finetune: non-finite loss terms at step {i}: {res}")
+        launches = dict(_build.launches)
+        peak = torch.cuda.max_memory_allocated() if cuda else 0
+        moved = {g["name"]: sum(int(not torch.equal(a, p.detach())) for a, p in zip(
+            before[g["name"]], g["params"])) for g in f.optimizer.param_groups}
+        metrics = {"cold_step_s": times[0], "warm_s_per_step": statistics.mean(times[1:]),
+                   "warm_steps_s": times[1:], "peak_mem_gb": peak / 2 ** 30,
+                   "init_s": init_s, "params_moved": moved,
+                   "params_per_group": {g["name"]: len(g["params"])
+                                        for g in f.optimizer.param_groups}}
+        say("finetune", "kernels " + json.dumps(launches))
+        missing = [k for k in ("sparse_trilinear_multi", "sparse_trilinear_multi_bwd")
+                   if launches[k] <= 0]
+        if missing:
+            fail(f"finetune: the finetune steps launched no {missing}")
+        if any(v == 0 for v in moved.values()):
+            fail(f"finetune: the implicit surface or a stage's storage did not move: {moved}")
+
+        t0 = time.time()
+        m = f.validate_finetune(n_steps - 1)
+        metrics.update({"validate_" + k: m[k] for k in
+                        ("mesh_s", "render_rays_per_s", "psnr", "mesh_vertices",
+                         "mesh_faces")})
+        if m["mesh_faces"] <= 0 or m["mesh_vertices"] <= 0 or not m["finite"]:
+            fail(f"finetune: validate_finetune gave an empty mesh or non-finite render: {m}")
+        say("finetune", f"validate_finetune: {time.time() - t0:.1f} s")
+
+        t0 = time.time()
+        path = f.save_finetune(n_steps - 1)
+        size = os.path.getsize(path)
+        _, _, vs = resume_from(path, f.params, f.state, load_vol=True, device=f.device)
+        if vs["matching_volume"].dtype != f.vol_state["matching_volume"].dtype:
+            fail("finetune: --load_vol changed the matching volume's dtype")
+        pairs = [(a, b.detach()) for a, b in zip(vs["volumes"], f.vol_state["volumes"])]
+        pairs += [(vs["matching_volume"], f.vol_state["matching_volume"])]
+        pairs += list(zip(vs["features"], f.vol_state["features"]))
+        pairs += [(a, b) for ga, gb in zip(vs["grids"], f.vol_state["grids"])
+                  for a, b in zip(ga, gb)]
+        if not all(torch.equal(a, b) for a, b in pairs):
+            fail("finetune: the --load_vol round trip changed the volumes")
+        metrics["checkpoint_gb"] = size / 2 ** 30
+        say("finetune", f"save_finetune + --load_vol: {len(pairs)} tensors bit-equal "
+            f"(matching volume {str(vs['matching_volume'].dtype).split('.')[-1]}), "
+            f"{size / 2 ** 30:.3f} GiB, {time.time() - t0:.1f} s")
+        say("finetune", json.dumps(metrics))
+        return launches, metrics
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+# ---------------------------------------------------------------------------
+# phase 9: tiny model, card against CPU
 # ---------------------------------------------------------------------------
 
 def reference_check():
@@ -1090,6 +1380,7 @@ def main():
         f"({time.time() - t0:.1f} s)")
 
     conf = ConfigFactory.parse_file(conf_path)
+    count_grid_form_calls()
     v = Validator(conf, device="cuda", mesh_resolution=512, seed=0,
                   base_exp_dir=os.path.join(HERE, "exp", "chip_smoke"))
     torch.cuda.reset_peak_memory_stats()
@@ -1129,6 +1420,9 @@ def main():
     del cold
 
     rows = main_path_kernels(v, launches, k4_calls)
+    t0 = time.time()
+    grid_rows = grid_form_kernels(k4_calls)
+    say("kernel", f"row 7 (grid-form convs): {time.time() - t0:.1f} s")
     # the 704^3 conv0 (x, table) of the validate, for K4w on a dense stage
     dense_conv0 = next((c[2], c[3].to(torch.int32)) for c in k4_calls
                        if c[0].res == 704 and c[1] == 0)
@@ -1137,7 +1431,7 @@ def main():
     torch.cuda.empty_cache()
 
     t0 = time.time()
-    train_launches, records, _ = train_phase(conf_path)
+    train_launches, records, _, ckpt = train_phase(conf_path)
     for r in rows:
         r["launches_in_train"] = train_launches[r["name"]]
     torch.cuda.empty_cache()
@@ -1145,6 +1439,17 @@ def main():
     del records, dense_conv0
     torch.cuda.empty_cache()
     say("train", f"phase and backward kernel checks: {time.time() - t0:.1f} s")
+
+    t0 = time.time()
+    ft_launches, _ = finetune_phase(ckpt)
+    for r in rows:
+        r["launches_in_finetune"] = ft_launches[r["name"]]
+    torch.cuda.empty_cache()
+    say("finetune", f"phase: {time.time() - t0:.1f} s")
+    # no path called the grid-form ops: their launches on the paths
+    for r in grid_rows:
+        r["launches"] = GRID_CALLS["n"]
+    rows += grid_rows
 
     t0 = time.time()
     err = reference_check()

@@ -1,9 +1,16 @@
-"""Host-side datasets (numpy).  This slice carries the procedural
-``SyntheticDataset`` only; DTU and the other loaders come with the data."""
+"""Host-side datasets (numpy).  The procedural ``SyntheticDataset`` and its
+per-scene finetune surface ``SyntheticDatasetFinetune``; DTU and the
+other loaders come with the data.  In mode ``finetune`` the bare dataset
+is the loader (its ``get_random_rays`` draws the batches)."""
 
+from .finetune import (DTUDatasetFinetune, DTUDatasetFinetuneNeuS,
+                       SyntheticDatasetFinetune)
 from .synthetic import SyntheticDataset
 
-_DATASETS = {"SyntheticDataset": SyntheticDataset}
+_DATASETS = {"SyntheticDataset": SyntheticDataset,
+             "SyntheticDatasetFinetune": SyntheticDatasetFinetune,
+             "DTUDatasetFinetune": DTUDatasetFinetune,
+             "DTUDatasetFinetuneNeuS": DTUDatasetFinetuneNeuS}
 
 
 def get_dataset(conf, mode):
@@ -13,4 +20,4 @@ def get_dataset(conf, mode):
     return _DATASETS[name](conf, mode)
 
 
-__all__ = ["SyntheticDataset", "get_dataset"]
+__all__ = ["SyntheticDataset", "SyntheticDatasetFinetune", "get_dataset"]

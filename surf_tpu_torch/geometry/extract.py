@@ -20,7 +20,9 @@ from ..ops.sparse import occupied_blocks_host
 @torch.no_grad()
 def extract_geometry(sdf_fn, stages, resolution, block=64, blocks_per_call=8):
     """sdf_fn(pts (m, 3)) -> (m,) SDF.  Returns (verts in [-1,1], tris, u)."""
-    R, B, G = int(resolution), int(block), int(blocks_per_call)
+    # a block no larger than the lattice (the skipping is exact either way)
+    R, G = int(resolution), int(blocks_per_call)
+    B = min(int(block), R)
     dev = stages[0][1].device
     blocks = occupied_blocks_host(stages, R, B)
     occupied = [tuple(b) for b in np.argwhere(blocks)]

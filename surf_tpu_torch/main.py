@@ -1,6 +1,14 @@
-"""CLI of the port: ``python -m surf_tpu_torch.main --conf
-confs/surf_synthetic_full.conf --mode val|train [--mesh_resolution 512]
-[--device cuda|cpu]``.  Runs on the card unless ``--device cpu``."""
+"""CLI of the port, with the JAX CLI's flags (main.py):
+
+    python -m surf_tpu_torch.main --conf confs/surf_synthetic_full.conf --mode val|train
+        [--resume <npz>] [--load_vol] [--mesh_resolution 512] [--seed 0]
+    python -m surf_tpu_torch.main --conf confs/surf_synthetic_finetune.conf --mode finetune
+        --resume <npz> [--load_vol] [--scene <name>] [--ref_view <i>]
+
+``--resume`` loads a model checkpoint (``model`` and ``state``), or with
+``--load_vol`` a finetune checkpoint's volumes and implicit surface.
+Finetune writes under ``<out>/<scene>/view<ref_view>``.  Runs on the card
+unless ``--device cpu``."""
 
 from __future__ import annotations
 
@@ -11,14 +19,23 @@ import torch
 
 from .card import set_numerics
 from .config import ConfigFactory
+from .finetune import Finetuner
 from .train import Trainer
+from .utils import resume_from
 from .validate import Validator
 
 
 def parse_args(argv=None):
     p = argparse.ArgumentParser(description="surf_tpu_torch")
     p.add_argument("--conf", type=str, default="./confs/surf.conf")
-    p.add_argument("--mode", type=str, default="val", choices=["val", "train"])
+    p.add_argument("--mode", type=str, default="val", choices=["val", "train", "finetune"])
+    p.add_argument("--resume", type=str, default=None, help="checkpoint path to resume")
+    p.add_argument("--load_vol", action="store_true",
+                   help="resume from a volume-only finetune checkpoint")
+    p.add_argument("--scene", type=str, default=None, help="finetune scene override")
+    p.add_argument("--ref_view", type=int, default=None,
+                   help="finetune reference view override")
+    p.add_argument("--seed", type=int, default=0)
     p.add_argument("--mesh_resolution", type=int, default=512)
     p.add_argument("--device", type=str, default="cuda", choices=["cuda", "cpu"])
     p.add_argument("--out", type=str, default=None,
@@ -33,11 +50,26 @@ def main(argv=None):
     set_numerics()
     conf = ConfigFactory.parse_file(args.conf)
     if args.mode == "train":
-        t = Trainer(conf, device=args.device, base_exp_dir=args.out)
-        t.train()
+        if args.resume is not None:
+            raise NotImplementedError(
+                "--resume in train mode needs the optimizer's moments in the checkpoint, "
+                "which the port does not save yet (ROADMAP.md, queue 1: optimizer-state "
+                "resume for --mode train)")
+        Trainer(conf, device=args.device, seed=args.seed, base_exp_dir=args.out).train()
         return None
+    if args.mode == "finetune":
+        if args.resume is None:
+            raise SystemExit("--mode finetune needs --resume <checkpoint>")
+        f = Finetuner(conf, device=args.device, seed=args.seed, base_exp_dir=args.out,
+                      scene=args.scene, ref_view=args.ref_view, resume=args.resume,
+                      load_vol=args.load_vol, mesh_resolution=args.mesh_resolution)
+        f.finetune()
+        return f
     v = Validator(conf, device=args.device, mesh_resolution=args.mesh_resolution,
-                  base_exp_dir=args.out)
+                  seed=args.seed, base_exp_dir=args.out)
+    if args.resume is not None:
+        v.params, v.state, v.vol_state = resume_from(
+            args.resume, v.params, v.state, load_vol=args.load_vol, device=v.device)
     results = v.validate()
     print(json.dumps(results))
     return results

@@ -17,6 +17,11 @@ update the running ones.
   training each conv is a ``torch.autograd.Function``: the input gradient
   is K4 again on the transposed table (every table is one-to-one per tap),
   the weight gradient the kernel K4w (``gather_conv_dw``).
+* The grid-form convs (``subm_conv_child``, ``subm_conv_parent``,
+  ``down_conv_child_to_parent``, ``up_conv_parent_to_child``): the same
+  four convolutions with their tables built from coordinates through the
+  voxel and parent tables, and the JAX package's custom VJPs (dX by K4 on
+  the paired conv's table, dW by K4w).  No path calls them.
 """
 
 from __future__ import annotations
@@ -320,6 +325,108 @@ def conv_tables(grid):
         "up_d2p": _rows_where(_up_dense_index(grid, grid.res // 4), pactive),
         "up_p2c": _rows_where(_up_child_index(nbr), cval),
     }
+
+
+# ---------------------------------------------------------------------------
+# grid-form convs: the same convolutions indexed through the voxel and
+# parent tables by coordinate (surf_tpu/nn/reg_net.py:566-678, raw ops
+# :918-1044).  No path of either package calls them; apply_hybrid uses
+# the neighbour-row tables above.
+# ---------------------------------------------------------------------------
+
+def _child_rows_at(grid, coords):
+    """Child rows at voxel coords (..., 3), -1 where absent (child
+    existence includes cvalid), as ``_child_gather`` reads them."""
+    rows, valid = sp.lookup_rows(grid, coords)
+    return torch.where(valid, rows, torch.full_like(rows, -1))
+
+
+def grid_child_table(grid):
+    """Children -> children at coords + offset, (P*8, 27)."""
+    return _child_rows_at(grid, grid.child_coords()[:, None, :]
+                          + _offsets(grid.parents.device))
+
+
+def grid_parent_table(grid, pactive):
+    """Parents -> parents at coords + offset (active parents), (P, 27)."""
+    return _parent_rows_at(grid, grid.parents[:, None, :] + _offsets(grid.parents.device),
+                           pactive)
+
+
+def grid_down_table(grid):
+    """Children at 2 q + offset -> parent q, (P, 27), every parent row
+    (capacity padding included)."""
+    return _child_rows_at(grid, grid.parents[:, None, :] * 2
+                          + _offsets(grid.parents.device))
+
+
+def grid_up_table(grid, pactive):
+    """Active parents at (c - offset) / 2 -> child c, where c - offset is
+    even on every axis, (P*8, 27)."""
+    src2 = grid.child_coords()[:, None, :] - _offsets(grid.parents.device)
+    idx = _parent_rows_at(grid, src2 >> 1, pactive)
+    return torch.where(((src2 & 1) == 0).all(-1), idx, torch.full_like(idx, -1))
+
+
+class _GridConv(torch.autograd.Function):
+    """K4 on a grid-form table, with the JAX package's custom VJP: the
+    cotangent masked first, dX by K4 on the paired conv's own grid-form
+    table with the weights transposed (and spatially flipped for the
+    submanifold convs) and masked as that conv's output, dW by K4w on
+    the forward table.  ``paired()`` gives (table, flip, dX mask) when the
+    backward needs it.  The paired table, not ``transpose_index``: the
+    down conv keeps every parent row, so its table is not one-to-one."""
+
+    @staticmethod
+    def forward(ctx, x, w27, idx, out_mask, ct_mask, paired):
+        ctx.save_for_backward(x, w27, idx, ct_mask)
+        ctx.paired = paired
+        y = gather_conv(x, idx, w27)
+        return y if out_mask is None else y * out_mask[:, None]
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, ct):
+        x, w27, idx, ct_mask = ctx.saved_tensors
+        ct = (ct * ct_mask[:, None]).float().contiguous()
+        dx = dw = None
+        if ctx.needs_input_grad[0]:
+            idx_b, flip, dx_mask = ctx.paired()
+            w_b = (w27.flip(0) if flip else w27).transpose(1, 2)
+            dx = gather_conv(ct, idx_b, w_b) * dx_mask[:, None]
+        if ctx.needs_input_grad[1]:
+            dw = gather_conv_dw(x, idx, ct)
+        return dx, dw, None, None, None, None
+
+
+def subm_conv_child(w, storage, grid):
+    """Submanifold conv at child level: (P*8, Cin) -> (P*8, Cout), zero at
+    invalid children.  w (3, 3, 3, Cin, Cout)."""
+    idx = grid_child_table(grid)
+    return _GridConv.apply(storage, _w27(w), idx, grid.cvalid, grid.cvalid,
+                           lambda: (idx, True, grid.cvalid))
+
+
+def subm_conv_parent(w, storage_p, grid, pactive):
+    """Submanifold conv over the parents: (P, Cin) -> (P, Cout), zero at
+    inactive parents."""
+    idx = grid_parent_table(grid, pactive)
+    return _GridConv.apply(storage_p, _w27(w), idx, pactive, pactive,
+                           lambda: (idx, True, pactive))
+
+
+def down_conv_child_to_parent(w, storage, grid, pactive):
+    """Stride-2 conv children -> parents, out[q] = sum_off w[off] x[2q + off],
+    unmasked; ``pactive`` gates the backward."""
+    return _GridConv.apply(storage, _w27(w), grid_down_table(grid), None, pactive,
+                           lambda: (grid_up_table(grid, pactive), False, grid.cvalid))
+
+
+def up_conv_parent_to_child(w, storage_p, grid, pactive):
+    """Transposed stride-2 conv parents -> children, zero at invalid
+    children."""
+    return _GridConv.apply(storage_p, _w27(w), grid_up_table(grid, pactive), grid.cvalid,
+                           grid.cvalid, lambda: (grid_down_table(grid), False, pactive))
 
 
 # ---------------------------------------------------------------------------

@@ -1,16 +1,21 @@
-"""Where one training step spends its time on the card.
+"""Where one training or finetune step spends its time on the card.
 
-    python -m surf_tpu_torch.profile_train [--conf confs/surf_synthetic_full.conf]
+    python -m surf_tpu_torch.profile_train [--mode train|finetune] [--conf <conf>]
         [--out exp/profile_train]
 
-Builds a ``Trainer`` on seeded random weights and runs two steps (cold,
-then warm), then a third under ``torch.profiler`` (CPU and CUDA
-activities), cut into the ranges ``forward`` (cascade, render, loss),
-``backward`` and ``update``, each ending in a synchronise.  Prints the
-card (nvidia-smi name and power limit), the step's busy share, each
-range's host time, the device time of the kernels that start in it and
-their heaviest kernels, and the CUDA kernels of the step by device time
-(all of them in ``<out>/kernels.txt``).  Needs a card.
+``--mode train`` (default conf confs/surf_synthetic_full.conf) builds a
+``Trainer``; ``--mode finetune`` (default conf
+confs/surf_synthetic_finetune.conf) a ``Finetuner``, whose
+``init_volumes`` runs the cascade over the scene's views.  Both start
+from seeded random weights.  Two steps run first (cold, then warm), then
+a third under ``torch.profiler`` (CPU and CUDA activities), cut into the
+ranges ``forward`` (the loss: cascade and render in training, render
+and pseudo points in finetune), ``backward`` and ``update``, each ending
+in a synchronise.  Prints the card (nvidia-smi name and power limit), the
+step's busy share, each range's host time, the device time of the
+kernels that start in it and their heaviest kernels, and the CUDA
+kernels of the step by device time (all of them in ``<out>/kernels.txt``).
+Needs a card.
 """
 
 from __future__ import annotations
@@ -24,18 +29,45 @@ from torch.profiler import ProfilerActivity, profile, record_function
 
 from .card import nvidia_smi_line, set_numerics
 from .config import ConfigFactory
+from .finetune import Finetuner
 from .profile_validate import report
 from .train import Trainer
 from .validate import to_device
 
 PHASES = ("forward", "backward", "update")
+CONFS = {"train": "confs/surf_synthetic_full.conf",
+         "finetune": "confs/surf_synthetic_finetune.conf"}
 
 
 def parse_args(argv=None):
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    p.add_argument("--conf", default="confs/surf_synthetic_full.conf")
+    p.add_argument("--mode", default="train", choices=sorted(CONFS))
+    p.add_argument("--conf", default=None, help="default: the mode's synthetic conf")
     p.add_argument("--out", default="exp/profile_train")
     return p.parse_args(argv)
+
+
+def _trainer(conf, out):
+    """(batch_fn(i), step_fn(batch, i), loss_fn(batch, i), runner) of a Trainer."""
+    t = Trainer(conf, device="cuda", base_exp_dir=os.path.join(out, "train"))
+    n = len(t.dataset)
+
+    def loss(batch, i):
+        res, new_state = t.loss(batch, i / n, t.cos_anneal_ratio(i / n))
+        t.state = new_state
+        return res
+    return (lambda i: to_device(t.dataset[i], "cuda"), lambda b, i: t.step(b, i / n),
+            loss, t)
+
+
+def _finetuner(conf, out):
+    f = Finetuner(conf, device="cuda", base_exp_dir=os.path.join(out, "finetune"))
+    perm = f.host_rng.permutation(f.dataset.num_views)
+
+    def batch(i):
+        return to_device(f.dataset.get_random_rays(int(perm[i % len(perm)]), rng=f.host_rng),
+                         "cuda")
+    return batch, f.step, f.loss, f
 
 
 def main(argv=None):
@@ -46,30 +78,32 @@ def main(argv=None):
     smi = nvidia_smi_line()
     print(f"[device] {smi}", flush=True)
     os.makedirs(args.out, exist_ok=True)
-    t = Trainer(ConfigFactory.parse_file(args.conf), device="cuda",
-                base_exp_dir=os.path.join(args.out, "train"))
-    n = len(t.dataset)
+    conf = ConfigFactory.parse_file(args.conf or CONFS[args.mode])
+    t0 = time.time()
+    batch_fn, step_fn, loss_fn, runner = (_trainer if args.mode == "train"
+                                          else _finetuner)(conf, args.out)
+    torch.cuda.synchronize()
+    print(f"[setup] {args.mode}: {time.time() - t0:.4f} s", flush=True)
     for i in range(2):                                     # cold, then warm
         t0 = time.time()
-        t.step(to_device(t.dataset[i], "cuda"), i / n)
+        step_fn(batch_fn(i), i)
         torch.cuda.synchronize()
         print(f"[step {i}] {time.time() - t0:.4f} s", flush=True)
 
-    batch = to_device(t.dataset[2], "cuda")
+    batch = batch_fn(2)
     torch.cuda.synchronize()
     t0 = time.time()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t.optimizer.zero_grad(set_to_none=True)
+        runner.optimizer.zero_grad(set_to_none=True)
         with record_function("forward"):
-            res, new_state = t.loss(batch, 2 / n, t.cos_anneal_ratio(2 / n))
+            res = loss_fn(batch, 2)
             torch.cuda.synchronize()
         with record_function("backward"):
             res["loss"].backward()
             torch.cuda.synchronize()
         with record_function("update"):
-            t.update()
+            runner.update()
             torch.cuda.synchronize()
-    t.state = new_state
     report(prof, PHASES, time.time() - t0, args.out, smi)
 
 

@@ -42,9 +42,59 @@ def _sync(device):
         torch.cuda.synchronize(device)
 
 
+def sdf_lattice_fn(isf_params, isf_static, stages_ff):
+    """pts -> SDF of the implicit surface ``isf_params``, pinned to +100
+    outside the active set (one K3 launch gives both)."""
+    p = materialize_weight_norm(isf_params)["sdf_network"]
+
+    def fn(pts):
+        out, occ = sdf_net.apply_occ(p, isf_static["sdf"], pts, stages_ff)
+        return torch.where(occ, out[:, 0], torch.full_like(out[:, 0], 100.0))
+    return fn
+
+
+@torch.no_grad()
+def extract_mesh(isf_params, isf_static, stages_ff, resolution, block=64):
+    """Block-skipped SDF lattice and host marching cubes: (verts in
+    [-1, 1], tris, lattice)."""
+    return extract_geometry(sdf_lattice_fn(isf_params, isf_static, stages_ff), stages_ff,
+                            resolution, block=block)
+
+
+def render_full_image(isf_params, isf_static, ipts, stages_ff, matching, feats_ff, chunk,
+                      generator):
+    """The validation rays of ``ipts`` rendered in chunks of ``chunk``:
+    (colour, normal in the reference camera's frame, sdf depth, render
+    depth) as (h, w, ...) numpy arrays."""
+    params = materialize_weight_norm(isf_params)
+    fused = fuse_pyramid(ipts["imgs"], feats_ff) if isf_static.get("fused_pyramid") else None
+    rays_o, rays_d = ipts["rays_o"], ipts["rays_d"]
+    n = rays_o.shape[0]
+    near = ipts["near"].reshape(1, 1)
+    far = ipts["far"].reshape(1, 1)
+    outs = {"color": [], "normal": [], "sdf_depth": [], "render_depth": []}
+    for s in range(0, n, chunk):
+        sl = slice(s, s + chunk)
+        r = implicit_surface.render(
+            params, isf_static, rays_o[sl], rays_d[sl], near, far, matching,
+            stages_ff, feats_ff, ipts["imgs"], ipts["intrs"], ipts["c2ws"],
+            1.0, fused_colors=fused, generator=generator)
+        outs["color"].append(r["color_fine"])
+        outs["normal"].append((r["gradients"] * r["weights"][..., None]
+                               * r["inside_sphere"][..., None]).sum(1))
+        outs["sdf_depth"].append(r["sdf_depth"])
+        outs["render_depth"].append(r["render_depth"])
+    h, w = [int(x) for x in ipts["hw"].reshape(-1)]
+    cat = {k: torch.cat(v).cpu().numpy() for k, v in outs.items()}
+    rot = np.linalg.inv(ipts["c2ws"][0, :3, :3].cpu().numpy())
+    normal = (rot @ cat["normal"].T).T.reshape(h, w, 3)
+    return (cat["color"].reshape(h, w, 3), normal,
+            cat["sdf_depth"].reshape(h, w), cat["render_depth"].reshape(h, w))
+
+
 class Validator:
     def __init__(self, conf, *, device="cuda", mesh_resolution=512, seed=0,
-                 base_exp_dir=None, params=None, state=None):
+                 base_exp_dir=None, params=None, state=None, vol_state=None):
         self.conf = conf
         self.device = torch.device(device)
         self.mesh_resolution = mesh_resolution
@@ -56,6 +106,9 @@ class Validator:
             conf["model"], seed=seed, device=self.device)
         if params is not None:
             self.params, self.state = params, state
+        # a finetune checkpoint's volumes (--load_vol): validated as they
+        # are, no cascade is built
+        self.vol_state = vol_state
         self.generator = torch.Generator(device=self.device)
         self.generator.manual_seed(seed + 1)
         self.last_scene = None
@@ -68,48 +121,14 @@ class Validator:
             self.params, self.state, self.static, ipts, features)
         return outputs, stages, matching, features
 
-    def sdf_lattice_fn(self, stages_ff):
-        """pts -> SDF, pinned to +100 outside the active set (one K3
-        launch gives both)."""
-        p = materialize_weight_norm(self.params["implicit_surface"])["sdf_network"]
-        st = self.static["implicit_surface"]["sdf"]
-
-        def fn(pts):
-            out, occ = sdf_net.apply_occ(p, st, pts, stages_ff)
-            return torch.where(occ, out[:, 0], torch.full_like(out[:, 0], 100.0))
-        return fn
-
-    @torch.no_grad()
     def extract_geometry(self, stages_ff, resolution, block=64):
-        return extract_geometry(self.sdf_lattice_fn(stages_ff), stages_ff,
-                                resolution, block=block)
+        return extract_mesh(self.params["implicit_surface"], self.static["implicit_surface"],
+                            stages_ff, resolution, block=block)
 
     def render_full_image(self, ipts, stages_ff, matching, feats_ff):
-        params = materialize_weight_norm(self.params["implicit_surface"])
-        isf = self.static["implicit_surface"]
-        fused = fuse_pyramid(ipts["imgs"], feats_ff) if isf.get("fused_pyramid") else None
-        rays_o, rays_d = ipts["rays_o"], ipts["rays_d"]
-        n = rays_o.shape[0]
-        near = ipts["near"].reshape(1, 1)
-        far = ipts["far"].reshape(1, 1)
-        outs = {"color": [], "normal": [], "sdf_depth": [], "render_depth": []}
-        for s in range(0, n, self.val_chunk):
-            sl = slice(s, s + self.val_chunk)
-            r = implicit_surface.render(
-                params, isf, rays_o[sl], rays_d[sl], near, far, matching,
-                stages_ff, feats_ff, ipts["imgs"], ipts["intrs"], ipts["c2ws"],
-                1.0, fused_colors=fused, generator=self.generator)
-            outs["color"].append(r["color_fine"])
-            outs["normal"].append((r["gradients"] * r["weights"][..., None]
-                                   * r["inside_sphere"][..., None]).sum(1))
-            outs["sdf_depth"].append(r["sdf_depth"])
-            outs["render_depth"].append(r["render_depth"])
-        h, w = [int(x) for x in ipts["hw"].reshape(-1)]
-        cat = {k: torch.cat(v).cpu().numpy() for k, v in outs.items()}
-        rot = np.linalg.inv(ipts["c2ws"][0, :3, :3].cpu().numpy())
-        normal = (rot @ cat["normal"].T).T.reshape(h, w, 3)
-        return (cat["color"].reshape(h, w, 3), normal,
-                cat["sdf_depth"].reshape(h, w), cat["render_depth"].reshape(h, w))
+        return render_full_image(self.params["implicit_surface"],
+                                 self.static["implicit_surface"], ipts, stages_ff, matching,
+                                 feats_ff, self.val_chunk, self.generator)
 
     # -- the whole pass -----------------------------------------------------
     def validate(self, epoch=0):
@@ -121,7 +140,12 @@ class Validator:
             _sync(self.device)
             t0 = time.time()
             with record_function("build"):
-                mf_outputs, stages, matching, features = self.build(ipts)
+                if self.vol_state is None:
+                    mf_outputs, stages, matching, features = self.build(ipts)
+                else:
+                    vs = self.vol_state
+                    mf_outputs, matching, features = {}, vs["matching_volume"], vs["features"]
+                    stages = list(zip(vs["grids"], vs["volumes"]))
                 _sync(self.device)
             build_s = time.time() - t0
             stages_ff = stages[::-1]
@@ -152,8 +176,9 @@ class Validator:
             np.save(os.path.join(d, "val_normal", tag), normal)
             np.save(os.path.join(d, "val_render_depth", tag), render_depth)
             np.save(os.path.join(d, "val_sdf_depth", tag), sdf_depth)
-            np.save(os.path.join(d, "val_auxi_depth", tag),
-                    mf_outputs["depth_stage0"].cpu().numpy())
+            if "depth_stage0" in mf_outputs:
+                np.save(os.path.join(d, "val_auxi_depth", tag),
+                        mf_outputs["depth_stage0"].cpu().numpy())
 
             gt = np.asarray(inputs["color"])
             mse = float(((color.reshape(-1, 3) - gt) ** 2).mean())

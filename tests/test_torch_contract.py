@@ -140,3 +140,13 @@ def test_kernels_match_plain(name):
     for g, r in zip(got, ref):
         if r is not None:
             torch.testing.assert_close(g.cpu().float(), r.float(), rtol=1e-5, atol=1e-5)
+
+
+def test_finetune_entry_point_needs_a_card_unless_cpu(monkeypatch):
+    from surf_tpu_torch import main
+    args = main.parse_args(["--mode", "finetune", "--resume", "x.npz", "--load_vol"])
+    assert args.device == "cuda" and args.load_vol and args.seed == 0
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(SystemExit):
+        main.main(["--conf", os.path.join(ROOT, "confs", "surf_synthetic_finetune.conf"),
+                   "--mode", "finetune", "--resume", "x.npz"])

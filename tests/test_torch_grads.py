@@ -278,3 +278,60 @@ def test_k4_transposed_table_is_one_to_one():
         back = trn.transpose_index(idx_t, idx.shape[0])
         assert torch.equal(back, torch.where(idx >= 0, idx.long(), -1)), name
 
+
+
+# ---------------------------------------------------------------------------
+# the grid-form convs (row 7): K4 / K4w on tables built from coordinates
+# ---------------------------------------------------------------------------
+
+GRID_OPS = {
+    # op: (input lives on children, cotangent mask: "cvalid" / "pactive" /
+    # None, neighbour-row table of the same conv, its output mask)
+    "subm_conv_child": (True, "cvalid", "subm_child", "cvalid"),
+    "subm_conv_parent": (False, "pactive", "subm_parent", "pactive"),
+    "down_conv_child_to_parent": (True, "pactive", "down_c2p", "pactive"),
+    "up_conv_parent_to_child": (False, None, "up_p2c", "cvalid"),
+}
+
+
+@pytest.mark.parametrize("op", sorted(GRID_OPS))
+def test_grid_form_conv_matches_jax_vjp(op):
+    """Values, dW and dX of the port's grid-form conv against ``jax.vjp`` of
+    the JAX package's ``custom_vjp`` (inputs and cotangents as
+    tests/test_reg_net.py builds them, on a grid with capacity-padding
+    parents at (0, 0, 0)), rtol 1e-4 / atol 1e-5 as there; and the value
+    equal to the neighbour-row conv (``conv_tables`` + K4) on live rows."""
+    rng, jg, tg = _conv_setup()
+    on_children, ct_mask, nbr_name, live_name = GRID_OPS[op]
+    Cin, Cout = 6, 5
+    cval = np.asarray(jg.cvalid)
+    pact_j = jg.pvalid & jnp.any(jg.cvalid.reshape(-1, 8), axis=1)
+    masks = {"cvalid": cval, "pactive": np.asarray(pact_j)}
+    P = len(masks["pactive"])
+    x = rng.randn(P * 8 if on_children else P, Cin).astype(np.float32)
+    x = x * masks["cvalid" if on_children else "pactive"][:, None]
+    w = (rng.randn(3, 3, 3, Cin, Cout) * 0.2).astype(np.float32)
+    n_out = P * 8 if live_name == "cvalid" else P
+    ct = rng.randn(n_out, Cout).astype(np.float32)
+    if ct_mask is not None:
+        ct = ct * masks[ct_mask][:, None]
+
+    extra_j = () if op == "subm_conv_child" else (pact_j,)
+    y_j, vjp = jax.vjp(lambda w_, x_: getattr(jrn, op)(w_, x_, jg, *extra_j),
+                       jnp.asarray(w), jnp.asarray(x))
+    dw_j, dx_j = vjp(jnp.asarray(ct))
+
+    tpact, _, tables = trn.conv_tables(tg)
+    np.testing.assert_array_equal(tpact.numpy(), masks["pactive"])
+    extra_t = () if op == "subm_conv_child" else (tpact,)
+    xt, wt = _t(x).requires_grad_(True), _t(w).requires_grad_(True)
+    y = getattr(trn, op)(wt, xt, tg, *extra_t)
+    dx, dw = torch.autograd.grad((y * _t(ct)).sum(), (xt, wt))
+    for name, got, ref in (("value", y.detach(), y_j), ("dW", dw, dw_j), ("dX", dx, dx_j)):
+        np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=1e-4, atol=1e-5,
+                                   err_msg=f"{op} {name}")
+
+    live = masks[live_name]
+    nbr = trn.gather_conv(_t(x), tables[nbr_name], _t(w).reshape(27, Cin, Cout))
+    np.testing.assert_allclose(y.detach().numpy()[live], nbr.numpy()[live], rtol=1e-5,
+                               atol=1e-6, err_msg=f"{op} against {nbr_name}")
