@@ -10,7 +10,9 @@ Phases, one line each (any failure exits non-zero, with no result line):
    and the backward kernels K1b-K3b and K4w) with nvcc for sm_90a, one
    process per source, in parallel;
 3. ragged: every kernel against its plain PyTorch version on odd shapes
-   with out-of-range points;
+   with out-of-range points; K1 and K1b also at every channel count their
+   kernels specialise and two they do not, with all-zero cotangent rows
+   and a pile-up of points on one texel;
 4. validate: the port's main path, ``Validator.validate`` on
    confs/surf_synthetic_full.conf (4-stage cascade 88^3 -> 704^3, 512^3
    mesh, 144x200 render) with seeded random weights; every kernel's
@@ -21,11 +23,14 @@ Phases, one line each (any failure exits non-zero, with no result line):
    bit for bit;
 6. kernels: K1-K4 against their plain versions at their validate call
    sites (the validate's own stages, volumes, images and recorded K4
-   inputs), with median times (CUDA events) of the kernel, the plain
-   version and, where one PyTorch call computes the same function, that
-   call, and the bound: the bytes the function must read and write (each
-   distinct texel, voxel or row once) at the card's memory rate, or its
-   f32 operations at the card's peak, whichever takes longer.  Then the
+   inputs), with the card's time (CUDA events around back-to-back calls
+   queued behind a sleep kernel, so the host's time to issue a call is
+   not counted: ``time_ms``) of the kernel, the plain version and, where
+   one PyTorch call computes the same function, that call, and the
+   bound: the bytes the function must read and write (each distinct
+   texel, voxel or row once) at the card's memory rate, or its f32
+   operations at the card's peak, whichever takes longer.  K1's entries
+   also say how their points fall on the image (``data``).  Then the
    grid-form convs (row 7: the four ops indexed through the voxel and
    parent tables, which no path calls) on the warm validate's own 352^3
    and 704^3 grids and recorded inputs: forward, dX and dW by K4/K4w
@@ -40,6 +45,10 @@ Phases, one line each (any failure exits non-zero, with no result line):
    peak memory.  The largest call of each kind of each backward kernel
    in the last step is recorded; K1b, K2b, K3b and K4w are then held
    against their plain versions and measured on those calls as in 6.
+   K1b's entries give the share of all-zero cotangent rows (whose
+   scatter the kernel skips) and the most points on one texel; its row
+   also times its largest call again with a random cotangent on every
+   row, as a trained model's denser stage would give.
    The trainer saves its checkpoint;
 8. finetune: a ``Finetuner`` on confs/surf_synthetic_finetune.conf (5
    views of 576x800, 512 rays, 4 stages to 704^3) resumes from that
@@ -165,20 +174,35 @@ def say(phase, msg):
     print(f"[{phase}] {msg}", flush=True)
 
 
-def time_ms(fn, iters=10, warmup=2):
+def time_ms(fn, iters=10, warmup=2, rounds=3):
+    """The card's time for one call of ``fn``: the median over ``rounds``
+    of ``iters`` back-to-back calls between two CUDA events, each round
+    queued behind a sleep kernel that lasts longer than the host takes to
+    issue the round.  The events then see the card's time alone: around a
+    single call they would also count the host's time to issue it (a
+    wrapper's Python and ctypes call, tens of microseconds), which is most
+    of what a short kernel seems to take.  Inputs stay as the calls leave
+    them in the 50 MB L2, for the kernel and its yardsticks alike."""
     import torch
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    host_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    sleep_s = min(0.1, 2.0 * iters * host_s + 1e-4)
     times = []
-    for _ in range(iters):
+    for _ in range(rounds):
         s = torch.cuda.Event(enable_timing=True)
         e = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(int(sleep_s * 2e9))          # clock cycles, <= 2 GHz
         s.record()
-        fn()
+        for _ in range(iters):
+            fn()
         e.record()
         e.synchronize()
-        times.append(s.elapsed_time(e))
+        times.append(s.elapsed_time(e) / iters)
     return statistics.median(times)
 
 
@@ -293,11 +317,41 @@ def ragged_checks(dev):
     for a, b in zip(sp.sparse_trilinear_multi_bwd(stages, pts3, *cts),
                     sp.sparse_trilinear_multi_bwd_plain(stages, pts3, *cts)):
         out.append(check_close("K3b ragged", a, b, 1e-5, 1e-5 * scale(b)))
+    out.append(k1_shapes_check(dev, g))
     ct = torch.randn(2011, 7, device=dev, generator=g)
     ref = reg_net.gather_conv_dw_plain(x, idx, ct)
     out.append(check_close("K4w ragged", reg_net.gather_conv_dw(x, idx, ct), ref, 1e-4,
                            1e-4 * scale(ref)))
     return max(out)
+
+
+def k1_shapes_check(dev, g):
+    """K1 and K1b against their plain versions at every channel count the
+    kernels specialise (1, 3, 4, 19) and two they do not (5, 32), on
+    points partly outside the image, with a cotangent whose rows are zero
+    one in three (K1b skips their scatter), and on a pile-up (every point
+    on the same 4 texels), each (d_image, d_coords) combination."""
+    import torch
+    from surf_tpu_torch.ops import grid_sample as gs
+    errs = []
+    for C in (1, 3, 4, 5, 19, 32):
+        img = torch.randn(2, 29, 41, C, device=dev, generator=g)
+        spread = torch.rand(2, 777, 2, device=dev, generator=g) * 2.6 - 1.3
+        pile = torch.tensor([0.137, -0.261], device=dev) \
+            + torch.rand(2, 777, 2, device=dev, generator=g) * 0.005
+        for what, co in (("spread", spread), ("pile-up", pile)):
+            errs.append(check_close(f"K1 C={C} {what}", gs.bilinear_sample(img, co),
+                                    gs.bilinear_sample_plain(img, co), 1e-5, 1e-5))
+            ct = torch.randn(2, 777, C, device=dev, generator=g)
+            ct[:, ::3] = 0.0
+            for need in ((True, True), (True, False), (False, True)):
+                kw = dict(need_images=need[0], need_coords=need[1])
+                for a, b in zip(gs.bilinear_sample_bwd(img, co, ct, **kw),
+                                gs.bilinear_sample_bwd_plain(img, co, ct, **kw)):
+                    if b is not None:
+                        errs.append(check_close(f"K1b C={C} {what} {need}", a, b, 1e-5,
+                                                1e-5 * scale(b)))
+    return max(errs)
 
 
 def scale(t):
@@ -394,6 +448,38 @@ def distinct_taps(sizes, co, align):
     return torch.unique(torch.cat(ids)).numel()
 
 
+def texel_load(image, co, normalized=True, align=True, ct=None):
+    """How the points of one K1 / K1b call fall on the image: the largest
+    number of points whose bilinear corners hit one texel and, given a
+    cotangent ``ct`` (V, N, C), the share of its (view, point) rows that
+    are entirely zero (K1b skips their scatter) and the same largest count
+    over the rows that are not."""
+    import torch
+    V, H, W = image.shape[:3]
+    x, y = co[..., 0], co[..., 1]
+    if normalized:
+        x, y = _unnormalize(x, W, align), _unnormalize(y, H, align)
+    x0, y0 = torch.floor(x).long(), torch.floor(y).long()
+    lead = torch.arange(V, device=co.device)[:, None] * (H * W)
+    live = None if ct is None else (ct != 0).any(-1)
+
+    def most(keep):
+        ids = []
+        for ox, oy in ((0, 0), (1, 0), (0, 1), (1, 1)):
+            cx, cy = x0 + ox, y0 + oy
+            ok = (cx >= 0) & (cx < W) & (cy >= 0) & (cy < H)
+            if keep is not None:
+                ok &= keep
+            ids.append((lead + cy * W + cx)[ok])
+        ids = torch.cat(ids)
+        return int(torch.bincount(ids).max()) if ids.numel() else 0
+    out = {"max_points_per_texel": most(None)}
+    if ct is not None:
+        out["zero_cotangent_rows"] = 1.0 - live.float().mean().item()
+        out["max_points_per_texel_nonzero_rows"] = most(live)
+    return out
+
+
 def k1_entry(what, image, co, align):
     """K1 against its plain version and F.grid_sample at one call site."""
     import torch.nn.functional as F
@@ -414,6 +500,7 @@ def k1_entry(what, image, co, align):
     b_ms, b_by = bound(nbytes(co) + nbytes(got) + texels * C * 4, V * N * C * 12)
     return {"shape": f"{what}: image {tuple(image.shape)} f32, {N} points x {V} views, "
                      f"align_corners={align}, {texels} distinct texels read",
+            "data": texel_load(image, co, align=align),
             "max_abs_err": err,
             "ms": time_ms(lambda: gs.bilinear_sample(image, co, align_corners=align)),
             "plain_ms": time_ms(lambda: gs.bilinear_sample_plain(image, co,
@@ -1024,7 +1111,11 @@ def bwd_entry(name, rec):
         err = max(err, check_close(f"{name} train call", x, y, rtol, 1e-5 * scale(y)))
     b_ms, b_by, what = bwd_bound(name, a, k, got)
     lib = bwd_library(name, a, k)
-    return {"shape": what, "max_abs_err": err,
+    data = {}
+    if name == "bilinear_sample_2d_bwd":
+        data = {"data": texel_load(a[0], a[1], k.get("normalized", True),
+                                   k.get("align_corners", True), a[2])}
+    return {"shape": what, **data, "max_abs_err": err,
             "ms": time_ms(lambda: fn(*a, **k)),
             "plain_ms": time_ms(lambda: plain(*a, **k), 3),
             "bound_ms": b_ms, "bound_by": b_by,
@@ -1067,6 +1158,13 @@ def backward_kernels(launches, records, dense_conv0=None):
             g = torch.Generator(device=x.device).manual_seed(3)
             ct = torch.randn(idx.shape[0], 8, device=x.device, generator=g)
             recs.append((0, (x, idx, ct), {}))
+        if name == "bilinear_sample_2d_bwd":
+            # the head call again with a random cotangent on every row: a
+            # trained model's denser stage, where no scatter can be skipped
+            n_, (img, co, ct), k_ = recs[0]
+            g = torch.Generator(device=ct.device).manual_seed(5)
+            recs.append((n_, (img, co, torch.randn(ct.shape, device=ct.device, generator=g)),
+                         k_))
         if name == "gather_conv_dw":
             # the wrapper narrows an int64 table on each call: time the
             # kernel on the narrowed one
@@ -1076,6 +1174,9 @@ def backward_kernels(launches, records, dense_conv0=None):
         if name == "gather_conv_dw" and dense_conv0 is not None:
             entries[-1]["shape"] = ("the validate's 704^3 conv0 table, a random "
                                     "cotangent: " + entries[-1]["shape"])
+        if name == "bilinear_sample_2d_bwd":
+            entries[-1]["shape"] = ("the head call with a random cotangent on every row: "
+                                    + entries[-1]["shape"])
         replaces, library = BWD_ROWS[name]
         r = {"name": name, "route": "cuda",
              "source": src.get(name, "surf_tpu_torch/csrc/grid_sample.cu"),
@@ -1370,7 +1471,7 @@ def main():
     say("build", f"{len(reports)} kernel libraries in {time.time() - t0:.1f} s")
     for name, log in reports.items():
         for line in log.splitlines():
-            if "registers" in line or "spill" in line:
+            if "entry function" in line or "registers" in line or "spill" in line:
                 say("build", f"{name}: {line.strip()}")
 
     t0 = time.time()

@@ -73,6 +73,20 @@ def bilinear_sample_plain(images, coords, *, normalized=True,
     return out
 
 
+def _k1_layout(what, images, coords):
+    """K1 / K1b's size rule (32-bit texel offsets: the image below 2^31
+    elements, a view's points below 2^31) and coordinates on an 8-byte
+    boundary for their float2 loads (a copy in the rare case they are
+    not).  Vector loads of 16-byte rows are the kernel's choice: it takes
+    them where the rows are aligned."""
+    if images.numel() >= 2 ** 31 - 1 or coords.shape[1] >= 2 ** 31 - 256 \
+            or images.shape[0] > 65535:
+        raise ValueError(f"{what}: image of {images.numel()} elements, "
+                         f"{coords.shape[1]} points a view: beyond the kernel's "
+                         "32-bit offsets")
+    return coords if coords.data_ptr() % 8 == 0 else coords.clone()
+
+
 def bilinear_sample(images, coords, *, normalized=True, align_corners=True):
     """K1 wrapper.  images (V, H, W, C) f32; coords (V, N, 2) f32 ->
     (V, N, C) f32."""
@@ -86,6 +100,7 @@ def bilinear_sample(images, coords, *, normalized=True, align_corners=True):
         raise ValueError("bilinear_sample: needs f32 images (V,H,W,C) and "
                          "f32 coords (V,N,2)")
     N = coords.shape[1]
+    coords = _k1_layout("bilinear_sample", images, coords)
     out = torch.empty((V, N, C), dtype=torch.float32, device=images.device)
     fn = _build.kernel_fn("grid_sample", "bilinear_sample_2d",
                           [_P, _P, _P, _I, _I, _I, _I, _L, _I, _I, _P])
@@ -156,6 +171,7 @@ def bilinear_sample_bwd(images, coords, ct, *, normalized=True,
             or tuple(coords.shape) != (V, N, 2):
         raise ValueError("bilinear_sample_bwd: needs f32 images (V,H,W,C), "
                          "coords (V,N,2) and ct (V,N,C)")
+    coords = _k1_layout("bilinear_sample_bwd", images, coords)
     d_img = torch.zeros_like(images) if need_images else None
     d_co = torch.empty_like(coords) if need_coords else None
     fn = _build.kernel_fn("grid_sample", "bilinear_sample_2d_bwd",

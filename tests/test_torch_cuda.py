@@ -5,6 +5,12 @@ they run on the card's machine: ``python -m pytest tests/test_torch_cuda.py
 
 * K1b, K2b, K3b and K4w against their plain versions on odd shapes with
   points outside the image / volume / grid;
+* K1 and K1b against their plain versions at every channel count their
+  kernels specialise and two they do not, one and five views, one point
+  and a count that is no multiple of the block, normalized and pixel
+  coordinates, points outside the image, all-zero cotangent rows, a
+  pile-up on one texel, each (d_image, d_coords) combination, and
+  images and coordinates off their vector alignment;
 * ``loss.backward()`` of the tiny model on the card against the same step
   on the CPU (whose plain versions tests/test_torch_train.py holds against
   the JAX package)."""
@@ -109,6 +115,82 @@ def test_backward_kernel_matches_plain_on_ragged_shapes(kernel):
                 rtol = 2.0 ** -7 if b.dtype == torch.bfloat16 else RTOL
                 _close(a.float().cpu().numpy(), b.float().cpu().numpy(), rtol=rtol,
                        atol=1e-5)
+
+
+def _k1_cases(g, V, N, H, W):
+    """(name, coords, kwargs) of K1 / K1b calls: normalized coordinates
+    (both conventions) and pixel coordinates reaching outside the image,
+    and a pile-up of every point inside one texel cell."""
+    norm = torch.rand(V, N, 2, generator=g) * 2.6 - 1.3
+    pix = torch.rand(V, N, 2, generator=g) * torch.tensor([W + 4.0, H + 4.0]) - 2.0
+    pile = torch.tensor([0.137, -0.261]) + torch.rand(V, N, 2, generator=g) * 0.005
+    return [("normalized, align_corners", norm, dict(align_corners=True)),
+            ("normalized", norm, dict(align_corners=False)),
+            ("pixel", pix, dict(normalized=False)),
+            ("pile-up", pile, dict(align_corners=True))]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("V", [1, 5])
+@pytest.mark.parametrize("C", [1, 3, 4, 5, 19, 32])
+def test_k1_k1b_match_plain(C, V):
+    """K1 (deterministic, no atomics: rtol/atol 1e-5) and K1b (atomics:
+    rtol 1e-5, atol 1e-5 times max(1, the largest entry)) against their
+    plain versions on the card.  The cotangent is zero on one row in
+    three and on the whole first view (rows K1b does not scatter)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    from surf_tpu_torch import _build
+    g = torch.Generator().manual_seed(100 * C + V)
+    dev = torch.device("cuda")
+    H, W = 23, 31
+    img = torch.randn(V, H, W, C, generator=g).to(dev)
+    _build.reset_launches()
+    n_calls = n_bwd = 0
+    for N in (1, 1000):
+        for what, co, kw in _k1_cases(g, V, N, H, W):
+            co = co.to(dev)
+            _close(tgs.bilinear_sample(img, co, **kw).cpu().numpy(),
+                   tgs.bilinear_sample_plain(img, co, **kw).cpu().numpy())
+            n_calls += 1
+            ct = torch.randn(V, N, C, generator=g)
+            ct[:, ::3] = 0.0
+            ct[0] = 0.0
+            ct = ct.to(dev)
+            for need in ((True, True), (True, False), (False, True)):
+                flags = dict(kw, need_images=need[0], need_coords=need[1])
+                got = tgs.bilinear_sample_bwd(img, co, ct, **flags)
+                ref = tgs.bilinear_sample_bwd_plain(img, co, ct, **flags)
+                n_bwd += 1
+                for a, b, on in zip(got, ref, need):
+                    assert (a is None) == (not on), (what, need)
+                    if on:
+                        _close(a.cpu().numpy(), b.cpu().numpy())
+    torch.cuda.synchronize()
+    assert _build.launches["bilinear_sample_2d"] == n_calls
+    assert _build.launches["bilinear_sample_2d_bwd"] == n_bwd
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("C", [3, 4, 32])
+def test_k1_k1b_off_alignment(C):
+    """An image that starts 4 bytes past a 16-byte boundary (the kernels
+    drop their 16-byte vectors) and coordinates 4 bytes past an 8-byte
+    one (the wrapper copies them) give the plain versions' values."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    g = torch.Generator().manual_seed(C)
+    dev = torch.device("cuda")
+    V, H, W, N = 2, 17, 19, 555
+    img = torch.randn(V * H * W * C + 1, generator=g).to(dev)[1:].view(V, H, W, C)
+    co = (torch.rand(V * N * 2 + 1, generator=g) * 2.4 - 1.2).to(dev)[1:].view(V, N, 2)
+    ct = torch.randn(V, N, C, generator=g).to(dev)
+    assert img.data_ptr() % 16 and co.data_ptr() % 8
+    _close(tgs.bilinear_sample(img, co).cpu().numpy(),
+           tgs.bilinear_sample_plain(img, co).cpu().numpy())
+    for a, b in zip(tgs.bilinear_sample_bwd(img, co, ct),
+                    tgs.bilinear_sample_bwd_plain(img, co, ct)):
+        _close(a.cpu().numpy(), b.cpu().numpy())
 
 
 @pytest.mark.cuda

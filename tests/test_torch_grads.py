@@ -68,6 +68,34 @@ def test_k1b_bilinear_core_vjp(normalized, align):
     _close(d_co[0].numpy(), d_co_j, err_msg="d_coords")
 
 
+@pytest.mark.parametrize("C", [1, 4, 19])
+def test_k1b_vjp_zero_rows_and_pileup(C):
+    """K1b's plain version against ``jax.vjp`` over a view batch at the
+    main path's channel counts, with the cotangent zero on every third
+    row and on the whole first view (rows the kernel does not scatter)
+    and a pile-up of points inside one texel cell (many sums into the
+    same 4 texels)."""
+    rng = np.random.RandomState(30 + C)
+    V, H, W = 2, 11, 14
+    img = rng.randn(V, H, W, C).astype(np.float32)
+    spread = rng.uniform(-1.2, 1.2, (V, 120, 2))
+    pile = np.array([0.137, -0.261]) + rng.uniform(0.0, 0.005, (V, 40, 2))
+    co = np.concatenate([spread, pile], 1).astype(np.float32)
+    ct = rng.randn(V, 160, C).astype(np.float32)
+    ct[:, ::3] = 0.0
+    ct[0] = 0.0
+    for align in (True, False):
+        _, vjp = jax.vjp(lambda i, c: jax.vmap(lambda im, cc: jgs.bilinear_sample_2d(
+            im, cc, align_corners=align))(i, c), jnp.asarray(img), jnp.asarray(co))
+        d_img_j, d_co_j = vjp(jnp.asarray(ct))
+        d_img, d_co = tgs.bilinear_sample_bwd_plain(_t(img), _t(co), _t(ct),
+                                                    align_corners=align)
+        _close(d_img.numpy(), d_img_j, err_msg="d_image")
+        _close(d_co.numpy(), d_co_j, err_msg="d_coords")
+        assert not np.asarray(d_img_j)[0].any() and not d_img[0].any()
+        assert not d_co[0].any()
+
+
 @pytest.mark.parametrize("align", [True, False])
 def test_k1b_packed_form_vjp(align):
     """The corner-packed TPU form: its d_packed, unpacked by autodiff of

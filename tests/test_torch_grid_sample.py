@@ -38,6 +38,47 @@ def test_bilinear_plain_matches_jax_2d_and_packed(align_corners):
         np.testing.assert_allclose(ours[v].numpy(), np.asarray(ref_p), atol=ATOL)
 
 
+def _spread_and_pileup(rng, V, n_spread, n_pile):
+    """Points over and beyond the image, then a pile-up: points that all
+    fall inside one texel cell (the same 4 corners)."""
+    spread = rng.uniform(-1.3, 1.3, (V, n_spread, 2))
+    pile = np.array([0.137, -0.261]) + rng.uniform(0.0, 0.005, (V, n_pile, 2))
+    return np.concatenate([spread, pile], 1).astype(np.float32)
+
+
+@pytest.mark.parametrize("C", [1, 4, 19])
+def test_bilinear_plain_matches_jax_channels_and_pileup(C):
+    """K1's plain version at the channel counts its kernel specialises on
+    the main path (1: depth maps, 4: FPN levels, 19: the fused pyramid)."""
+    rng = np.random.RandomState(20 + C)
+    V, H, W = 2, 13, 17
+    imgs = rng.randn(V, H, W, C).astype(np.float32)
+    coords = _spread_and_pileup(rng, V, 150, 50)
+    for align in (True, False):
+        ours = tgs.bilinear_sample(_t(imgs), _t(coords), align_corners=align)
+        assert ours.shape == (V, 200, C)
+        for v in range(V):
+            ref = jgs.bilinear_sample_2d(jnp.asarray(imgs[v]), jnp.asarray(coords[v]),
+                                         align_corners=align)
+            np.testing.assert_allclose(ours[v].numpy(), np.asarray(ref), atol=ATOL)
+
+
+def test_k1_layout_guard():
+    """The CUDA wrappers' layout rule: coordinates off an 8-byte boundary
+    are copied to one (same values), an image of 2^31 elements or more is
+    refused (the kernels' offsets are 32-bit)."""
+    co = torch.arange(2 * 5 * 2 + 1, dtype=torch.float32)[1:].view(2, 5, 2)
+    img = torch.zeros(2, 3, 4, 1)
+    assert co.data_ptr() % 8 == 4
+    fixed = tgs._k1_layout("test", img, co)
+    assert fixed.data_ptr() % 8 == 0 and torch.equal(fixed, co)
+    ok = co.clone()
+    assert tgs._k1_layout("test", img, ok) is ok
+    huge = torch.zeros(1).expand(2, 2 ** 15, 2 ** 15, 1)
+    with pytest.raises(ValueError, match="32-bit"):
+        tgs._k1_layout("test", huge, ok)
+
+
 def test_bilinear_pixel_coords_and_single_image():
     H, W, C = 9, 12, 3
     img = RNG.randn(H, W, C).astype(np.float32)
