@@ -17,7 +17,8 @@ Phases, one line each (any failure exits non-zero, with no result line):
    confs/surf_synthetic_full.conf (4-stage cascade 88^3 -> 704^3, 512^3
    mesh, 144x200 render) with seeded random weights; every kernel's
    launch count is zeroed just before and read just after, and must be
-   > 0.  This first call in the process is cold;
+   > 0; K2's and K3's calls are also counted by call site.  This first
+   call in the process is cold;
 5. warm: a second validate, for warm metrics, with every gather_conv call
    of ``apply_hybrid`` recorded; its cascade must equal the first one's
    bit for bit;
@@ -30,7 +31,11 @@ Phases, one line each (any failure exits non-zero, with no result line):
    bound: the bytes the function must read and write (each distinct
    texel, voxel or row once) at the card's memory rate, or its f32
    operations at the card's peak, whichever takes longer.  K1's entries
-   also say how their points fall on the image (``data``).  Then the
+   also say how their points fall on the image (``data``).  K2 and K3
+   must equal their plain versions bit for bit (K3's occupancy exactly):
+   K2 at build_z_vals and depth_render, K3 at the render chunk, the mesh
+   lattice's first call (recorded in the warm validate) and, in its
+   training variant, the training step's render shape.  Then the
    grid-form convs (row 7: the four ops indexed through the voxel and
    parent tables, which no path calls) on the warm validate's own 352^3
    and 704^3 grids and recorded inputs: forward, dX and dW by K4/K4w
@@ -256,9 +261,10 @@ def ragged_checks(dev):
         for dt in (torch.float32, torch.bfloat16):
             vol = torch.randn(13, 9, 11, 3, device=dev, generator=g).to(dt)
             pts = torch.rand(2003, 3, device=dev, generator=g) * 2.5 - 1.25
+            # K2 and K3 are equal bit for bit to their plain versions
             out.append(check_close(
                 f"K2 ragged {dt}", gs.trilinear_sample(vol, pts, align_corners=align),
-                gs.trilinear_sample_plain(vol, pts, align_corners=align), 1e-5, 1e-5))
+                gs.trilinear_sample_plain(vol, pts, align_corners=align), 0.0, 0.0))
     # K3: 1 to 4 stages of random sparse grids
     stages = []
     for res, keep, C in ((32, 0.3, 7), (16, 0.5, 5), (8, 0.7, 3), (4, 0.9, 2)):
@@ -280,13 +286,14 @@ def ragged_checks(dev):
             fail("K3 ragged: occupancy differs")
         for name, a, b in zip(("feats", "jac", "hmix"), (got[0], got[2], got[3]),
                               (ref[0], ref[2], ref[3])):
-            out.append(check_close(f"K3 ragged {name}", a, b, 1e-5,
-                                   1e-5 * max(b.abs().max().item(), 1.0)))
+            out.append(check_close(f"K3 ragged {name}", a, b, 0.0, 0.0))
     got = sp.sparse_trilinear_multi(stages, pts3, third=True)
     ref = sp.sparse_trilinear_multi_plain(stages, pts3, third=True)
+    if not torch.equal(got[1], ref[1]):
+        fail("K3 training variant: occupancy differs")
     for name, a, b in zip(("feats", "jac", "hmix", "third"), got[:1] + got[2:],
                           ref[:1] + ref[2:]):
-        out.append(check_close(f"K3 training variant {name}", a, b, 1e-5, 1e-5 * scale(b)))
+        out.append(check_close(f"K3 training variant {name}", a, b, 0.0, 0.0))
     # K4: odd channel counts, misses (-1)
     x = torch.randn(1003, 13, device=dev, generator=g)
     idx = torch.randint(-1, 1003, (2011, 27), device=dev, generator=g).to(torch.int32)
@@ -378,11 +385,14 @@ K4_CALLS = (("conv0 children -> children", lambda P: P * 27 * 4 + P * 8),
 
 def warm_validate(v):
     """A second ``validate`` (kernels loaded, allocator grown) with every
-    K4 call of ``apply_hybrid`` recorded as (grid, call index, x, idx, w).
-    The wrappers are the port's own; only the recording is added."""
+    K4 call of ``apply_hybrid`` recorded as (grid, call index, x, idx, w),
+    and the (stages, points) of the first value-only K3 call: the mesh
+    lattice's first ``blocks_per_call`` occupied blocks.  The wrappers are
+    the port's own; only the recording is added."""
     from surf_tpu_torch.nn import reg_net
-    hybrid, gconv = reg_net.apply_hybrid, reg_net.gather_conv
-    calls, cur = [], {}
+    from surf_tpu_torch.ops import sparse as sp
+    hybrid, gconv, k3 = reg_net.apply_hybrid, reg_net.gather_conv, sp.sparse_trilinear_multi
+    calls, cur, mesh = [], {}, []
 
     def rec_hybrid(params, state, grid, feats, **kw):
         cur["grid"], cur["i"] = grid, 0
@@ -393,14 +403,23 @@ def warm_validate(v):
         cur["i"] += 1
         return gconv(x, idx, w)
 
-    reg_net.apply_hybrid, reg_net.gather_conv = rec_hybrid, rec_gconv
+    def rec_k3(stages, pts, **kw):
+        if not kw.get("derivs") and not kw.get("third") and not mesh:
+            mesh.append((stages, pts.detach()))
+        return k3(stages, pts, **kw)
+
+    reg_net.apply_hybrid, reg_net.gather_conv, sp.sparse_trilinear_multi = \
+        rec_hybrid, rec_gconv, rec_k3
     try:
         m = v.validate()[0]
     finally:
-        reg_net.apply_hybrid, reg_net.gather_conv = hybrid, gconv
+        reg_net.apply_hybrid, reg_net.gather_conv, sp.sparse_trilinear_multi = \
+            hybrid, gconv, k3
     if [c[1] for c in calls] != list(range(6)) * (len(calls) // 6) or not calls:
         fail(f"apply_hybrid made {len(calls)} gather_conv calls, not 6 a stage")
-    return m, calls
+    if not mesh:
+        fail("the mesh lattice made no value-only K3 call")
+    return m, calls, mesh[0]
 
 
 def same_cascade(a, b):
@@ -423,10 +442,12 @@ def _unnormalize(c, size, align):
     return (c + 1.0) * 0.5 * (size - 1) if align else ((c + 1.0) * size - 1.0) * 0.5
 
 
-def distinct_taps(sizes, co, align):
+def distinct_taps(sizes, co, align, per_id=1):
     """Distinct in-range texels (sizes (V, H, W), co (V, N, 2) as (x, y))
     or voxels (sizes (X, Y, Z), co (N, 3)) that the bilinear/trilinear taps
-    at normalized coords ``co`` read."""
+    at normalized coords ``co`` read; with ``per_id`` > 1, the distinct
+    runs of ``per_id`` consecutive ones (one 32-byte sector of 16 bf16
+    voxels, at C = 1)."""
     import torch
     if co.shape[-1] == 2:
         V, H, W = sizes
@@ -445,7 +466,7 @@ def distinct_taps(sizes, co, align):
             ok &= (c >= 0) & (c < n)
             flat = flat * n + c
         ids.append((flat + lead)[ok])
-    return torch.unique(torch.cat(ids)).numel()
+    return torch.unique(torch.cat(ids) // per_id).numel()
 
 
 def texel_load(image, co, normalized=True, align=True, ct=None):
@@ -510,12 +531,14 @@ def k1_entry(what, image, co, align):
 
 def k2_entry(what, vol, pts):
     """K2 against its plain version and F.grid_sample 3D (axes flipped)
-    at one call site (align_corners=False, as every K2 call of the path)."""
+    at one call site (align_corners=False, as every K2 call of the path).
+    ``data``: the distinct 32-byte sectors the gathers touch and, at
+    C = 1, K2's time on the f32 copy F.grid_sample reads."""
     import torch.nn.functional as F
     from surf_tpu_torch.ops import grid_sample as gs
     got = gs.trilinear_sample(vol, pts, align_corners=False)
     err = check_close(f"K2 {what}", got,
-                      gs.trilinear_sample_plain(vol, pts, align_corners=False), 1e-5, 1e-5)
+                      gs.trilinear_sample_plain(vol, pts, align_corners=False), 0.0, 0.0)
     vol_f = vol.float().permute(3, 0, 1, 2)[None].contiguous()
     lib_grid = pts.flip(-1)[None, None, None].contiguous()
 
@@ -528,8 +551,22 @@ def k2_entry(what, vol, pts):
     voxels = distinct_taps(vol.shape[:3], pts, False)
     b_ms, b_by = bound(nbytes(pts) + nbytes(got) + voxels * C * vol.element_size(),
                        n * C * 30)
+    # a gather reads whole 32-byte sectors: the distinct ones the taps touch
+    # (at C = 1) and their time at the memory rate
+    sectors = distinct_taps(vol.shape[:3], pts, False, 32 // vol.element_size()) \
+        if C == 1 else None
+    data = {"distinct_32B_sectors": sectors,
+            "sectors_ms": sectors and sectors * 32 / HBM_BYTES_PER_S * 1e3}
+    if C == 1:
+        # on the f32 copy F.grid_sample reads (at C = 1 the same layout)
+        v32 = vol_f.view(vol.shape)
+        check_close(f"K2 {what} f32 copy", gs.trilinear_sample(v32, pts, align_corners=False),
+                    got, 0.0, 0.0)
+        data["ms_f32_volume"] = time_ms(
+            lambda: gs.trilinear_sample(v32, pts, align_corners=False))
     return {"shape": f"{what}: volume {tuple(vol.shape)} {str(vol.dtype).split('.')[-1]}, "
                      f"{n} points, {voxels} distinct voxels read",
+            "data": data,
             "max_abs_err": err,
             "ms": time_ms(lambda: gs.trilinear_sample(vol, pts, align_corners=False)),
             "plain_ms": time_ms(lambda: gs.trilinear_sample_plain(vol, pts,
@@ -556,6 +593,84 @@ def k3_bytes_read(stages, pts):
         total += (torch.unique(pidx).numel() * 4 + torch.unique(rows[present]).numel()
                   + torch.unique(rows[valid]).numel() * s.shape[1] * 4)
     return total
+
+
+# K3's modes: the sums a (point, channel) forms, and the wrapper's flags
+K3_MODES = {"value": (1, {}), "derivs": (7, {"derivs": True}), "third": (8, {"third": True})}
+
+
+def k3_entry(what, stages, pts, mode):
+    """K3 against its plain version (equal bit for bit, occupancy equal) at
+    one call site, in one of its modes (``K3_MODES``)."""
+    import torch
+    from surf_tpu_torch.ops import sparse as sp
+    sums, kw = K3_MODES[mode]
+    got = sp.sparse_trilinear_multi(stages, pts, **kw)
+    ref = sp.sparse_trilinear_multi_plain(stages, pts, **kw)
+    if not torch.equal(got[1], ref[1]):
+        fail(f"K3 {what}: occupancy differs at {(got[1] != ref[1]).sum().item()} points")
+    err = 0.0
+    for name, a, b in zip(("feats", "occ", "jac", "hmix", "third"), got, ref):
+        if b is not None and name != "occ":
+            err = max(err, check_close(f"K3 {what} {name}", a, b, 0.0, 0.0))
+    n, ctot = got[0].shape
+    moved = nbytes(pts) + sum(nbytes(t) for t in got if t is not None) \
+        + k3_bytes_read(stages, pts)
+    # each sum: 8 corners, a product and an add each (the weights' products
+    # once a (point, stage) at best: not counted)
+    b_ms, b_by = bound(moved, n * ctot * sums * 8 * 2)
+    del got, ref
+    outs = {"value": "value + occupancy", "derivs": "value + jacobian + mixed 2nd "
+            "derivatives + occupancy", "third": "value + jacobian + mixed 2nd + d3/dxdydz "
+            "+ occupancy (training variant)"}[mode]
+    return {"shape": f"{what}: {n} points, stages {[g.res for g, _ in stages]}, {ctot} "
+                     f"channels, {outs}",
+            "max_abs_err": err,
+            "ms": time_ms(lambda: sp.sparse_trilinear_multi(stages, pts, **kw)),
+            "plain_ms": time_ms(lambda: sp.sparse_trilinear_multi_plain(stages, pts, **kw), 3),
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
+
+
+@contextlib.contextmanager
+def count_call_sites():
+    """Counts the K2 and K3 calls made inside the block by call site: K2's
+    by its caller (``build_z_vals`` in nn/implicit_surface.py,
+    ``depth_render`` in nn/matching_field.py), K3's by mode (in a validate
+    the render's chunks ask for the derivatives and the mesh lattice for
+    values only; a training step asks for the training variant).  Each
+    call there is one launch on the card."""
+    from surf_tpu_torch.nn import implicit_surface, matching_field
+    from surf_tpu_torch.ops import sparse as sp
+    sites = {"trilinear_sample_3d": {"build_z_vals": 0, "depth_render": 0},
+             "sparse_trilinear_multi": {"derivatives": 0, "value only": 0,
+                                        "training variant": 0}}
+
+    def k2_at(site):
+        def count(_kw):
+            sites["trilinear_sample_3d"][site] += 1
+        return count
+
+    def k3_by_mode(kw):
+        site = ("training variant" if kw.get("third") else
+                "derivatives" if kw.get("derivs") else "value only")
+        sites["sparse_trilinear_multi"][site] += 1
+
+    def wrap(fn, count):
+        def counted(*a, **k):
+            count(k)
+            return fn(*a, **k)
+        return counted
+    swaps = [(implicit_surface, "trilinear_sample_3d", k2_at("build_z_vals")),
+             (matching_field, "trilinear_sample_3d", k2_at("depth_render")),
+             (sp, "sparse_trilinear_multi", k3_by_mode)]
+    orig = [getattr(m, n) for m, n, _ in swaps]
+    for (m, n, count), fn in zip(swaps, orig):
+        setattr(m, n, wrap(fn, count))
+    try:
+        yield sites
+    finally:
+        for (m, n, _), fn in zip(swaps, orig):
+            setattr(m, n, fn)
 
 
 def k4_entry(grid, i, x, idx, w):
@@ -600,9 +715,11 @@ def render_chunk_points(scene, static, chunk):
     return (ro[:, None] + rd[:, None] * mid[..., None]).reshape(-1, 3), ro, rd, near, far
 
 
-def main_path_kernels(v, launches, k4_calls):
+def main_path_kernels(v, launches, k4_calls, mesh_call, sites):
     """One row per kernel: its headline call site, and ``also_checked``
-    entries for its other call sites on the main path."""
+    entries for its other call sites on the main path; K2's and K3's
+    entries carry their call site's launches (``sites``, counted in the
+    same validate as ``launches``)."""
     import torch
     from surf_tpu_torch.ops import sparse as sp
     from surf_tpu_torch.ops.feature_lookup import fuse_pyramid
@@ -659,43 +776,34 @@ def main_path_kernels(v, launches, k4_calls):
     z_d = near + (far - near) * torch.linspace(0.0, 1.0, static["n_depth"],
                                                device=near.device)[None]
     p2 = (ro[:, None] + rd[:, None] * z_d[..., None]).reshape(-1, 3).contiguous()
+    # (build_z_vals heads the row: the call site where K2 lost to
+    # F.grid_sample before it was redesigned)
     k2 = [k2_entry("build_z_vals", mv, p2)]
     rof, rdf = pixels_to_rays(make_pixel_grid((H, W), device=mv.device), intrs[0], c2ws[0])
     nf = ipts["near_fars"][0]
     z = nf[0] + (nf[1] - nf[0]) * torch.linspace(0.0, 1.0, 32, device=mv.device)
     k2.append(k2_entry("depth_render", mv, (rof[:, None] + rdf[:, None] * z[None, :, None])
                        .reshape(-1, 3).contiguous()))
+    for e, site in zip(k2, ("build_z_vals", "depth_render")):
+        e["call_site_launches"] = sites["trilinear_sample_3d"][site]
     rows.append(row("trilinear_sample_3d", "surf_tpu_torch/csrc/grid_sample.cu",
-                    "surf_tpu/ops/grid_sample.py:347", k2, "|err| <= 1e-5 + 1e-5 |plain|",
+                    "surf_tpu/ops/grid_sample.py:347", k2,
+                    "exact: max abs err 0 (equal bit for bit to the plain version)",
                     "F.grid_sample, 3-D, f32 NCDHW copy, axes flipped"))
 
-    # K3: the render chunk's 4-stage lookup with derivatives
+    # K3: the render chunk's 4-stage lookup with derivatives; the mesh
+    # lattice's first call (value only); the training variant at the
+    # training step's render shape (512 rays x 136 samples)
     pts = pts.contiguous()
-    got = sp.sparse_trilinear_multi(stages_ff, pts, derivs=True)
-    ref = sp.sparse_trilinear_multi_plain(stages_ff, pts, derivs=True)
-    if not torch.equal(got[1], ref[1]):
-        fail(f"K3 main: occupancy differs at {(got[1] != ref[1]).sum().item()} points")
-    err = 0.0
-    for name, a, b in zip(("feats", "jac", "hmix"), (got[0], got[2], got[3]),
-                          (ref[0], ref[2], ref[3])):
-        err = max(err, check_close(f"K3 main {name}", a, b, 1e-5,
-                                   1e-5 * max(b.abs().max().item(), 1.0)))
-    n3, ctot = got[0].shape
-    moved = nbytes(pts) + sum(nbytes(t) for t in got) + k3_bytes_read(stages_ff, pts)
-    b_ms, b_by = bound(moved, n3 * ctot * 8 * 14)
-    del got, ref
+    k3 = [k3_entry("render chunk", stages_ff, pts, "derivs"),
+          k3_entry("mesh lattice", mesh_call[0], mesh_call[1].contiguous(), "value"),
+          k3_entry("training variant", stages_ff, pts[:512 * 136].contiguous(), "third")]
+    for e, site in zip(k3, ("derivatives", "value only", "training variant")):
+        e["call_site_launches"] = sites["sparse_trilinear_multi"][site]
     rows.append(row("sparse_trilinear_multi", "surf_tpu_torch/csrc/sparse_trilinear.cu",
-                    "surf_tpu/ops/sparse.py:422", [{
-                        "shape": f"render chunk: {n3} points, stages "
-                                 f"{[g.res for g, _ in stages_ff]}, {ctot} channels, "
-                                 "value + jacobian + mixed 2nd derivatives + occupancy",
-                        "max_abs_err": err,
-                        "ms": time_ms(lambda: sp.sparse_trilinear_multi(stages_ff, pts,
-                                                                        derivs=True)),
-                        "plain_ms": time_ms(lambda: sp.sparse_trilinear_multi_plain(
-                            stages_ff, pts, derivs=True), 3),
-                        "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}],
-                    "|err| <= 1e-5 max(max|plain|, 1) + 1e-5 |plain|, occupancy equal",
+                    "surf_tpu/ops/sparse.py:422", k3,
+                    "exact: max abs err 0 (equal bit for bit to the plain version), "
+                    "occupancy equal",
                     "none: no one PyTorch call samples a sparse voxel set"))
 
     # K4: every gather_conv call of apply_hybrid (352^3 and 704^3) on the
@@ -953,15 +1061,17 @@ def train_phase(conf_path, n_steps=3, dev="cuda"):
     _build.reset_launches()
     times, per_step, last = [], [], dict(_build.launches)
     for i in range(n_steps):
-        if i == n_steps - 1:
+        last_step = i == n_steps - 1
+        if last_step:
             records, calls, restore = record_backward_calls()
         t0 = time.time()
         try:
-            res = t.step(batches[i], i / n)
+            with count_call_sites() if last_step else contextlib.nullcontext({}) as sites:
+                res = t.step(batches[i], i / n)
             if cuda:
                 torch.cuda.synchronize()
         finally:
-            if i == n_steps - 1:
+            if last_step:
                 restore()
         times.append(time.time() - t0)
         now = dict(_build.launches)
@@ -981,7 +1091,8 @@ def train_phase(conf_path, n_steps=3, dev="cuda"):
     metrics = {"cold_step_s": times[0], "warm_s_per_step": statistics.mean(times[1:]),
                "warm_steps_s": times[1:], "peak_mem_gb": peak / 2 ** 30,
                "launches_per_step": per_step[-1], "params_moved": moved,
-               "params_per_group": sizes, "backward_calls_last_step": calls}
+               "params_per_group": sizes, "backward_calls_last_step": calls,
+               "k2_k3_call_sites_last_step": sites}
     say("train", json.dumps(metrics))
     say("train", "kernels " + json.dumps(launches))
     missing = [k for k, v in launches.items() if v <= 0]
@@ -1488,7 +1599,8 @@ def main():
     torch.cuda.synchronize()
     _build.reset_launches()
     t0 = time.time()
-    results = v.validate()
+    with count_call_sites() as sites:
+        results = v.validate()
     torch.cuda.synchronize()
     launches = dict(_build.launches)
     wall = time.time() - t0
@@ -1498,7 +1610,8 @@ def main():
         f"active_voxels={m['active_voxels']} mesh=({m['mesh_vertices']} v, "
         f"{m['mesh_faces']} f) peak_mem_gb="
         f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} wall_s={wall:.1f}")
-    say("validate", "kernels " + json.dumps(launches))
+    say("validate", "kernels " + json.dumps(launches) + ", K2 and K3 by call site "
+        + json.dumps(sites))
     missing = [k for k in FWD_KERNELS if launches[k] <= 0]
     if missing:
         fail(f"the main path launched no {missing}")
@@ -1510,7 +1623,7 @@ def main():
         fail(f"cascade active sets {m['active_voxels']}")
 
     cold = v.last_scene
-    m, k4_calls = warm_validate(v)
+    m, k4_calls, mesh_call = warm_validate(v)
     say("warm", f"build_s={m['build_s']:.3f} mesh_s={m['mesh_s']:.3f} "
         f"render_rays_per_s={m['render_rays_per_s']:.1f} "
         f"active_voxels={m['active_voxels']} gather_conv calls recorded: {len(k4_calls)}")
@@ -1520,7 +1633,8 @@ def main():
         "features) equal bit for bit to the first validate's")
     del cold
 
-    rows = main_path_kernels(v, launches, k4_calls)
+    rows = main_path_kernels(v, launches, k4_calls, mesh_call, sites)
+    del mesh_call
     t0 = time.time()
     grid_rows = grid_form_kernels(k4_calls)
     say("kernel", f"row 7 (grid-form convs): {time.time() - t0:.1f} s")
@@ -1532,9 +1646,12 @@ def main():
     torch.cuda.empty_cache()
 
     t0 = time.time()
-    train_launches, records, _, ckpt = train_phase(conf_path)
+    train_launches, records, train_metrics, ckpt = train_phase(conf_path)
+    train_sites = train_metrics["k2_k3_call_sites_last_step"]
     for r in rows:
         r["launches_in_train"] = train_launches[r["name"]]
+        if r["name"] in train_sites:
+            r["launches_in_train_step_by_call_site"] = train_sites[r["name"]]
     torch.cuda.empty_cache()
     rows += backward_kernels(train_launches, records, dense_conv0)
     del records, dense_conv0

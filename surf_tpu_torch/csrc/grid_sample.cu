@@ -42,12 +42,25 @@
 // order (built with -fmad=false, so the floors and products agree).  No
 // atomics: the output is the same bit for bit from run to run.
 //
-// K2 design (correct first): one thread per (sample, channel), channel
-// fastest, so the threads of a warp read neighbouring channels of the same
-// corner rows and write one contiguous output row.  Coordinates are
-// unnormalized in the kernel with the same operation order as the plain
-// PyTorch version (built with -fmad=false, so the floors agree).  The
-// corner sum runs in the reference's corner order.  No shared memory.
+// K2 design.  The path calls K2 at C = 1 on the bf16 704^3 matching
+// volume: 8 two-byte gathers a sample, each in a 32-byte sector of its
+// own.  At build_z_vals the sectors a call touches fit in L2 (under 31
+// MB), so what costs is the instructions and the gathers' requests, not
+// the memory's bytes.  One thread per sample
+// (no division by C; C = 1 a template parameter, a run-time-C loop for
+// the rest); each axis's geometry once (``tri_axis``: floor, the two
+// clamped voxel indices and inside flags, tested and clamped in float, so
+// a far-off or NaN coordinate is never converted out of range); 32-bit
+// voxel offsets (the wrapper keeps the volume below 2^31 elements).  The
+// 8 corners are clamped to the volume and all 8 loads are issued before
+// any add; an outside corner is added with weight 0, as the plain version
+// multiplies its clamped read by its 0/1 inside mask.  Each corner is one
+// 2-byte load: reading a z-pair (z0, z0+1) as one 4-byte word where its
+// offset is even, and a second word where not, measured 1.4x slower at
+// build_z_vals on the H100.  The corner sum runs in the reference's order
+// from the first term, with the plain version's operation order
+// (-fmad=false), so the output is equal bit for bit to
+// ``trilinear_sample_plain``.
 
 #include <climits>
 #include <cstdint>
@@ -247,37 +260,86 @@ __device__ __forceinline__ float load<__nv_bfloat16>(const __nv_bfloat16* p,
     return __bfloat162float(p[i]);
 }
 
-template <typename T>
-__global__ void trilinear_kernel(const T* __restrict__ vol,
-                                 const float* __restrict__ coords,
-                                 float* __restrict__ out,
-                                 int X, int Y, int Z, int C, long long total,
-                                 int normalized, int align) {
-    long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-    if (i >= total) return;
-    const int c = (int)(i % C);
-    const long long n = i / C;
-    float x = coords[3 * n], y = coords[3 * n + 1], z = coords[3 * n + 2];
+// ---------------------------------------------------------------------------
+// K2: one thread per sample; CT = 1 (the path's C) or 0 (C at run time)
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ float to_float(float v) { return v; }
+__device__ __forceinline__ float to_float(__nv_bfloat16 v) { return __bfloat162float(v); }
+
+// One axis of a sample's trilinear cell: the low and high corner's voxel
+// index clamped to the volume, their 0/1 inside masks and the fraction f
+// (g = 1 - f), as the plain version forms them.
+struct Axis {
+    int i0, i1;
+    float in0, in1;
+    float f, g;
+};
+
+__device__ __forceinline__ Axis tri_axis(float c, int size) {
+    const float c0 = floorf(c), hi = (float)(size - 1);
+    Axis a;
+    a.f = c - c0;
+    a.g = 1.0f - a.f;
+    a.i0 = (int)fminf(fmaxf(c0, 0.0f), hi);
+    a.i1 = (int)fminf(fmaxf(c0 + 1.0f, 0.0f), hi);
+    a.in0 = (c0 >= 0.0f && c0 < (float)size) ? 1.0f : 0.0f;
+    a.in1 = (c0 >= -1.0f && c0 < hi) ? 1.0f : 0.0f;
+    return a;
+}
+
+template <typename T, int CT>
+__global__ void __launch_bounds__(kThreads)
+trilinear_kernel(const T* __restrict__ vol, const float* __restrict__ coords,
+                 float* __restrict__ out, int X, int Y, int Z, int C_rt, int N,
+                 int normalized, int align) {
+    const int C = CT ? CT : C_rt;
+    const int p = blockIdx.x * kThreads + threadIdx.x;
+    if (p >= N) return;
+    const float* co = coords + 3 * (long long)p;
+    float x = co[0], y = co[1], z = co[2];
     if (normalized) {
         x = unnormalize(x, X, align);
         y = unnormalize(y, Y, align);
         z = unnormalize(z, Z, align);
     }
-    const float x0f = floorf(x), y0f = floorf(y), z0f = floorf(z);
-    const float fx = x - x0f, fy = y - y0f, fz = z - z0f;
-    const long long x0 = (long long)x0f, y0 = (long long)y0f, z0 = (long long)z0f;
-    float acc = 0.0f;
+    const Axis ax = tri_axis(x, X), ay = tri_axis(y, Y), az = tri_axis(z, Z);
+    // corner k = 4 ox + 2 oy + oz: its (x, y) row's first voxel, its weight
+    // times its inside mask, in the plain version's operation order
+    int row[4];
+    float w[8];
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+        row[r] = (((r >> 1) ? ax.i1 : ax.i0) * Y + ((r & 1) ? ay.i1 : ay.i0)) * Z;
 #pragma unroll
     for (int k = 0; k < 8; ++k) {
         const int ox = (k >> 2) & 1, oy = (k >> 1) & 1, oz = k & 1;
-        const long long cx = x0 + ox, cy = y0 + oy, cz = z0 + oz;
-        const bool valid = cx >= 0 && cx < X && cy >= 0 && cy < Y &&
-                           cz >= 0 && cz < Z;
-        const float w = (ox ? fx : 1.0f - fx) * (oy ? fy : 1.0f - fy) *
-                        (oz ? fz : 1.0f - fz);
-        if (valid) acc += load(vol, ((cx * Y + cy) * Z + cz) * C + c) * w;
+        const float wk = ((ox ? ax.f : ax.g) * (oy ? ay.f : ay.g)) * (oz ? az.f : az.g);
+        const float in = ((ox ? ax.in1 : ax.in0) * (oy ? ay.in1 : ay.in0)) *
+                         (oz ? az.in1 : az.in0);
+        w[k] = wk * in;
     }
-    out[i] = acc;
+    if constexpr (CT == 1) {
+        float v[8];
+#pragma unroll
+        for (int k = 0; k < 8; ++k) v[k] = to_float(vol[row[k >> 1] + ((k & 1) ? az.i1 : az.i0)]);
+        float acc = v[0] * w[0];
+#pragma unroll
+        for (int k = 1; k < 8; ++k) acc = acc + v[k] * w[k];
+        out[p] = acc;
+    } else {
+        float* o = out + (long long)p * C;
+        for (int c = 0; c < C; ++c) {
+            float v[8];
+#pragma unroll
+            for (int k = 0; k < 8; ++k)
+                v[k] = to_float(vol[(row[k >> 1] + ((k & 1) ? az.i1 : az.i0)) * C + c]);
+            float acc = v[0] * w[0];
+#pragma unroll
+            for (int k = 1; k < 8; ++k) acc = acc + v[k] * w[k];
+            o[c] = acc;
+        }
+    }
 }
 
 // ---------------------------------------------------------------------------
@@ -590,23 +652,35 @@ int bilinear_sample_2d(const float* img, const float* coords, float* out,
     return (int)cudaGetLastError();
 }
 
-// vol (X, Y, Z, C) f32 or bf16, coords (N, 3) f32, out (N, C) f32
+// vol (X, Y, Z, C) f32 or bf16, coords (N, 3) f32, out (N, C) f32.  The
+// volume below 2^31 elements (32-bit voxel offsets).
 int trilinear_sample_3d(const void* vol, int is_bf16, const float* coords,
                         float* out, int X, int Y, int Z, int C, long long N,
                         int normalized, int align, void* stream) {
-    const long long total = N * C;
-    if (total > 0) {
-        if (is_bf16) {
-            trilinear_kernel<__nv_bfloat16><<<blocks_for(total), kThreads, 0,
-                                              (cudaStream_t)stream>>>(
-                (const __nv_bfloat16*)vol, coords, out, X, Y, Z, C, total,
-                normalized, align);
-        } else {
-            trilinear_kernel<float><<<blocks_for(total), kThreads, 0,
-                                      (cudaStream_t)stream>>>(
-                (const float*)vol, coords, out, X, Y, Z, C, total,
-                normalized, align);
-        }
+    if (N <= 0 || C <= 0) return 0;
+    const long long voxels = (long long)X * Y * Z;
+    if (X <= 0 || Y <= 0 || Z <= 0 || voxels * C >= (long long)INT_MAX ||
+        N > (long long)INT_MAX - kThreads)
+        return (int)cudaErrorInvalidValue;
+    const unsigned grid = blocks_for(N);
+    cudaStream_t s = (cudaStream_t)stream;
+    const int n = (int)N;
+    if (is_bf16) {
+        const __nv_bfloat16* v = (const __nv_bfloat16*)vol;
+        if (C == 1)
+            trilinear_kernel<__nv_bfloat16, 1><<<grid, kThreads, 0, s>>>(
+                v, coords, out, X, Y, Z, C, n, normalized, align);
+        else
+            trilinear_kernel<__nv_bfloat16, 0><<<grid, kThreads, 0, s>>>(
+                v, coords, out, X, Y, Z, C, n, normalized, align);
+    } else {
+        const float* v = (const float*)vol;
+        if (C == 1)
+            trilinear_kernel<float, 1><<<grid, kThreads, 0, s>>>(
+                v, coords, out, X, Y, Z, C, n, normalized, align);
+        else
+            trilinear_kernel<float, 0><<<grid, kThreads, 0, s>>>(
+                v, coords, out, X, Y, Z, C, n, normalized, align);
     }
     return (int)cudaGetLastError();
 }

@@ -291,6 +291,14 @@ def trilinear_sample_plain(volume, coords, *, normalized=True,
     return out
 
 
+def _k2_size_rule(volume, coords):
+    """K2's size rule: 32-bit voxel offsets (the volume below 2^31
+    elements) and the points below 2^31."""
+    if volume.numel() >= 2 ** 31 - 1 or coords.shape[0] >= 2 ** 31 - 256:
+        raise ValueError(f"trilinear_sample: volume of {volume.numel()} elements, "
+                         f"{coords.shape[0]} points: beyond the kernel's 32-bit offsets")
+
+
 def trilinear_sample(volume, coords, *, normalized=True, align_corners=True):
     """K2 wrapper.  volume (X, Y, Z, C) f32 or bf16; coords (N, 3) f32 ->
     (N, C) f32."""
@@ -303,6 +311,7 @@ def trilinear_sample(volume, coords, *, normalized=True, align_corners=True):
             or coords.shape[1] != 3 or volume.dim() != 4:
         raise ValueError("trilinear_sample: needs an f32/bf16 volume "
                          "(X,Y,Z,C) and f32 coords (N,3)")
+    _k2_size_rule(volume, coords)
     X, Y, Z, C = volume.shape
     N = coords.shape[0]
     out = torch.empty((N, C), dtype=torch.float32, device=volume.device)

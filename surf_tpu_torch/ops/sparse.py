@@ -217,6 +217,20 @@ def _stage_args(stages, what, check_storage=True):
             arr_i(*[int(s.shape[-1]) for _, s in stages]))
 
 
+def _k3_size_rule(stages, n):
+    """K3's size rule: 32-bit index arithmetic, so every parent table,
+    validity array and storage below 2^31 entries and the points below
+    2^31; 1 to 256 channels in all (a thread of the kernel's 256-thread
+    block keeps one channel)."""
+    big = [g.parent_table.numel() for g, _ in stages] + \
+        [g.cvalid.numel() for g, _ in stages] + [s.numel() for _, s in stages]
+    if max(big) >= 2 ** 31 - 1 or n >= 2 ** 31 - 256:
+        raise ValueError(f"sparse_trilinear_multi: {max(big)} table, validity or storage "
+                         f"entries, {n} points: beyond the kernel's 32-bit offsets")
+    if not 1 <= sum(int(s.shape[-1]) for _, s in stages) <= 256:
+        raise ValueError("sparse_trilinear_multi: needs 1 to 256 channels in all")
+
+
 def sparse_trilinear_multi(stages, pts, *, derivs=False, third=False):
     """K3 wrapper: one launch over up to 4 stages.  Same contract as
     ``sparse_trilinear_multi_plain`` (``third`` takes the training
@@ -226,6 +240,7 @@ def sparse_trilinear_multi(stages, pts, *, derivs=False, third=False):
         return sparse_trilinear_multi_plain(stages, pts, derivs=derivs, third=third)
     pts = pts.float().contiguous()
     tables, cvalids, res, cs = _stage_args(stages, "sparse_trilinear_multi")
+    _k3_size_rule(stages, pts.shape[0])
     _build.require_cuda("sparse_trilinear_multi", pts,
                         *[t for g, s in stages for t in (g.parent_table, g.cvalid, s)])
     n = pts.shape[0]

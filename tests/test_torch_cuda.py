@@ -11,6 +11,12 @@ they run on the card's machine: ``python -m pytest tests/test_torch_cuda.py
   coordinates, points outside the image, all-zero cotangent rows, a
   pile-up on one texel, each (d_image, d_coords) combination, and
   images and coordinates off their vector alignment;
+* K2 and K3 against their plain versions, equal bit for bit: K2 at C = 1,
+  3, 5 in f32 and bf16 (even and odd z sizes, a volume off its
+  allocation's alignment, points outside, N no multiple of the block);
+  K3 at 1-4 stages, C = 7 and 1, 5, 8, value only, derivatives and the
+  training variant, points on cell faces, on the border and outside,
+  absent parents and children, occupancy equal;
 * ``loss.backward()`` of the tiny model on the card against the same step
   on the CPU (whose plain versions tests/test_torch_train.py holds against
   the JAX package)."""
@@ -191,6 +197,113 @@ def test_k1_k1b_off_alignment(C):
     for a, b in zip(tgs.bilinear_sample_bwd(img, co, ct),
                     tgs.bilinear_sample_bwd_plain(img, co, ct)):
         _close(a.cpu().numpy(), b.cpu().numpy())
+
+
+def _k2_points(g, n):
+    """n points over and beyond the volume, then points on its corners and
+    faces, then a run along z in steps of a quarter voxel (at Z = 8), so
+    that odd and even z0 sit side by side."""
+    pts = torch.rand(n, 3, generator=g) * 2.6 - 1.3
+    pts[:6] = torch.tensor([[-1.0, -1.0, -1.0], [1.0, 1.0, 1.0], [1.0, -1.0, 0.0],
+                            [0.0, 1.0, -1.0], [1.2, 0.3, -1.4], [-1.05, 0.5, 1.05]])
+    run = torch.linspace(-1.2, 1.2, 64)
+    pts[6:70] = torch.stack([torch.full_like(run, 0.1), torch.full_like(run, -0.3), run], -1)
+    return pts
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("C", [1, 3, 5])
+def test_k2_matches_plain_bit_for_bit(C, dtype):
+    """K2 against its plain version, equal bit for bit: an even and an odd
+    voxel count, a volume one element past its allocation's alignment, both
+    ``align_corners``, pixel coordinates, one point and 1001 (no multiple
+    of the block)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    from surf_tpu_torch import _build
+    dt = getattr(torch, dtype)
+    g = torch.Generator().manual_seed(50 + C)
+    dev = torch.device("cuda")
+    _build.reset_launches()
+    n_calls = 0
+    for shape in ((12, 10, 8), (13, 9, 11)):
+        numel = shape[0] * shape[1] * shape[2] * C
+        vols = [torch.randn(*shape, C, generator=g).to(dev, dt),
+                torch.randn(numel + 1, generator=g).to(dev, dt)[1:].view(*shape, C)]
+        for vol in vols:
+            for n in (1, 1001):
+                pts = _k2_points(g, max(n, 70))[:n].to(dev)
+                for kw in (dict(align_corners=True), dict(align_corners=False),
+                           dict(normalized=False)):
+                    co = (pts + 1.3) * 5.0 if "normalized" in kw else pts
+                    got = tgs.trilinear_sample(vol, co, **kw)
+                    assert torch.equal(got, tgs.trilinear_sample_plain(vol, co, **kw)), \
+                        (shape, n, kw)
+                    n_calls += 1
+    torch.cuda.synchronize()
+    assert _build.launches["trilinear_sample_3d"] == n_calls
+
+
+K3_SPECS = {"4 stages C=7": ((32, 0.3, 7), (16, 0.5, 7), (8, 0.7, 7), (4, 0.9, 7)),
+            "C=1,5,8": ((16, 0.4, 1), (8, 0.6, 5), (4, 1.0, 8)),
+            "one stage C=8": ((8, 0.5, 8),)}
+
+
+def _k3_stages(g, dev, spec):
+    """Random stages with absent parents (and capacity padding rows that
+    the parent table never points to) and absent children."""
+    stages = []
+    for res, keep, C in spec:
+        half = res // 2
+        r = torch.arange(half)
+        allp = torch.stack(torch.meshgrid(r, r, r, indexing="ij"), -1).reshape(-1, 3)
+        parents = allp[torch.rand(len(allp), generator=g) < keep]
+        n_live = len(parents)
+        parents = torch.cat([parents, torch.randint(0, half, (5, 3), generator=g)])
+        pvalid = torch.arange(len(parents)) < n_live
+        cvalid = (torch.rand(len(parents) * 8, generator=g) < 0.8) & pvalid.repeat_interleave(8)
+        grid = tsp.make_grid(parents.to(dev), pvalid.to(dev), cvalid.to(dev), res)
+        stages.append((grid, (torch.randn(len(parents) * 8, C, generator=g)
+                              * cvalid[:, None]).to(dev)))
+    return stages
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["value", "derivs", "third"])
+@pytest.mark.parametrize("spec", list(K3_SPECS))
+def test_k3_matches_plain_bit_for_bit(spec, mode):
+    """K3 against its plain version at 1 to 4 stages, equal bit for bit
+    with the occupancy equal: value only (the mesh), derivatives (the
+    render) and the training variant; points on voxel centres (cell faces),
+    on the box's faces and corners and outside it; one point and 3001 (no
+    multiple of the block)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    from surf_tpu_torch import _build
+    g = torch.Generator().manual_seed(len(spec) + len(mode))
+    dev = torch.device("cuda")
+    stages = _k3_stages(g, dev, K3_SPECS[spec])
+    res = stages[0][0].res
+    pts = torch.rand(3001, 3, generator=g) * 2.3 - 1.15
+    pts[:300] = torch.randint(0, res, (300, 3), generator=g).float() * (2.0 / (res - 1)) - 1.0
+    pts[300:304] = torch.tensor([[-1.0] * 3, [1.0] * 3, [1.0, -1.0, 0.0], [0.0, 1.0, -1.0]])
+    pts = pts.to(dev)
+    kw = dict(derivs=mode == "derivs", third=mode == "third")
+    _build.reset_launches()
+    n_calls = 0
+    for ns in range(1, len(stages) + 1):
+        for n in (1, 3001):
+            got = tsp.sparse_trilinear_multi(stages[:ns], pts[:n], **kw)
+            ref = tsp.sparse_trilinear_multi_plain(stages[:ns], pts[:n], **kw)
+            n_calls += 1
+            assert len(got) == len(ref)
+            for name, a, b in zip(("feats", "occ", "jac", "hmix", "third"), got, ref):
+                assert (a is None) == (b is None), name
+                if b is not None:
+                    assert torch.equal(a, b), (spec, ns, n, mode, name)
+    torch.cuda.synchronize()
+    assert _build.launches["sparse_trilinear_multi"] == n_calls
 
 
 @pytest.mark.cuda

@@ -116,6 +116,32 @@ def test_trilinear_bf16_volume_widens_to_f32():
     np.testing.assert_allclose(ours.numpy(), np.asarray(ref, np.float32), atol=ATOL)
 
 
+@pytest.mark.parametrize("shape", [(12, 10, 8), (13, 9, 11)])
+def test_trilinear_plain_bf16_c1_matches_jax_cm(shape):
+    """K2's main-path case: a bf16 C = 1 volume, align_corners=False, points
+    over and beyond the border, against surf_tpu's trilinear_sample_3d_cm,
+    at an even and an odd z size."""
+    rng = np.random.RandomState(30 + shape[2])
+    vol = rng.randn(*shape, 1).astype(np.float32)
+    pts = rng.uniform(-1.3, 1.3, size=(500, 3)).astype(np.float32)
+    pts[:5] = [[-1.0, -1.0, -1.0], [1.0, 1.0, 1.0], [1.2, 0.3, -1.4], [0.0, 0.0, 1.0],
+               [-1.05, 0.5, 1.05]]
+    ours = tgs.trilinear_sample(_t(vol).to(torch.bfloat16), _t(pts), align_corners=False)
+    ref = jgs.trilinear_sample_3d_cm(jnp.asarray(vol, jnp.bfloat16), jnp.asarray(pts),
+                                     align_corners=False)
+    assert ours.shape == (500, 1) and ours.dtype == torch.float32
+    np.testing.assert_allclose(ours.numpy(), np.asarray(ref, np.float32), atol=ATOL)
+
+
+def test_k2_size_rule():
+    """K2's 32-bit voxel offsets: a volume of 2^31 elements or more is
+    refused; the path's 704^3 volume is not."""
+    pts = torch.zeros(5, 3)
+    tgs._k2_size_rule(torch.zeros(1).expand(704, 704, 704, 1), pts)
+    with pytest.raises(ValueError, match="32-bit"):
+        tgs._k2_size_rule(torch.zeros(1).expand(2 ** 11, 2 ** 10, 2 ** 10, 1), pts)
+
+
 @pytest.mark.parametrize("align_corners", [True, False])
 def test_resize_matches_jax(align_corners):
     img = RNG.randn(5, 7, 3).astype(np.float32)
