@@ -12,7 +12,9 @@ Phases, one line each (any failure exits non-zero, with no result line):
 3. ragged: every kernel against its plain PyTorch version on odd shapes
    with out-of-range points; K1 and K1b also at every channel count their
    kernels specialise and two they do not, with all-zero cotangent rows
-   and a pile-up of points on one texel;
+   and a pile-up of points on one texel; K4 and K4w also at every width
+   of the path, on ragged shapes and extreme tables, with and without a
+   live-row mask, K4 twice bit for bit;
 4. validate: the port's main path, ``Validator.validate`` on
    confs/surf_synthetic_full.conf (4-stage cascade 88^3 -> 704^3, 512^3
    mesh, 144x200 render) with seeded random weights; every kernel's
@@ -32,7 +34,10 @@ Phases, one line each (any failure exits non-zero, with no result line):
    texel, voxel or row once) at the card's memory rate, or its f32
    operations at the card's peak, whichever takes longer.  K1's entries
    also say how their points fall on the image (``data``).  K2 and K3
-   must equal their plain versions bit for bit (K3's occupancy exactly):
+   must equal their plain versions bit for bit (K3's occupancy exactly);
+   K4's and K4w's entries say what their table holds (``data``: present
+   pairs, rows with a present tap, rows their live-row mask keeps) and,
+   where the path passes a mask, the time without it:
    K2 at build_z_vals and depth_render, K3 at the render chunk, the mesh
    lattice's first call (recorded in the warm validate) and, in its
    training variant, the training step's render shape.  Then the
@@ -48,8 +53,10 @@ Phases, one line each (any failure exits non-zero, with no result line):
    kernels must each have run.  The loss must be finite and the
    parameters of both optimizer groups must move.  Prints s/step and the
    peak memory.  The largest call of each kind of each backward kernel
-   in the last step is recorded; K1b, K2b, K3b and K4w are then held
-   against their plain versions and measured on those calls as in 6.
+   in the last step is recorded, and K4's largest forward and largest dX
+   call (launches by call site: forward / dX at 352^3 / 704^3); K1b, K2b,
+   K3b, K4w and those K4 calls are then held against their plain versions
+   and measured on those calls as in 6.
    K1b's entries give the share of all-zero cotangent rows (whose
    scatter the kernel skips) and the most points on one texel; its row
    also times its largest call again with a random cotangent on every
@@ -118,6 +125,7 @@ train {
     warmup = 1
     alpha = 0.02
     save_freq = 1
+    val_freq = 10
     loss {
         color_weight = 1.0
         sparse_weight = 0.02
@@ -300,6 +308,7 @@ def ragged_checks(dev):
     w = torch.randn(27, 13, 7, device=dev, generator=g)
     out.append(check_close("K4 ragged", reg_net.gather_conv(x, idx, w),
                            reg_net.gather_conv_plain(x, idx, w), 1e-4, 1e-4))
+    out.append(k4_shapes_check(dev, g))
     # backward kernels (f32 atomics: sums in a run-dependent order)
     for align in (True, False):
         img = torch.randn(3, 37, 53, 5, device=dev, generator=g)
@@ -330,6 +339,58 @@ def ragged_checks(dev):
     out.append(check_close("K4w ragged", reg_net.gather_conv_dw(x, idx, ct), ref, 1e-4,
                            1e-4 * scale(ref)))
     return max(out)
+
+
+def k4_shapes_check(dev, g):
+    """K4 and K4w against their plain versions at every (Cin, Cout) of the
+    path and on ragged shapes (T < 27; Cin 1, 5, 13, 32; R no multiple of
+    the 32-row group; x off its 16-byte alignment) and extreme tables (all
+    -1, one input row read by every row and tap, every tap present), each
+    with and without a live-row mask that also leaves out rows holding
+    taps (those read nothing); K4 twice on the same inputs, bit for bit.
+    (Where the wrappers take no mask, as earlier versions of the port's
+    did, only the unmasked calls.)"""
+    import inspect
+    import torch
+    from surf_tpu_torch.nn import reg_net
+    masks = ["live" in inspect.signature(reg_net.gather_conv).parameters]
+    masks = [False, True] if masks[0] else [False]
+    errs = []
+    cases = [(27, ci, co, "random") for ci, co in ((16, 8), (8, 16), (16, 16), (16, 32),
+                                                   (32, 16))]
+    cases += [(8, 5, 7, "random"), (27, 1, 3, "random"), (13, 13, 1, "random"),
+              (27, 32, 32, "random"), (27, 16, 8, "empty"), (27, 16, 8, "one row"),
+              (27, 16, 8, "full"), (27, 16, 8, "unaligned")]
+    M, R = 517, 1001
+    for T, ci, co, kind in cases:
+        live = torch.rand(R, device=dev, generator=g) < 0.5
+        if kind == "empty":
+            idx = torch.full((R, T), -1, dtype=torch.int32, device=dev)
+        elif kind == "one row":
+            idx = torch.full((R, T), 3, dtype=torch.int32, device=dev)
+        else:
+            idx = torch.randint(0, M, (R, T), device=dev, generator=g).to(torch.int32)
+            if kind != "full":
+                keep = (torch.rand(R, T, device=dev, generator=g) < 0.5) & live[:, None]
+                idx = torch.where(keep, idx, torch.full_like(idx, -1))
+                live &= torch.rand(R, device=dev, generator=g) < 0.8
+        x = torch.randn(M * ci + 1, device=dev, generator=g)
+        x = x[1:] if kind == "unaligned" else x[:-1]
+        x = x.reshape(M, ci)
+        w = torch.randn(T, ci, co, device=dev, generator=g)
+        ct = torch.randn(R, co, device=dev, generator=g)
+        for masked in masks:
+            lv = (live,) if masked else ()
+            what = f"T {T}, {ci} -> {co}, {kind}, mask {masked}"
+            got = reg_net.gather_conv(x, idx, w, *lv)
+            if not torch.equal(got, reg_net.gather_conv(x, idx, w, *lv)):
+                fail(f"K4 {what}: two calls differ")
+            ref = reg_net.gather_conv_plain(x, idx, w, *lv)
+            errs.append(check_close(f"K4 {what}", got, ref, 1e-4, 1e-4 * scale(ref)))
+            ref = reg_net.gather_conv_dw_plain(x, idx, ct, *lv)
+            errs.append(check_close(f"K4w {what}", reg_net.gather_conv_dw(x, idx, ct, *lv),
+                                    ref, 1e-4, 1e-4 * scale(ref)))
+    return max(errs)
 
 
 def k1_shapes_check(dev, g):
@@ -385,7 +446,8 @@ K4_CALLS = (("conv0 children -> children", lambda P: P * 27 * 4 + P * 8),
 
 def warm_validate(v):
     """A second ``validate`` (kernels loaded, allocator grown) with every
-    K4 call of ``apply_hybrid`` recorded as (grid, call index, x, idx, w),
+    K4 call of ``apply_hybrid`` recorded as (grid, call index, x, idx, w,
+    live-row mask or None),
     and the (stages, points) of the first value-only K3 call: the mesh
     lattice's first ``blocks_per_call`` occupied blocks.  The wrappers are
     the port's own; only the recording is added."""
@@ -398,10 +460,10 @@ def warm_validate(v):
         cur["grid"], cur["i"] = grid, 0
         return hybrid(params, state, grid, feats, **kw)
 
-    def rec_gconv(x, idx, w):
-        calls.append((cur["grid"], cur["i"], x, idx, w))
+    def rec_gconv(x, idx, w, *live):
+        calls.append((cur["grid"], cur["i"], x, idx, w, live[0] if live else None))
         cur["i"] += 1
-        return gconv(x, idx, w)
+        return gconv(x, idx, w, *live)
 
     def rec_k3(stages, pts, **kw):
         if not kw.get("derivs") and not kw.get("third") and not mesh:
@@ -673,32 +735,59 @@ def count_call_sites():
             setattr(m, n, fn)
 
 
-def k4_entry(grid, i, x, idx, w):
-    """K4 against its plain version on one recorded apply_hybrid call."""
+def k4_data(idx, live):
+    """What a K4 / K4w call's table holds: present (row, tap) pairs, rows
+    with a present tap, and the rows its live-row mask keeps (the rows
+    whose table entries the kernel reads), where it is given one."""
+    d = {"rows": idx.shape[0], "present_pairs": int((idx >= 0).sum()),
+         "rows_with_a_present_tap": int((idx >= 0).any(1).sum())}
+    if live is not None:
+        d["live_mask_rows"] = int(live.sum())
+    return d
+
+
+def k4_bound(index_bytes, x, idx, c_out, out_bytes):
+    """(bound_ms, bound_by) of a K4 / K4w call: the index bytes the JAX op
+    needs, each distinct row of x it reads once, the output (and W or ct)
+    once; 2 Cin Cout flops a present pair."""
+    import torch
+    present = idx[idx >= 0]
+    rows_read = torch.unique(present).numel()
+    return bound(index_bytes + rows_read * x.shape[1] * 4 + out_bytes,
+                 2 * present.numel() * x.shape[1] * c_out)
+
+
+def k4_entry(grid, i, x, idx, w, live, what=None, index_bytes=None):
+    """K4 against its plain version on one recorded apply_hybrid call (or,
+    with ``what`` and ``index_bytes``, one of a training step's calls); with
+    a live-row mask also timed without it (the full-table pass)."""
     import torch
     from surf_tpu_torch.nn import reg_net
-    what, index_bytes = K4_CALLS[i]
-    # the wrapper narrows int64 tables to int32 on each call; time the
-    # kernel alone on the narrowed table
+    if what is None:
+        what, ib = K4_CALLS[i]
+        index_bytes = ib(grid.parents.shape[0])
+        what = f"{grid.res}^3 {what}"
+    # an int64 table (earlier versions of the port's) is narrowed on each
+    # call: time the kernel alone on the narrowed table
     idx = idx.to(torch.int32).contiguous()
-    got = reg_net.gather_conv(x, idx, w)
-    ref = reg_net.gather_conv_plain(x, idx, w)
-    err = check_close(f"K4 {grid.res}^3 {what}", got, ref, 1e-4,
+    lv = () if live is None else (live,)
+    got = reg_net.gather_conv(x, idx, w, *lv)
+    ref = reg_net.gather_conv_plain(x, idx, w, *lv)
+    err = check_close(f"K4 {what}", got, ref, 1e-4,
                       1e-4 * max(ref.abs().max().item(), 1.0))
     R, T = idx.shape
     Cin, Cout = w.shape[1], w.shape[2]
-    present = idx[idx >= 0]
-    rows_read = torch.unique(present).numel()
-    P = grid.parents.shape[0]
-    b_ms, b_by = bound(index_bytes(P) + rows_read * Cin * 4 + nbytes(w) + R * Cout * 4,
-                       2 * present.numel() * Cin * Cout)
-    return {"shape": f"{grid.res}^3 {what}: {R} rows x {T} taps ({present.numel()} "
-                     f"present, {rows_read} distinct rows of x read), {Cin} -> {Cout} "
-                     f"channels, {P} parents",
-            "max_abs_err": err,
-            "ms": time_ms(lambda: reg_net.gather_conv(x, idx, w)),
-            "plain_ms": time_ms(lambda: reg_net.gather_conv_plain(x, idx, w), 3),
-            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
+    data = k4_data(idx, live)
+    b_ms, b_by = k4_bound(index_bytes, x, idx, Cout, nbytes(w) + R * Cout * 4)
+    e = {"shape": f"{what}: {R} rows x {T} taps, {Cin} -> {Cout} channels, "
+                  f"{grid.parents.shape[0]} parents",
+         "data": data, "max_abs_err": err,
+         "ms": time_ms(lambda: reg_net.gather_conv(x, idx, w, *lv)),
+         "plain_ms": time_ms(lambda: reg_net.gather_conv_plain(x, idx, w, *lv), 3),
+         "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
+    if live is not None:
+        e["ms_without_live_mask"] = time_ms(lambda: reg_net.gather_conv(x, idx, w))
+    return e
 
 
 def render_chunk_points(scene, static, chunk):
@@ -895,7 +984,7 @@ def grid_form_kernels(k4_calls):
     import torch
     from surf_tpu_torch.nn import reg_net as rn
     fwd, bwd_x, bwd_w, eq = [], [], [], []
-    for grid, i, x, idx_nbr, w27 in k4_calls:
+    for grid, i, x, idx_nbr, w27, _ in k4_calls:
         if i not in GRID_OPS:
             continue
         op = GRID_OPS[i]
@@ -921,7 +1010,7 @@ def grid_form_kernels(k4_calls):
                              f"({present.numel()} present, {rows_read} distinct rows read), "
                              f"{inp.shape[1]} -> {c_out} channels, {grid.parents.shape[0]} "
                              "parents",
-                    "max_abs_err": err, "ms": time_ms(fn), "plain_ms": time_ms(plain, 3),
+                    "data": k4_data(tab, None), "max_abs_err": err, "ms": time_ms(fn), "plain_ms": time_ms(plain, 3),
                     "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
 
         n_present = int((idx >= 0).sum())
@@ -1037,6 +1126,63 @@ def record_backward_calls():
     return records, calls, restore
 
 
+@contextlib.contextmanager
+def record_k4_train_calls():
+    """Inside the block, every K4 call by call site: forward (the autograd
+    function's forward, ``apply_hybrid``'s call index and grid) or dX (its
+    backward, on the transposed table; its grid is the forward's with the
+    same shapes swapped), by resolution.  Yields (counts, largest): the
+    launches by "forward 352^3" ... "dX 704^3", and the largest call of
+    each kind (by table entries) with what ``k4_entry`` needs to check and
+    time it."""
+    import sys as _sys
+    from surf_tpu_torch.nn import reg_net
+    hybrid, gconv = reg_net.apply_hybrid, reg_net.gather_conv
+    counts, largest, cur, fwd = {}, {}, {}, {}
+
+    def rec_hybrid(params, state, grid, feats, **kw):
+        cur["grid"], cur["i"] = grid, 0
+        return hybrid(params, state, grid, feats, **kw)
+
+    def rec_gconv(x, idx, w, *live):
+        if _sys._getframe(1).f_code.co_name == "backward":
+            grid, i = fwd[(idx.shape[0], x.shape[0])]
+            kind = "dX"
+        else:
+            grid, i = cur["grid"], cur["i"]
+            cur["i"] += 1
+            fwd[(x.shape[0], idx.shape[0])] = (grid, i)
+            kind = "forward"
+        site = f"{kind} {grid.res}^3"
+        counts[site] = counts.get(site, 0) + 1
+        if idx.numel() * w.shape[2] > largest.get(kind, (-1,))[0]:
+            # (w, a view of a parameter that the update then changes in place,
+            # is copied)
+            largest[kind] = (idx.numel() * w.shape[2], grid, i, x.detach(), idx,
+                             w.detach().clone(), live[0] if live else None)
+        return gconv(x, idx, w, *live)
+
+    reg_net.apply_hybrid, reg_net.gather_conv = rec_hybrid, rec_gconv
+    try:
+        yield counts, largest
+    finally:
+        reg_net.apply_hybrid, reg_net.gather_conv = hybrid, gconv
+
+
+def k4_train_entries(largest):
+    """K4 at the training step's largest forward call and largest dX call
+    (on the transposed table; its index bytes: the forward's)."""
+    out = []
+    for kind in ("forward", "dX"):
+        _, grid, i, x, idx, w, live = largest[kind]
+        what, ib = K4_CALLS[i]
+        out.append(k4_entry(grid, i, x, idx, w, live,
+                            what=f"training step, largest {kind}: {grid.res}^3 {what}"
+                                 + (" (transposed table)" if kind == "dX" else ""),
+                            index_bytes=ib(grid.parents.shape[0])))
+    return out
+
+
 def train_phase(conf_path, n_steps=3, dev="cuda"):
     """A Trainer at full width: ``n_steps`` steps on the first scenes, the
     launch counts zeroed before and read after; the last step's backward
@@ -1066,7 +1212,9 @@ def train_phase(conf_path, n_steps=3, dev="cuda"):
             records, calls, restore = record_backward_calls()
         t0 = time.time()
         try:
-            with count_call_sites() if last_step else contextlib.nullcontext({}) as sites:
+            with count_call_sites() if last_step else contextlib.nullcontext({}) as sites, \
+                    record_k4_train_calls() if last_step else \
+                    contextlib.nullcontext(({}, {})) as (k4_sites, k4_largest):
                 res = t.step(batches[i], i / n)
             if cuda:
                 torch.cuda.synchronize()
@@ -1092,7 +1240,7 @@ def train_phase(conf_path, n_steps=3, dev="cuda"):
                "warm_steps_s": times[1:], "peak_mem_gb": peak / 2 ** 30,
                "launches_per_step": per_step[-1], "params_moved": moved,
                "params_per_group": sizes, "backward_calls_last_step": calls,
-               "k2_k3_call_sites_last_step": sites}
+               "k2_k3_call_sites_last_step": sites, "k4_call_sites_last_step": k4_sites}
     say("train", json.dumps(metrics))
     say("train", "kernels " + json.dumps(launches))
     missing = [k for k, v in launches.items() if v <= 0]
@@ -1100,7 +1248,7 @@ def train_phase(conf_path, n_steps=3, dev="cuda"):
         fail(f"train: the training path launched no {missing}")
     if any(moved[g] == 0 for g in moved):
         fail(f"train: no parameter moved in some group: {moved}")
-    return launches, records, metrics, t.save(n_steps - 1)
+    return launches, records, metrics, t.save(n_steps - 1), k4_largest
 
 
 def bwd_bound(name, a, k, got):
@@ -1158,15 +1306,14 @@ def bwd_bound(name, a, k, got):
                 f"cotangents of (feats, jac, hmix, third) = "
                 f"{[c is not None for c in cts]}")
         return (*bound(moved, n * ctot * 8 * 2 * terms), what)
-    x, idx, ct = a
+    # K4w: only the rows holding a present tap take part: their table rows
+    # and cotangent rows are what the function needs (not the capacity)
+    x, idx, ct = a[:3]
     R, T = idx.shape
-    present = idx[idx >= 0]
-    rows_read = torch.unique(present).numel()
     Cin, Cout = x.shape[1], ct.shape[1]
-    moved = idx.numel() * 4 + rows_read * Cin * 4 + nbytes(ct) + T * Cin * Cout * 4
-    what = (f"{R} rows x {T} taps ({present.numel()} present, {rows_read} distinct rows of "
-            f"x read), {Cin} -> {Cout} channels")
-    return (*bound(moved, 2 * present.numel() * Cin * Cout), what)
+    n_rows = int((idx >= 0).any(1).sum())
+    what = f"{R} rows x {T} taps, {Cin} -> {Cout} channels"
+    return (*k4_bound(n_rows * (T + Cout) * 4, x, idx, Cout, T * Cin * Cout * 4), what)
 
 
 def bwd_library(name, a, k):
@@ -1222,15 +1369,19 @@ def bwd_entry(name, rec):
         err = max(err, check_close(f"{name} train call", x, y, rtol, 1e-5 * scale(y)))
     b_ms, b_by, what = bwd_bound(name, a, k, got)
     lib = bwd_library(name, a, k)
-    data = {}
+    data, extra = {}, {}
     if name == "bilinear_sample_2d_bwd":
         data = {"data": texel_load(a[0], a[1], k.get("normalized", True),
                                    k.get("align_corners", True), a[2])}
+    if name == "gather_conv_dw":
+        data = {"data": k4_data(a[1], a[3] if len(a) > 3 else None)}
+        if len(a) > 3 and a[3] is not None:
+            extra = {"ms_without_live_mask": time_ms(lambda: fn(*a[:3], **k))}
     return {"shape": what, **data, "max_abs_err": err,
             "ms": time_ms(lambda: fn(*a, **k)),
             "plain_ms": time_ms(lambda: plain(*a, **k), 3),
             "bound_ms": b_ms, "bound_by": b_by,
-            "library_ms": time_ms(lib) if lib is not None else None}
+            "library_ms": time_ms(lib) if lib is not None else None, **extra}
 
 
 BWD_ROWS = {
@@ -1265,10 +1416,10 @@ def backward_kernels(launches, records, dense_conv0=None):
         if not recs:
             fail(f"train: no {name} call was recorded")
         if name == "gather_conv_dw" and dense_conv0 is not None:
-            x, idx = dense_conv0
+            x, idx, live = dense_conv0
             g = torch.Generator(device=x.device).manual_seed(3)
             ct = torch.randn(idx.shape[0], 8, device=x.device, generator=g)
-            recs.append((0, (x, idx, ct), {}))
+            recs.append((0, (x, idx, ct) + (() if live is None else (live,)), {}))
         if name == "bilinear_sample_2d_bwd":
             # the head call again with a random cotangent on every row: a
             # trained model's denser stage, where no scatter can be skipped
@@ -1279,7 +1430,7 @@ def backward_kernels(launches, records, dense_conv0=None):
         if name == "gather_conv_dw":
             # the wrapper narrows an int64 table on each call: time the
             # kernel on the narrowed one
-            recs = [(n_, (a_[0], a_[1].to(torch.int32).contiguous(), a_[2]), k_)
+            recs = [(n_, (a_[0], a_[1].to(torch.int32).contiguous()) + tuple(a_[2:]), k_)
                     for n_, a_, k_ in recs]
         entries = [bwd_entry(name, r) for r in recs]
         if name == "gather_conv_dw" and dense_conv0 is not None:
@@ -1638,20 +1789,26 @@ def main():
     t0 = time.time()
     grid_rows = grid_form_kernels(k4_calls)
     say("kernel", f"row 7 (grid-form convs): {time.time() - t0:.1f} s")
-    # the 704^3 conv0 (x, table) of the validate, for K4w on a dense stage
-    dense_conv0 = next((c[2], c[3].to(torch.int32)) for c in k4_calls
+    # the 704^3 conv0 (x, table, live-row mask) of the validate, for K4w on
+    # a dense stage
+    dense_conv0 = next((c[2], c[3].to(torch.int32), c[5]) for c in k4_calls
                        if c[0].res == 704 and c[1] == 0)
     v.last_scene = k4_calls = None
     del v
     torch.cuda.empty_cache()
 
     t0 = time.time()
-    train_launches, records, train_metrics, ckpt = train_phase(conf_path)
-    train_sites = train_metrics["k2_k3_call_sites_last_step"]
+    train_launches, records, train_metrics, ckpt, k4_largest = train_phase(conf_path)
+    train_sites = dict(train_metrics["k2_k3_call_sites_last_step"],
+                       gather_conv=train_metrics["k4_call_sites_last_step"])
     for r in rows:
         r["launches_in_train"] = train_launches[r["name"]]
         if r["name"] in train_sites:
             r["launches_in_train_step_by_call_site"] = train_sites[r["name"]]
+        if r["name"] == "gather_conv":
+            r["also_checked"] += k4_train_entries(k4_largest)
+            say("kernel", "K4 in the training step: " + json.dumps(r["also_checked"][-2:]))
+    del k4_largest
     torch.cuda.empty_cache()
     rows += backward_kernels(train_launches, records, dense_conv0)
     del records, dense_conv0

@@ -55,7 +55,8 @@ def main(argv=None):
                 "--resume in train mode needs the optimizer's moments in the checkpoint, "
                 "which the port does not save yet (ROADMAP.md, queue 1: optimizer-state "
                 "resume for --mode train)")
-        Trainer(conf, device=args.device, seed=args.seed, base_exp_dir=args.out).train()
+        Trainer(conf, device=args.device, seed=args.seed, base_exp_dir=args.out,
+                mesh_resolution=args.mesh_resolution).train()
         return None
     if args.mode == "finetune":
         if args.resume is None:

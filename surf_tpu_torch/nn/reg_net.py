@@ -97,115 +97,131 @@ _UP_MAP = _build_up_map()
 # K4: gather-GEMM
 # ---------------------------------------------------------------------------
 
-def gather_conv_plain(x, idx, w):
+def _live_table(idx, live):
+    """``idx`` with the rows outside ``live`` (bool, one per row) set to -1."""
+    return idx if live is None else torch.where(live[:, None], idx, torch.full_like(idx, -1))
+
+
+def gather_conv_plain(x, idx, w, live=None):
     """Plain version of K4: out[r] = sum_t x[idx[r, t]] @ w[t] (idx -1 ->
-    zero).  x (M, Cin); idx (R, T); w (T, Cin, Cout) -> (R, Cout)."""
+    zero; a row outside ``live``, where given, reads nothing).  x (M, Cin);
+    idx (R, T); w (T, Cin, Cout); live (R,) bool or None -> (R, Cout)."""
     M, Cin = x.shape
     T, _, Cout = w.shape
+    idx = _live_table(idx, live)
     xpad = torch.cat([x, x.new_zeros((1, Cin))])
     ii = torch.where(idx >= 0, idx.long(), torch.full_like(idx, M, dtype=torch.long))
     g = xpad[ii.reshape(-1)].reshape(idx.shape[0], T * Cin)
     return g @ w.reshape(T * Cin, Cout)
 
 
-def gather_conv(x, idx, w):
-    """K4 wrapper.  x (M, Cin) f32; idx (R, T) int; w (T, Cin, Cout) f32
-    with T <= 27 and Cin, Cout <= 32 -> (R, Cout) f32."""
-    if x.device.type == "cpu":
-        return gather_conv_plain(x, idx, w)
+def _k4_launch(entry, x, idx, live, third, c_out):
+    """Checks and launches K4 (``third`` = w) or K4w (``third`` = ct):
+    f32 x, int32 idx (narrowed here for an int64 caller), an optional bool
+    live-row mask, all on one CUDA device, contiguous, within 32-bit
+    offsets.  Returns the output, (R, Cout) or a zeroed (T, Cin, Cout)."""
     x = x.float().contiguous()
     idx = idx.to(torch.int32).contiguous()
-    w = w.float().contiguous()
-    _build.require_cuda("gather_conv", x, idx, w)
-    R, T = idx.shape
-    Cin, Cout = w.shape[1], w.shape[2]
-    if T > 27 or Cin > 32 or Cout > 32 or x.shape[1] != Cin or w.shape[0] != T:
-        raise ValueError("gather_conv: needs T <= 27, Cin, Cout <= 32 and "
-                         "matching shapes")
-    if x.shape[0] >= 2 ** 31:
-        raise ValueError("gather_conv: int32 row indices")
-    out = torch.empty((R, Cout), dtype=torch.float32, device=x.device)
+    third = third.float().contiguous()
+    _build.require_cuda(entry, x, idx, third, *(() if live is None else (live,)))
+    (R, T), Cin = idx.shape, x.shape[1]
+    if live is not None and (live.dtype != torch.bool or live.shape != (R,)):
+        raise ValueError(f"{entry}: live must be a bool vector of one entry a table row")
+    if T > 27 or Cin > 32 or c_out > 32:
+        raise ValueError(f"{entry}: needs T <= 27 and Cin, Cout <= 32")
+    if max(x.numel(), R * T, R * c_out, third.numel()) >= 2 ** 31:
+        raise ValueError(f"{entry}: beyond 32-bit offsets")
+    if entry == "gather_conv":
+        out = torch.empty((R, c_out), dtype=torch.float32, device=x.device)
+    else:
+        out = torch.zeros((T, Cin, c_out), dtype=torch.float32, device=x.device)
     P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    fn = _build.kernel_fn("gather_conv", "gather_conv", [P, P, P, P, L, I, I, I, P])
-    _build.check(fn(x.data_ptr(), idx.data_ptr(), w.data_ptr(), out.data_ptr(),
-                    R, T, Cin, Cout, _build.stream_of(x)), "gather_conv")
-    _build.launches["gather_conv"] += 1
+    fn = _build.kernel_fn("gather_conv", entry, [P, P, P, P, L, I, I, I, P, P])
+    _build.check(fn(x.data_ptr(), idx.data_ptr(), third.data_ptr(), out.data_ptr(), R, T,
+                    Cin, c_out, _build.stream_of(x),
+                    None if live is None else live.data_ptr()), entry)
+    _build.launches[entry] += 1
     return out
 
 
-def gather_conv_dw_plain(x, idx, ct):
-    """Plain version of K4w: dW[t] = sum_r x[idx[r, t]]^T ct[r] (idx -1
-    skipped).  x (M, Cin); idx (R, T); ct (R, Cout) -> (T, Cin, Cout)."""
+def gather_conv(x, idx, w, live=None):
+    """K4 wrapper.  x (M, Cin) f32; idx (R, T) int (int32 on the path);
+    w (T, Cin, Cout) f32 with T <= 27 and Cin, Cout <= 32; live (R,) bool
+    or None: the rows that may hold a present tap (the kernel reads no
+    table entry of the others and writes them zero) -> (R, Cout) f32."""
+    if x.device.type == "cpu":
+        return gather_conv_plain(x, idx, w, live)
+    if w.shape[0] != idx.shape[1] or w.shape[1] != x.shape[1]:
+        raise ValueError("gather_conv: x, idx and w disagree in Cin or T")
+    return _k4_launch("gather_conv", x, idx, live, w, w.shape[2])
+
+
+def gather_conv_dw_plain(x, idx, ct, live=None):
+    """Plain version of K4w: dW[t] = sum_r x[idx[r, t]]^T ct[r] (idx -1,
+    and every row outside ``live`` where given, skipped).  x (M, Cin);
+    idx (R, T); ct (R, Cout); live (R,) bool or None -> (T, Cin, Cout)."""
     M, Cin = x.shape
+    idx = _live_table(idx, live)
     xpad = torch.cat([x, x.new_zeros((1, Cin))])
     ii = torch.where(idx >= 0, idx.long(), torch.full_like(idx, M, dtype=torch.long))
     g = xpad[ii.reshape(-1)].reshape(idx.shape[0], idx.shape[1], Cin)
     return torch.einsum("rtc,ro->tco", g, ct)
 
 
-def gather_conv_dw(x, idx, ct):
-    """K4w wrapper.  x (M, Cin) f32; idx (R, T) int; ct (R, Cout) f32 with
-    Cin, Cout <= 32 -> (T, Cin, Cout) f32."""
+def gather_conv_dw(x, idx, ct, live=None):
+    """K4w wrapper.  x (M, Cin) f32; idx (R, T) int (int32 on the path);
+    ct (R, Cout) f32 with Cin, Cout <= 32; live as for ``gather_conv`` ->
+    (T, Cin, Cout) f32."""
     if x.device.type == "cpu":
-        return gather_conv_dw_plain(x, idx, ct)
-    x = x.float().contiguous()
-    idx = idx.to(torch.int32).contiguous()
-    ct = ct.float().contiguous()
-    _build.require_cuda("gather_conv_dw", x, idx, ct)
-    R, T = idx.shape
-    Cin, Cout = x.shape[1], ct.shape[1]
-    if Cin > 32 or Cout > 32 or ct.shape[0] != R:
-        raise ValueError("gather_conv_dw: needs Cin, Cout <= 32 and matching rows")
-    dw = torch.zeros((T, Cin, Cout), dtype=torch.float32, device=x.device)
-    P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    fn = _build.kernel_fn("gather_conv", "gather_conv_dw", [P, P, P, P, L, I, I, I, P])
-    _build.check(fn(x.data_ptr(), idx.data_ptr(), ct.data_ptr(), dw.data_ptr(),
-                    R, T, Cin, Cout, _build.stream_of(x)), "gather_conv_dw")
-    _build.launches["gather_conv_dw"] += 1
-    return dw
+        return gather_conv_dw_plain(x, idx, ct, live)
+    if ct.shape[0] != idx.shape[0]:
+        raise ValueError("gather_conv_dw: ct and idx disagree in rows")
+    return _k4_launch("gather_conv_dw", x, idx, live, ct, ct.shape[1])
 
 
 def transpose_index(idx, n_in):
-    """The transposed table of a conv's (R, T) index table over ``n_in``
-    input rows: idx_t[j, t] = r where idx[r, t] = j, else -1.  Every
-    variant's table is one-to-one per tap (a submanifold conv is its own
-    transpose, the stride-2 down and up convs are each other's), so the
-    input gradient sum_t ct[r(j, t)] @ w[t]^T is K4 on idx_t with W[t]
+    """The transposed int32 table of a conv's (R, T) index table over
+    ``n_in`` input rows: idx_t[j, t] = r where idx[r, t] = j, else -1.
+    Every variant's table is one-to-one per tap (a submanifold conv is its
+    own transpose, the stride-2 down and up convs are each other's), so
+    the input gradient sum_t ct[r(j, t)] @ w[t]^T is K4 on idx_t with W[t]
     transposed -- tap t keeps its index, no spatial flip needed."""
     R, T = idx.shape
-    idx = idx.long()
     valid = idx >= 0
     taps = torch.arange(T, device=idx.device).expand(R, T)
-    rows = torch.arange(R, device=idx.device)[:, None].expand(R, T)
-    flat = torch.full((n_in * T + 1,), -1, dtype=torch.long, device=idx.device)
-    flat[torch.where(valid, idx * T + taps, torch.full_like(idx, n_in * T))] = rows
+    rows = torch.arange(R, dtype=torch.int32, device=idx.device)[:, None].expand(R, T)
+    flat = torch.full((n_in * T + 1,), -1, dtype=torch.int32, device=idx.device)
+    flat[torch.where(valid, idx.long() * T + taps, n_in * T)] = rows
     return flat[:n_in * T].reshape(n_in, T)
 
 
 class _GatherConv(torch.autograd.Function):
-    """K4 with its backward: dX by K4 on the transposed table, dW by K4w."""
+    """K4 with its backward: dX by K4 on the transposed table (no live-row
+    mask: its dead rows are not described by one), dW by K4w with the
+    forward's mask."""
 
     @staticmethod
-    def forward(ctx, x, w, idx, idx_t):
-        ctx.save_for_backward(x, w, idx, idx_t)
-        return gather_conv(x, idx, w)
+    def forward(ctx, x, w, idx, idx_t, live):
+        ctx.save_for_backward(x, w, idx, idx_t, live)
+        return gather_conv(x, idx, w, live)
 
     @staticmethod
     @once_differentiable
     def backward(ctx, ct):
-        x, w, idx, idx_t = ctx.saved_tensors
+        x, w, idx, idx_t, live = ctx.saved_tensors
         ct = ct.float().contiguous()
         dx = gather_conv(ct, idx_t, w.transpose(1, 2)) if ctx.needs_input_grad[0] else None
-        dw = gather_conv_dw(x, idx, ct) if ctx.needs_input_grad[1] else None
-        return dx, dw, None, None
+        dw = gather_conv_dw(x, idx, ct, live) if ctx.needs_input_grad[1] else None
+        return dx, dw, None, None, None
 
 
-def sparse_conv(x, idx, w):
+def sparse_conv(x, idx, w, live=None):
     """out[r] = sum_t x[idx[r, t]] @ w[t] (K4), differentiable in x and w
-    when they require grad."""
+    when they require grad.  ``live``: the rows of ``idx`` that may hold a
+    present tap (every other row is all -1), or None."""
     if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
-        return _GatherConv.apply(x, w, idx, transpose_index(idx, x.shape[0]))
-    return gather_conv(x, idx, w)
+        return _GatherConv.apply(x, w, idx, transpose_index(idx, x.shape[0]), live)
+    return gather_conv(x, idx, w, live)
 
 
 def _w27(w):
@@ -221,19 +237,19 @@ def _offsets(device):
 
 
 def parent_neighbor_rows(grid):
-    """(P, 27) int64: row of each parent's 3^3 neighbourhood (-1 = none)."""
+    """(P, 27) int32: row of each parent's 3^3 neighbourhood (-1 = none)."""
     half = grid.res // 2
     nb = grid.parents[:, None, :] + _offsets(grid.parents.device)
     inb = ((nb >= 0) & (nb < half)).all(-1)
     c = nb.clamp(0, half - 1)
     idx = (c[..., 0] * half + c[..., 1]) * half + c[..., 2]
-    prow = grid.parent_table.reshape(-1)[idx].long()
+    prow = grid.parent_table.reshape(-1)[idx]
     return torch.where(inb, prow, torch.full_like(prow, -1))
 
 
 def _subm_child_index(nbr):
     """Children -> children, (P*8, 27)."""
-    m = torch.as_tensor(_SUBM_CHILD_MAP, device=nbr.device)
+    m = torch.as_tensor(_SUBM_CHILD_MAP, dtype=torch.int32, device=nbr.device)
     nk = nbr[:, m[..., 0]]                                  # (P, 8, 27)
     idx = torch.where(nk >= 0, nk * 8 + m[..., 1], torch.full_like(nk, -1))
     return idx.reshape(-1, 27)
@@ -241,14 +257,14 @@ def _subm_child_index(nbr):
 
 def _down_child_index(nbr):
     """Children -> parents (stride 2), (P, 27)."""
-    m = torch.as_tensor(_DOWN_MAP, device=nbr.device)
+    m = torch.as_tensor(_DOWN_MAP, dtype=torch.int32, device=nbr.device)
     nk = nbr[:, m[:, 0]]
     return torch.where(nk >= 0, nk * 8 + m[:, 1], torch.full_like(nk, -1))
 
 
 def _up_child_index(nbr):
     """Parents -> children (transposed stride 2), (P*8, 27)."""
-    m = torch.as_tensor(_UP_MAP, device=nbr.device)
+    m = torch.as_tensor(_UP_MAP, dtype=torch.int32, device=nbr.device)
     nk = nbr[:, m.clamp(min=0)]                             # (P, 8, 27)
     idx = torch.where(m >= 0, nk, torch.full_like(nk, -1))
     return idx.reshape(-1, 27)
@@ -260,7 +276,7 @@ def _parent_rows_at(grid, pcoords, pactive):
     inb = ((pcoords >= 0) & (pcoords < half)).all(-1)
     c = pcoords.clamp(0, half - 1)
     prow = grid.parent_table.reshape(-1)[(c[..., 0] * half + c[..., 1]) * half
-                                         + c[..., 2]].long()
+                                         + c[..., 2]]
     valid = inb & (prow >= 0) & pactive[prow.clamp(min=0)]
     return torch.where(valid, prow, torch.full_like(prow, -1))
 
@@ -298,7 +314,7 @@ def _up_dense_index(grid, n):
     src = src2 >> 1
     inb = ((src >= 0) & (src < n)).all(-1) & even
     sc = src.clamp(0, n - 1)
-    idx = (sc[..., 0] * n + sc[..., 1]) * n + sc[..., 2]
+    idx = ((sc[..., 0] * n + sc[..., 1]) * n + sc[..., 2]).to(torch.int32)
     return torch.where(inb, idx, torch.full_like(idx, -1))
 
 
@@ -327,6 +343,15 @@ def conv_tables(grid):
     }
 
 
+def live_rows(grid, pactive, canon):
+    """The live-row mask of each of ``conv_tables``' tables: the rows that
+    ``_rows_where`` (or the canonical writer) kept, every other row being
+    all -1.  K4 and K4w read no table entry of a row outside it."""
+    cval = grid.cvalid
+    return {"subm_child": cval, "down_c2p": pactive, "subm_parent": pactive,
+            "down_p2d": canon, "up_d2p": pactive, "up_p2c": cval}
+
+
 # ---------------------------------------------------------------------------
 # grid-form convs: the same convolutions indexed through the voxel and
 # parent tables by coordinate (surf_tpu/nn/reg_net.py:566-678, raw ops
@@ -338,6 +363,7 @@ def _child_rows_at(grid, coords):
     """Child rows at voxel coords (..., 3), -1 where absent (child
     existence includes cvalid), as ``_child_gather`` reads them."""
     rows, valid = sp.lookup_rows(grid, coords)
+    rows = rows.to(torch.int32)
     return torch.where(valid, rows, torch.full_like(rows, -1))
 
 
@@ -547,23 +573,26 @@ def apply_hybrid(params, state, grid: sp.VoxelGrid, feats, *, training=False):
     state)."""
     cval = grid.cvalid
     pactive, canon, tab = conv_tables(grid)
+    live = live_rows(grid, pactive, canon)
     r4 = grid.res // 4
     ns = {}
 
     # L0
-    x = sparse_conv(feats, tab["subm_child"],
-                    _w27(params["conv0"]["conv"]["w"])) * cval[:, None]
+    x = sparse_conv(feats, tab["subm_child"], _w27(params["conv0"]["conv"]["w"]),
+                    live["subm_child"]) * cval[:, None]
     c0, ns["conv0"] = _bn_relu_rows(params["conv0"], state["conv0"], x, cval, training)
     # L0 -> L1
-    x = sparse_conv(c0, tab["down_c2p"], _w27(params["conv1"]["conv"]["w"]))
+    x = sparse_conv(c0, tab["down_c2p"], _w27(params["conv1"]["conv"]["w"]),
+                    live["down_c2p"])
     x, ns["conv1"] = _bn_relu_rows(params["conv1"], state["conv1"], x, pactive, training)
-    x = sparse_conv(x, tab["subm_parent"], _w27(params["conv2"]["conv"]["w"])) \
-        * pactive[:, None]
+    x = sparse_conv(x, tab["subm_parent"], _w27(params["conv2"]["conv"]["w"]),
+                    live["subm_parent"]) * pactive[:, None]
     c2, ns["conv2"] = _bn_relu_rows(params["conv2"], state["conv2"], x, pactive, training)
     # L1 -> L2 (dense from here down); one canonical parent writes each cell
     m2 = _maxpool2(_scatter_parent_occupancy(grid, pactive))
     m3 = _maxpool2(m2)
-    vals = sparse_conv(c2, tab["down_p2d"], _w27(params["conv3"]["conv"]["w"]))
+    vals = sparse_conv(c2, tab["down_p2d"], _w27(params["conv3"]["conv"]["w"]),
+                       live["down_p2d"])
     cells = (grid.parents >> 1)[canon]
     x = torch.zeros((r4, r4, r4, vals.shape[-1]), dtype=vals.dtype,
                     device=vals.device)
@@ -577,11 +606,12 @@ def apply_hybrid(params, state, grid: sp.VoxelGrid, feats, *, training=False):
     x = _dense_tail(params, state, c4, m2, m3, training, ns)[0]
     # L2 -> L1
     up = sparse_conv(x.reshape(r4 ** 3, -1), tab["up_d2p"],
-                     _w27(params["conv9"]["conv"]["w"]))
+                     _w27(params["conv9"]["conv"]["w"]), live["up_d2p"])
     up, ns["conv9"] = _bn_relu_rows(params["conv9"], state["conv9"], up, pactive, training)
     x = c2 + up
     # L1 -> L0
-    up = sparse_conv(x, tab["up_p2c"], _w27(params["conv11"]["conv"]["w"])) * cval[:, None]
+    up = sparse_conv(x, tab["up_p2c"], _w27(params["conv11"]["conv"]["w"]),
+                     live["up_p2c"]) * cval[:, None]
     up, ns["conv11"] = _bn_relu_rows(params["conv11"], state["conv11"], up, cval, training)
     mid = c0 + up
     return mid @ params["out_lin"]["w"], mid, ns

@@ -14,7 +14,12 @@ folded inside the differentiated forward.  The batch-norm running
 statistics and the frozen ``match_feature_network`` are state, never
 optimized; the latter is refreshed on even epochs.  A checkpoint
 (``model``, ``state``, ``epoch``; the JAX package's npz layout) is saved
-every ``save_freq`` epochs.
+every ``save_freq`` epochs and, after the save, every ``val_freq`` epochs
+the validation scenes go through the port's validate path (a
+``Validator`` on the trained parameters and batch-norm state, under
+``torch.no_grad``), which writes the mesh and the ``val_*`` files.  Each
+epoch's loss terms are averaged and printed (the JAX package writes them
+to TensorBoard where ``tensorboardX`` is installed).
 """
 
 from __future__ import annotations
@@ -31,17 +36,19 @@ from .losses import compute_loss, make_loss_config
 from .nn import surf
 from .nn.core import tree_leaves
 from .utils import save_checkpoint, to_numpy_tree, warmup_cosine
-from .validate import to_device
+from .validate import Validator, to_device
 
 
 class Trainer:
     def __init__(self, conf, *, device="cuda", seed=0, base_exp_dir=None,
-                 params=None, state=None):
+                 params=None, state=None, mesh_resolution=512):
         self.conf = conf
         self.device = torch.device(device)
         self.epochs = conf.get_int("train.epochs")
         self.save_freq = conf.get_float("train.save_freq")
         self.log_freq = conf.get_float("train.log_freq", default=1.0)
+        self.val_freq = conf.get_float("train.val_freq")
+        self.mesh_resolution = mesh_resolution
         self.anneal_end = conf.get_float("train.anneal_end", default=0.0)
         self.base_exp_dir = base_exp_dir or os.path.join(
             conf["general.base_exp_dir"], "torch")
@@ -105,26 +112,42 @@ class Trainer:
         return {k: float(v.detach()) if torch.is_tensor(v) else float(v)
                 for k, v in res.items()}
 
+    def validate(self, validator, epoch):
+        """The validation scenes on the current parameters and state."""
+        validator.params, validator.state = self.params, self.state
+        with torch.no_grad():
+            return validator.validate(epoch)
+
     def train(self):
         n = len(self.dataset)
+        val = None
         for epoch in range(self.epochs):
             if epoch % 2 == 0:
                 self.state = surf.refresh_match_features(self.params, self.state)
             order = np.arange(n)
             np.random.RandomState(self.seed + epoch).shuffle(order)
             t0 = time.time()
+            sums = {}
             for i, idx in enumerate(order):
                 step_f = epoch + i / n
                 batch = to_device(self.dataset[int(idx)], self.device)
                 res = self.step(batch, step_f)
+                sums = {k: sums.get(k, 0.0) + v for k, v in res.items()}
                 if (epoch * n + i) % max(int(self.log_freq * n), 1) == 0:
                     print(f"[epoch {epoch} {i}/{n}] loss {res['loss']:.4f} color "
                           f"{res['color_loss']:.4f} psnr {res['psnr']:.2f} "
                           f"({(time.time() - t0) / (i + 1):.2f}s/it)", flush=True)
                 if not math.isfinite(res["loss"]):
                     raise FloatingPointError(f"non-finite loss at epoch {epoch} step {i}")
+            print(f"[epoch {epoch} train_avg] " + " ".join(
+                f"{k} {v / n:.4f}" for k, v in sums.items()), flush=True)
             if (epoch + 1) % self.save_freq == 0 or epoch + 1 >= self.epochs:
                 self.save(epoch)
+            if (epoch + 1) % self.val_freq == 0:
+                val = val or Validator(self.conf, device=self.device,
+                                       mesh_resolution=self.mesh_resolution, seed=self.seed,
+                                       base_exp_dir=self.base_exp_dir)
+                self.validate(val, epoch)
 
     def save(self, epoch):
         path = os.path.join(self.base_exp_dir, "checkpoints",

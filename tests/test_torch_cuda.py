@@ -17,6 +17,12 @@ they run on the card's machine: ``python -m pytest tests/test_torch_cuda.py
   K3 at 1-4 stages, C = 7 and 1, 5, 8, value only, derivatives and the
   training variant, points on cell faces, on the border and outside,
   absent parents and children, occupancy equal;
+* K4 and K4w against their plain versions at every (Cin, Cout) of the
+  path, with and without the live-row mask (a mask that also drops rows
+  holding taps: those read nothing); ragged shapes (T < 27, Cin 1, 5, 13
+  and 32, R no multiple of the row group, Cin % 4 == 0 off its 16-byte
+  alignment); an all -1 table, one input row read by every row and tap,
+  every tap present on every row; K4 twice, equal bit for bit;
 * ``loss.backward()`` of the tiny model on the card against the same step
   on the CPU (whose plain versions tests/test_torch_train.py holds against
   the JAX package)."""
@@ -355,3 +361,93 @@ def test_tiny_train_step_on_the_card_matches_the_cpu():
     for ref, rel in (("cuda plain", 1e-3), ("cpu", 5e-3)):
         for (path, ga), (_, gb) in zip(runs["cuda"][2], runs[ref][2]):
             assert np.abs(ga - gb).max() <= rel * np.abs(gb).max() + 1e-6, (ref, path)
+
+
+def _k4_table(g, R, T, M, p_row, p_tap):
+    """(R, T) int32 table: a share ``p_row`` of the rows hold taps, each
+    present with probability ``p_tap``; absent taps -1."""
+    live = torch.rand(R, generator=g) < p_row
+    present = (torch.rand(R, T, generator=g) < p_tap) & live[:, None]
+    j = torch.randint(0, M, (R, T), generator=g)
+    return torch.where(present, j, torch.full_like(j, -1)).to(torch.int32), live
+
+
+def _k4_check(x, idx, w, ct, live=None):
+    """K4 and K4w on the card against their plain versions (f32 sums in
+    another order, K4w's with atomics: rtol 1e-5, atol 1e-4 times
+    max(1, the largest entry)); K4 called twice must agree bit for bit."""
+    dev = torch.device("cuda")
+    xd, idd, wd, cd = (t.to(dev) for t in (x, idx, w, ct))
+    ld = None if live is None else live.to(dev)
+    out = trn.gather_conv(xd, idd, wd, ld)
+    again = trn.gather_conv(xd, idd, wd, ld)
+    dw = trn.gather_conv_dw(xd, idd, cd, ld)
+    torch.cuda.synchronize()
+    assert torch.equal(out, again)
+    x = x.cpu()
+    _close(out.cpu().numpy(), trn.gather_conv_plain(x, idx, w, live).numpy(), atol=1e-4)
+    _close(dw.cpu().numpy(), trn.gather_conv_dw_plain(x, idx, ct, live).numpy(), atol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cin,cout", [(16, 8), (8, 16), (16, 16), (16, 32), (32, 16)])
+@pytest.mark.parametrize("mask", ["none", "live rows", "drops rows with taps"])
+def test_k4_k4w_at_the_path_widths(cin, cout, mask):
+    """K4 and K4w at each (Cin, Cout) of apply_hybrid, on a table where a
+    third of the rows hold taps, each present with probability 0.6; with
+    no mask, the mask of the rows holding taps, or a mask that also
+    leaves out some of those (they then read nothing)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    g = torch.Generator().manual_seed(cin * 100 + cout)
+    M, R = 4099, 5003
+    idx, live = _k4_table(g, R, 27, M, 0.33, 0.6)
+    if mask == "drops rows with taps":
+        live = live & (torch.rand(R, generator=g) < 0.7)
+    x = torch.randn(M, cin, generator=g)
+    w = torch.randn(27, cin, cout, generator=g)
+    ct = torch.randn(R, cout, generator=g)
+    _k4_check(x, idx, w, ct, None if mask == "none" else live)
+
+
+K4_RAGGED = {
+    "T 8, Cin 5, Cout 7": (8, 5, 7, "random"),
+    "T 27, Cin 1, Cout 3": (27, 1, 3, "random"),
+    "T 13, Cin 13, Cout 1": (13, 13, 1, "random"),
+    "T 27, Cin 32, Cout 32": (27, 32, 32, "random"),
+    "T 27, Cin 32, Cout 5": (27, 32, 5, "random"),
+    "all -1": (27, 16, 8, "empty"),
+    "one row read by every row and tap": (27, 16, 8, "one row"),
+    "every tap present on every row": (27, 16, 8, "full"),
+    "Cin 16 off its 16-byte alignment": (27, 16, 8, "unaligned"),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(K4_RAGGED))
+@pytest.mark.parametrize("with_live", [False, True])
+def test_k4_k4w_ragged(case, with_live):
+    """K4 and K4w on ragged shapes and extreme tables, R = 1001 rows (no
+    multiple of the 32-row group), with and without a live-row mask."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    T, cin, cout, kind = K4_RAGGED[case]
+    g = torch.Generator().manual_seed(len(case) * 7 + T)
+    M, R = 517, 1001
+    idx, live = _k4_table(g, R, T, M, 0.5, 0.5)
+    if kind == "empty":
+        idx = torch.full((R, T), -1, dtype=torch.int32)
+    elif kind == "one row":
+        idx = torch.full((R, T), 3, dtype=torch.int32)
+    elif kind == "full":
+        idx = torch.randint(0, M, (R, T), generator=g).to(torch.int32)
+    if kind in ("one row", "full", "empty"):
+        live = torch.rand(R, generator=g) < 0.8
+    x = torch.randn(M, cin, generator=g)
+    w = torch.randn(T, cin, cout, generator=g)
+    ct = torch.randn(R, cout, generator=g)
+    if kind == "unaligned":
+        # a view one float into its storage: Cin % 4 == 0, rows off 16 bytes
+        x = torch.randn(M * cin + 1, generator=g).to("cuda")[1:].reshape(M, cin)
+        assert x.is_contiguous() and x.data_ptr() % 16 != 0
+    _k4_check(x, idx, w, ct, live if with_live else None)

@@ -236,6 +236,8 @@ def test_trainer_loop_refreshes_and_saves_a_checkpoint(tmp_path):
         lambda t: t * 0.0, trainer.state["match_feature_network"])
     before = [t.detach().clone() for _, t in _paths(trainer.params)]
     trainer.train()
+    # the tiny conf's val_freq (10) is past the one epoch: nothing validated
+    assert not (tmp_path / "meshes").exists()
     ck = jckpt.load_checkpoint(str(tmp_path / "checkpoints" / "model_000.ckpt.npz"))
     assert int(ck["epoch"]) == 0
     moved = 0
@@ -248,3 +250,46 @@ def test_trainer_loop_refreshes_and_saves_a_checkpoint(tmp_path):
                                  _paths(ck["model"]["feature_network"])):
         assert np.abs(a).max() > 0, path
 
+
+
+def test_trainer_validates_every_val_freq_epochs_after_the_save(tmp_path):
+    """With ``val_freq`` 1, ``Trainer.train`` validates after the epoch's
+    save: the mesh and the ``val_*`` files under the names
+    ``Validator.validate`` gives them, equal to those of a ``Validator``
+    built afterwards on the trained parameters and state, with the same
+    PSNR."""
+    from surf_tpu_torch.validate import Validator
+    tconf = ConfigFactory.parse_string(TINY)
+    tconf["train"]["epochs"] = 1
+    tconf["train"]["val_freq"] = 1
+    out = tmp_path / "train"
+    trainer = Trainer(tconf, device="cpu", base_exp_dir=str(out), mesh_resolution=24)
+    trainer.dataset.metas = trainer.dataset.metas[:1]
+    seen, validate = [], trainer.validate
+
+    def recorded(val, epoch):
+        assert (out / "checkpoints" / f"model_{epoch:0>3}.ckpt.npz").exists()
+        seen.append((epoch, validate(val, epoch)))
+        return seen[-1][1]
+    trainer.validate = recorded
+    trainer.train()
+    assert [e for e, _ in seen] == [0]
+    ref_dir = tmp_path / "ref"
+    v = Validator(tconf, device="cpu", mesh_resolution=24, base_exp_dir=str(ref_dir),
+                  params=trainer.params, state=trainer.state)
+    with torch.no_grad():
+        ref = v.validate(0)
+    got = seen[0][1]
+    assert [m["scene"] for m in got] == [m["scene"] for m in ref]
+    for a, b in zip(got, ref):
+        assert a["psnr"] == b["psnr"] and a["mesh_faces"] == b["mesh_faces"] > 0
+        scene = a["scene"]
+        assert (out / "meshes" / f"{scene}_epoch0.ply").read_bytes() == \
+            (ref_dir / "meshes" / f"{scene}_epoch0.ply").read_bytes()
+    for sub in ("val_img", "val_normal", "val_render_depth", "val_sdf_depth",
+                "val_auxi_depth"):
+        names = sorted(p.name for p in (ref_dir / sub).iterdir())
+        assert names and all(n.endswith("_epoch0.npy") for n in names), sub
+        assert sorted(p.name for p in (out / sub).iterdir()) == names, sub
+        for n in names:
+            np.testing.assert_array_equal(np.load(out / sub / n), np.load(ref_dir / sub / n))
