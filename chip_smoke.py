@@ -53,14 +53,21 @@ Phases, one line each (any failure exits non-zero, with no result line):
    kernels must each have run.  The loss must be finite and the
    parameters of both optimizer groups must move.  Prints s/step and the
    peak memory.  The largest call of each kind of each backward kernel
-   in the last step is recorded, and K4's largest forward and largest dX
-   call (launches by call site: forward / dX at 352^3 / 704^3); K1b, K2b,
-   K3b, K4w and those K4 calls are then held against their plain versions
-   and measured on those calls as in 6.
+   in the last step is recorded (K2b's and K3b's of each kind at each
+   call site: K2b by volume, 88^3 to 704^3, K3b by the cotangents it
+   takes), and K4's largest forward and largest dX call (launches by call
+   site: forward / dX at 352^3 / 704^3); K1b, K2b, K3b, K4w and those K4
+   calls are then held against their plain versions and measured on
+   those calls as in 6.
    K1b's entries give the share of all-zero cotangent rows (whose
    scatter the kernel skips) and the most points on one texel; its row
    also times its largest call again with a random cotangent on every
-   row, as a trained model's denser stage would give.
+   row, as a trained model's denser stage would give.  K2b's entries give
+   the distinct voxels and 8^3 bricks touched, the share of all-zero
+   cotangent rows, the share of corner scatters merged before an atomic
+   and the time of each form (single pass, bricked); K3b's the distinct
+   rows touched a stage, the merged share and the kernel's time without
+   the wrapper's zero fill (``ms_kernel_only``, ``ms_zero_fill``).
    The trainer saves its checkpoint;
 8. finetune: a ``Finetuner`` on confs/surf_synthetic_finetune.conf (5
    views of 576x800, 512 rays, 4 stages to 704^3) resumes from that
@@ -68,9 +75,11 @@ Phases, one line each (any failure exits non-zero, with no result line):
    deletes; ``init_volumes``, then 3 steps (one cold, two warm) with every
    launch count zeroed before them: K3 and K3b must have run, the loss
    must be finite and the implicit surface and every stage's storage
-   must move.  Then one ``validate_finetune`` (512^3 mesh, non-empty) and
-   a ``save_finetune`` read back as ``--load_vol`` reads it, bit for bit
-   (the bf16 matching volume included).  Prints s/step, peak memory,
+   must move; K3b is held against its plain version at each kind of call
+   of the last step and measured as in 7.  Then one ``validate_finetune``
+   (512^3 mesh, non-empty) and a ``save_finetune`` read back as
+   ``--load_vol`` reads it, bit for bit (the bf16 matching volume
+   included).  Prints s/step, peak memory,
    ``mesh_s`` and ``render_rays_per_s``;
 9. reference: the tiny model on the card against the same model on the
    CPU (plain versions, themselves held against the JAX package by the
@@ -89,6 +98,7 @@ all comparisons are in full f32.
 from __future__ import annotations
 
 import contextlib
+import inspect
 import json
 import os
 import statistics
@@ -327,6 +337,24 @@ def ragged_checks(dev):
                 out.append(check_close(f"K2b ragged {dt}", a, b,
                                        2.0 ** -7 if b.dtype == torch.bfloat16 else 1e-5,
                                        1e-5 * scale(b)))
+    # K2b's two forms of a bf16 volume's gradient (where the wrapper has
+    # them), C = 1 and 3: a band of ray-ordered samples in a few bricks,
+    # samples on and past the volume's faces
+    if "bricked" in inspect.signature(gs.trilinear_sample_bwd).parameters:
+        for C in (1, 3):
+            vol = torch.randn(37, 21, 40, C, device=dev, generator=g).bfloat16()
+            t = torch.linspace(0.0, 1.0, 64, device=dev)
+            o = torch.rand(41, 1, 3, device=dev, generator=g) * 0.3 - 0.9
+            band = (o + t[None, :, None] * torch.tensor([0.2, 0.1, 0.35], device=dev))
+            pts = torch.cat([band.reshape(-1, 3),
+                             torch.rand(333, 3, device=dev, generator=g) * 2.4 - 1.2])
+            ct = torch.randn(pts.shape[0], C, device=dev, generator=g)
+            ref = gs.trilinear_sample_bwd_plain(vol, pts, ct, need_coords=False)[0]
+            for bricked in (False, True):
+                got = gs.trilinear_sample_bwd(vol, pts, ct, need_coords=False,
+                                              bricked=bricked)[0]
+                out.append(check_close(f"K2b C={C} bricked={bricked}", got, ref, 2.0 ** -7,
+                                       1e-5 * scale(ref)))
     n, C = pts3.shape[0], sum(s.shape[1] for _, s in stages)
     cts = [torch.randn(*sh, device=dev, generator=g)
            for sh in ((n, C), (n, 3, C), (n, 3, C), (n, C))]
@@ -1083,17 +1111,54 @@ BWD_KERNELS = ("bilinear_sample_2d_bwd", "trilinear_sample_3d_bwd",
                "sparse_trilinear_multi_bwd", "gather_conv_dw")
 
 
-def record_backward_calls():
-    """Wrap the four backward kernels' wrappers (the autograd functions
-    call them by module attribute) to keep, per kernel and per kind of
-    call (which gradients / cotangents it takes), the arguments of its
-    largest call.  Returns (records, calls, restore)."""
+def bwd_site(name, a):
+    """The call site a backward call is recorded under: K2b's by its volume
+    ("176^3"), K3b's by its storages' shapes; the others have one."""
+    if name == "trilinear_sample_3d_bwd":
+        return "x".join(str(n) for n in a[0].shape[:3]) if len(set(a[0].shape[:3])) > 1 \
+            else f"{a[0].shape[0]}^3"
+    if name == "sparse_trilinear_multi_bwd":
+        return "storages " + " ".join("x".join(map(str, s.shape)) for _, s in a[0])
+    return ""
+
+
+BWD_BY_SITE = ("trilinear_sample_3d_bwd", "sparse_trilinear_multi_bwd")
+
+
+def bwd_label(name, kind, site):
+    """How a recorded K2b / K3b call site is named in the kernels line:
+    K2b by its volume, K3b by the cotangents it takes."""
+    if name == "sparse_trilinear_multi_bwd":
+        return "cotangents of " + " + ".join(
+            n for n, on in zip(("feats", "jac", "hmix", "third"), kind) if on)
+    return site + ("" if kind == (True, False) else
+                   f", d_volume={kind[0]}, d_coords={kind[1]}")
+
+
+def bwd_site_launches(calls):
+    """K2b's and K3b's calls by call site (``bwd_label``)."""
+    out = {n: {} for n in BWD_BY_SITE}
+    for (name, kind, site), c in calls["by_site"].items():
+        if name in out:
+            lab = bwd_label(name, kind, site)
+            out[name][lab] = out[name].get(lab, 0) + c
+    return out
+
+
+def record_backward_calls(names=None):
+    """Wrap the backward kernels' wrappers (the autograd functions call
+    them by module attribute; ``names``: all four by default) to keep, per
+    kernel, kind of call (which gradients / cotangents it takes) and call
+    site (``bwd_site``), the arguments of its largest call.  Returns
+    (records, calls, restore): ``calls`` counts each kernel's calls, in
+    all and by (kind, site)."""
     from surf_tpu_torch.ops import grid_sample as gs, sparse as sp
     from surf_tpu_torch.nn import reg_net
     where = {"bilinear_sample_2d_bwd": (gs, "bilinear_sample_bwd"),
              "trilinear_sample_3d_bwd": (gs, "trilinear_sample_bwd"),
              "sparse_trilinear_multi_bwd": (sp, "sparse_trilinear_multi_bwd"),
              "gather_conv_dw": (reg_net, "gather_conv_dw")}
+    where = {n: w for n, w in where.items() if names is None or n in names}
     size = {"bilinear_sample_2d_bwd": lambda a: a[2].numel(),
             "trilinear_sample_3d_bwd": lambda a: a[2].numel(),
             "sparse_trilinear_multi_bwd": lambda a: a[1].shape[0],
@@ -1104,12 +1169,13 @@ def record_backward_calls():
                                                     k.get("need_coords", True)),
             "sparse_trilinear_multi_bwd": lambda a, k: tuple(c is not None for c in a[2:]),
             "gather_conv_dw": lambda a, k: ()}
-    records, calls, orig = {}, {}, {}
+    records, calls, orig = {}, {"by_site": {}}, {}
 
     def wrap(name, fn):
         def rec(*a, **k):
-            key = (name, kind[name](a, k))
+            key = (name, kind[name](a, k), bwd_site(name, a))
             calls[name] = calls.get(name, 0) + 1
+            calls["by_site"][key] = calls["by_site"].get(key, 0) + 1
             n = size[name](a)
             if n >= records.get(key, (-1,))[0]:
                 records[key] = (n, a, k)
@@ -1186,7 +1252,10 @@ def k4_train_entries(largest):
 def train_phase(conf_path, n_steps=3, dev="cuda"):
     """A Trainer at full width: ``n_steps`` steps on the first scenes, the
     launch counts zeroed before and read after; the last step's backward
-    calls recorded.  (``dev`` "cpu" rehearses the phase without a card.)"""
+    calls recorded.  Returns (launches, records and calls as
+    ``record_backward_calls`` gives them, metrics, the checkpoint's path,
+    K4's largest calls).  (``dev`` "cpu" rehearses the phase without a
+    card.)"""
     import math
     import torch
     from surf_tpu_torch import _build
@@ -1239,8 +1308,10 @@ def train_phase(conf_path, n_steps=3, dev="cuda"):
     metrics = {"cold_step_s": times[0], "warm_s_per_step": statistics.mean(times[1:]),
                "warm_steps_s": times[1:], "peak_mem_gb": peak / 2 ** 30,
                "launches_per_step": per_step[-1], "params_moved": moved,
-               "params_per_group": sizes, "backward_calls_last_step": calls,
-               "k2_k3_call_sites_last_step": sites, "k4_call_sites_last_step": k4_sites}
+               "params_per_group": sizes,
+               "backward_calls_last_step": {k: v for k, v in calls.items() if k != "by_site"},
+               "k2_k3_call_sites_last_step": sites, "k4_call_sites_last_step": k4_sites,
+               "k2b_k3b_call_sites_last_step": bwd_site_launches(calls)}
     say("train", json.dumps(metrics))
     say("train", "kernels " + json.dumps(launches))
     missing = [k for k, v in launches.items() if v <= 0]
@@ -1248,7 +1319,7 @@ def train_phase(conf_path, n_steps=3, dev="cuda"):
         fail(f"train: the training path launched no {missing}")
     if any(moved[g] == 0 for g in moved):
         fail(f"train: no parameter moved in some group: {moved}")
-    return launches, records, metrics, t.save(n_steps - 1), k4_largest
+    return launches, records, calls, metrics, t.save(n_steps - 1), k4_largest
 
 
 def bwd_bound(name, a, k, got):
@@ -1345,6 +1416,112 @@ def bwd_library(name, a, k):
     return None
 
 
+def device_split(fn, calls=3):
+    """The card's time for one call of ``fn`` by what ran on it: the mean
+    device microseconds a call of each kernel (by its function's name) and
+    memory operation, from ``torch.profiler`` over ``calls`` calls."""
+    import re
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.events():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        m = re.search(r"(\w+_kernel|Memset|Memcpy\w*|\w+Kernel\w*)", e.key)
+        name = m.group(1) if m else e.key[:40]
+        out[name] = out.get(name, 0.0) + e.time_range.elapsed_us() / calls
+    return out
+
+
+def k2b_data(fn, a, k):
+    """What one K2b call scatters: the distinct voxels and 8^3 bricks its
+    samples' in-range corners touch (of the volume's bricks), the share of
+    all-zero cotangent rows and, where the wrapper reports them
+    (``counts``), the (corner, channel) scatters, the global atomics issued
+    and the share merged before an atomic; for a bf16 volume whose wrapper
+    has both forms, the time of each; the device time by kernel
+    (``device_split``) of each form, or of the call."""
+    import torch
+    vol, co, ct = a
+    X, Y, Z = vol.shape[:3]
+    norm, align = k.get("normalized", True), k.get("align_corners", True)
+    base = [torch.floor(_unnormalize(co[:, i], vol.shape[i], align) if norm else co[:, i])
+            .long() for i in range(3)]
+    BX, BY, BZ = (-(-n // 8) for n in (X, Y, Z))
+    vox, bricks = [], []
+    for kk in range(8):
+        c = [b + ((kk >> (2 - i)) & 1) for i, b in enumerate(base)]
+        ok = (c[0] >= 0) & (c[0] < X) & (c[1] >= 0) & (c[1] < Y) & (c[2] >= 0) & (c[2] < Z)
+        c = [x[ok] for x in c]
+        vox.append((c[0] * Y + c[1]) * Z + c[2])
+        bricks.append(((c[0] // 8) * BY + c[1] // 8) * BZ + c[2] // 8)
+    d = {"distinct_voxels": torch.unique(torch.cat(vox)).numel(),
+         "distinct_8x8x8_bricks": torch.unique(torch.cat(bricks)).numel(),
+         "bricks_in_volume": BX * BY * BZ,
+         "zero_cotangent_rows": (ct == 0).all(-1).float().mean().item()}
+    del vox, bricks, base
+    params = inspect.signature(fn).parameters
+    if "counts" in params:
+        cnt = torch.zeros(2, dtype=torch.int64, device=ct.device)
+        fn(*a, **k, counts=cnt)
+        scatters, atomics = cnt.tolist()
+        d.update(corner_scatters=scatters, global_atomics=atomics,
+                 merged_share=1.0 - atomics / scatters if scatters else 0.0)
+    if not ct.is_cuda:
+        return d
+    if "bricked" in params and vol.dtype == torch.bfloat16 and k.get("need_volume", True):
+        for form, on in (("single_pass", False), ("bricked", True)):
+            d["ms_" + form] = time_ms(lambda: fn(*a, **k, bricked=on))
+            d["device_us_by_kernel_" + form] = device_split(lambda: fn(*a, **k, bricked=on))
+    else:
+        d["device_us_by_kernel"] = device_split(lambda: fn(*a, **k))
+    return d
+
+
+def k3b_data(fn, a, k):
+    """What one K3b call scatters: per stage the distinct storage rows its
+    points' present corners touch and, where the wrapper reports them
+    (``counts``), the (point, corner, channel) scatters, the atomics issued
+    and the share merged in registers; where the kernel can be launched
+    alone (``k3b_launch``), its time without the wrapper's zero fill of the
+    capacity-sized gradients, and the zero fill's; on the card, the device
+    time of a call by kernel (``device_split``)."""
+    import torch
+    from surf_tpu_torch.ops import sparse as sp
+    stages, pts, cts = a[0], a[1], list(a[2:]) + [None] * (6 - len(a))
+    off = sp.child_offsets(pts.device)
+    rows = []
+    for g, _ in stages:
+        c0 = torch.floor((pts + 1.0) * 0.5 * (g.res - 1)).long()
+        vox = torch.cat([c0 + off[j] for j in range(8)]).clamp(0, g.res - 1)
+        r, valid = sp.lookup_rows(g, vox)
+        rows.append(torch.unique(r[valid]).numel())
+    d = {"distinct_rows_by_stage": rows,
+         "cotangent_strides": [None if c is None else list(c.stride()) for c in cts[:4]]}
+    if "counts" in inspect.signature(fn).parameters:
+        cnt = torch.zeros(2, dtype=torch.int64, device=pts.device)
+        fn(*a, **k, counts=cnt)
+        scatters, atomics = cnt.tolist()
+        d.update(corner_scatters=scatters, atomics=atomics,
+                 merged_share=1.0 - atomics / scatters if scatters else 0.0)
+    extra = {}
+    if hasattr(sp, "k3b_launch") and pts.is_cuda:
+        grads = [torch.zeros((s.shape[0], s.shape[-1]), dtype=torch.float32,
+                             device=pts.device) for _, s in stages]
+        extra["ms_kernel_only"] = time_ms(lambda: sp.k3b_launch(stages, pts, cts[:4], grads))
+        extra["ms_zero_fill"] = time_ms(lambda: [g.zero_() for g in grads])
+    if pts.is_cuda:
+        d["device_us_by_kernel"] = device_split(lambda: fn(*a, **k))
+    return d, extra
+
+
 def bwd_entry(name, rec):
     from surf_tpu_torch.ops import grid_sample as gs, sparse as sp
     from surf_tpu_torch.nn import reg_net
@@ -1367,21 +1544,33 @@ def bwd_entry(name, rec):
         # round to the neighbouring bf16 value
         rtol = 2.0 ** -7 if str(y.dtype) == "torch.bfloat16" else 1e-4
         err = max(err, check_close(f"{name} train call", x, y, rtol, 1e-5 * scale(y)))
-    b_ms, b_by, what = bwd_bound(name, a, k, got)
+    del got, ref
+    b_ms, b_by, what = bwd_bound(name, a, k, None)
     lib = bwd_library(name, a, k)
     data, extra = {}, {}
     if name == "bilinear_sample_2d_bwd":
         data = {"data": texel_load(a[0], a[1], k.get("normalized", True),
                                    k.get("align_corners", True), a[2])}
+    if name == "trilinear_sample_3d_bwd":
+        data = {"data": k2b_data(fn, a, k)}
+    if name == "sparse_trilinear_multi_bwd":
+        d, extra = k3b_data(fn, a, k)
+        data = {"data": d}
     if name == "gather_conv_dw":
         data = {"data": k4_data(a[1], a[3] if len(a) > 3 else None)}
         if len(a) > 3 and a[3] is not None:
             extra = {"ms_without_live_mask": time_ms(lambda: fn(*a[:3], **k))}
+    lib_ms = None
+    if lib is not None:
+        import torch
+        try:
+            lib_ms = time_ms(lib)
+        except torch.cuda.OutOfMemoryError:
+            torch.cuda.empty_cache()
     return {"shape": what, **data, "max_abs_err": err,
             "ms": time_ms(lambda: fn(*a, **k)),
             "plain_ms": time_ms(lambda: plain(*a, **k), 3),
-            "bound_ms": b_ms, "bound_by": b_by,
-            "library_ms": time_ms(lib) if lib is not None else None, **extra}
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms, **extra}
 
 
 BWD_ROWS = {
@@ -1399,22 +1588,31 @@ BWD_ROWS = {
 }
 
 
-def backward_kernels(launches, records, dense_conv0=None):
-    """One row per backward kernel: its largest call of the train step
-    heads it, the largest call of each other kind is ``also_checked``.
-    ``dense_conv0`` (x, idx) adds K4w on the validate's 704^3 conv0 table
-    (a densely active stage, as a trained model's is) with a random
-    cotangent."""
+def backward_kernels(launches, records, calls, dense_conv0=None):
+    """One row per backward kernel.  K1b and K4w: the largest call of the
+    train step heads the row, the largest call of each other kind is
+    ``also_checked``.  K2b and K3b: the largest call of each (kind, call
+    site) of the step (``record_backward_calls``), K2b's largest volume and
+    K3b's largest call with the most cotangents first, each with its call
+    site's launches in the step; the row gives them all as
+    ``launches_in_train_step_by_call_site``.  ``dense_conv0`` (x, idx)
+    adds K4w on the validate's 704^3 conv0 table (a densely active stage,
+    as a trained model's is) with a random cotangent."""
     import torch
     rows = []
     src = {"sparse_trilinear_multi_bwd": "surf_tpu_torch/csrc/sparse_trilinear.cu",
            "gather_conv_dw": "surf_tpu_torch/csrc/gather_conv.cu"}
     for name in BWD_KERNELS:
-        # largest first; of equal size, the call with the most cotangents
-        recs = sorted((r for key, r in records.items() if key[0] == name),
-                      key=lambda r: (-r[0], -sum(x is not None for x in r[1])))
-        if not recs:
+        keyed = [(key, r) for key, r in records.items() if key[0] == name]
+        if not keyed:
             fail(f"train: no {name} call was recorded")
+        if name == "trilinear_sample_3d_bwd":
+            # largest volume first
+            keyed.sort(key=lambda kr: (-kr[1][1][0].numel(), -kr[1][0]))
+        else:
+            # largest first; of equal size, the call with the most cotangents
+            keyed.sort(key=lambda kr: (-kr[1][0], -sum(x is not None for x in kr[1][1])))
+        recs = [r for _, r in keyed]
         if name == "gather_conv_dw" and dense_conv0 is not None:
             x, idx, live = dense_conv0
             g = torch.Generator(device=x.device).manual_seed(3)
@@ -1433,6 +1631,10 @@ def backward_kernels(launches, records, dense_conv0=None):
             recs = [(n_, (a_[0], a_[1].to(torch.int32).contiguous()) + tuple(a_[2:]), k_)
                     for n_, a_, k_ in recs]
         entries = [bwd_entry(name, r) for r in recs]
+        if name in BWD_BY_SITE:
+            for e, (key, _) in zip(entries, keyed):
+                e["call_site"] = bwd_label(*key)
+                e["call_site_launches"] = calls["by_site"][key]
         if name == "gather_conv_dw" and dense_conv0 is not None:
             entries[-1]["shape"] = ("the validate's 704^3 conv0 table, a random "
                                     "cotangent: " + entries[-1]["shape"])
@@ -1445,11 +1647,27 @@ def backward_kernels(launches, records, dense_conv0=None):
              "replaces": replaces, "launches": launches[name], **entries[0],
              "tolerance": "|err| <= 1e-5 max(max|plain|, 1) + 1e-4 |plain| (bf16: "
                           "one bf16 step)", "library": library}
+        if name in BWD_BY_SITE:
+            r["launches_in_train_step_by_call_site"] = bwd_site_launches(calls)[name]
         if len(entries) > 1:
             r["also_checked"] = entries[1:]
         say("kernel", json.dumps(r))
         rows.append(r)
     return rows
+
+
+def finetune_k3b_entries(records, calls):
+    """K3b at each (kind, call site) of a finetune step, as
+    ``backward_kernels`` takes the training step's."""
+    out = []
+    for key, rec in sorted(records.items(), key=lambda kr: -sum(
+            x is not None for x in kr[1][1])):
+        e = bwd_entry(key[0], rec)
+        e["shape"] = "finetune step: " + e["shape"]
+        e["call_site"] = "finetune, " + bwd_label(*key)
+        e["call_site_launches"] = calls["by_site"][key]
+        out.append(e)
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -1461,7 +1679,9 @@ def finetune_phase(ckpt, n_steps=3, dev="cuda", conf_path=None):
     ``ckpt`` (``--resume``): ``init_volumes``, ``n_steps`` steps on the
     loop's first batches with the launch counts zeroed before them, one
     ``validate_finetune`` and a ``save_finetune`` read back as
-    ``--load_vol`` reads it.  Everything is written under a temporary
+    ``--load_vol`` reads it; the last step's K3b calls recorded.  Returns
+    (launches, metrics, and the records and calls of
+    ``record_backward_calls``).  Everything is written under a temporary
     directory that the phase deletes.  (``dev`` "cpu" with a tiny
     ``conf_path`` rehearses the phase without a card.)"""
     import math
@@ -1503,9 +1723,15 @@ def finetune_phase(ckpt, n_steps=3, dev="cuda", conf_path=None):
         _build.reset_launches()
         times = []
         for i in range(n_steps):
+            if i == n_steps - 1:
+                records, calls, restore = record_backward_calls(["sparse_trilinear_multi_bwd"])
             t0 = time.time()
-            res = f.step(batches[i], i)
-            sync()
+            try:
+                res = f.step(batches[i], i)
+                sync()
+            finally:
+                if i == n_steps - 1:
+                    restore()
             times.append(time.time() - t0)
             say("finetune", f"step {i} ({'cold' if i == 0 else 'warm'}): {times[-1]:.3f} s "
                 + " ".join(f"{k}={v:.5g}" for k, v in res.items()))
@@ -1519,7 +1745,9 @@ def finetune_phase(ckpt, n_steps=3, dev="cuda", conf_path=None):
                    "warm_steps_s": times[1:], "peak_mem_gb": peak / 2 ** 30,
                    "init_s": init_s, "params_moved": moved,
                    "params_per_group": {g["name"]: len(g["params"])
-                                        for g in f.optimizer.param_groups}}
+                                        for g in f.optimizer.param_groups},
+                   "k3b_call_sites_last_step":
+                       bwd_site_launches(calls)["sparse_trilinear_multi_bwd"]}
         say("finetune", "kernels " + json.dumps(launches))
         missing = [k for k in ("sparse_trilinear_multi", "sparse_trilinear_multi_bwd")
                    if launches[k] <= 0]
@@ -1555,7 +1783,7 @@ def finetune_phase(ckpt, n_steps=3, dev="cuda", conf_path=None):
             f"(matching volume {str(vs['matching_volume'].dtype).split('.')[-1]}), "
             f"{size / 2 ** 30:.3f} GiB, {time.time() - t0:.1f} s")
         say("finetune", json.dumps(metrics))
-        return launches, metrics
+        return launches, metrics, records, calls
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -1798,7 +2026,8 @@ def main():
     torch.cuda.empty_cache()
 
     t0 = time.time()
-    train_launches, records, train_metrics, ckpt, k4_largest = train_phase(conf_path)
+    train_launches, records, bwd_calls, train_metrics, ckpt, k4_largest = \
+        train_phase(conf_path)
     train_sites = dict(train_metrics["k2_k3_call_sites_last_step"],
                        gather_conv=train_metrics["k4_call_sites_last_step"])
     for r in rows:
@@ -1810,15 +2039,21 @@ def main():
             say("kernel", "K4 in the training step: " + json.dumps(r["also_checked"][-2:]))
     del k4_largest
     torch.cuda.empty_cache()
-    rows += backward_kernels(train_launches, records, dense_conv0)
+    rows += backward_kernels(train_launches, records, bwd_calls, dense_conv0)
     del records, dense_conv0
     torch.cuda.empty_cache()
     say("train", f"phase and backward kernel checks: {time.time() - t0:.1f} s")
 
     t0 = time.time()
-    ft_launches, _ = finetune_phase(ckpt)
+    ft_launches, ft_metrics, ft_records, ft_calls = finetune_phase(ckpt)
     for r in rows:
         r["launches_in_finetune"] = ft_launches[r["name"]]
+        if r["name"] == "sparse_trilinear_multi_bwd":
+            r["launches_in_finetune_step_by_call_site"] = ft_metrics["k3b_call_sites_last_step"]
+            r.setdefault("also_checked", []).extend(finetune_k3b_entries(ft_records, ft_calls))
+            say("kernel", "K3b in the finetune step: " + json.dumps(r["also_checked"][-len(
+                ft_records):]))
+    del ft_records
     torch.cuda.empty_cache()
     say("finetune", f"phase: {time.time() - t0:.1f} s")
     # no path called the grid-form ops: their launches on the paths

@@ -248,18 +248,6 @@ bilinear_spread_kernel(const float* __restrict__ img, const float2* __restrict__
     }
 }
 
-template <typename T>
-__device__ __forceinline__ float load(const T* p, long long i);
-template <>
-__device__ __forceinline__ float load<float>(const float* p, long long i) {
-    return p[i];
-}
-template <>
-__device__ __forceinline__ float load<__nv_bfloat16>(const __nv_bfloat16* p,
-                                                     long long i) {
-    return __bfloat162float(p[i]);
-}
-
 // ---------------------------------------------------------------------------
 // K2: one thread per sample; CT = 1 (the path's C) or 0 (C at run time)
 // ---------------------------------------------------------------------------
@@ -376,13 +364,47 @@ trilinear_kernel(const T* __restrict__ vol, const float* __restrict__ coords,
 // (atomics across warps, a shuffle tree within one); d_coords is summed
 // per sample in the reference's corner and channel order.
 //
-// K2b design (correct first): one thread per sample; it loops over the
-// corners in the reference's order and over the channels, adds ct * w
-// into the gradient volume with f32 atomicAdd (the order of the sums
-// changes from run to run) and accumulates the coordinate gradient by the
-// product rule through the fractional weights (corner indices carry no
-// gradient).  K2b always accumulates into an f32 buffer; the wrapper casts
-// it to a bf16 volume's dtype.  Either gradient may be skipped (null).
+// K2b design.  The path calls K2b at C = 1 on `depth_render`'s bf16
+// matching volume (88^3 to 704^3), with 2.5 to 9.8 M samples laid out
+// (rays, samples): neighbouring samples walk one ray, and neighbouring rays
+// are less than a voxel apart.  The gradient is summed in f32 and cast to
+// bf16 once.  Two things keep such a scatter from its byte bound:
+//   * the full-volume f32 buffer.  At 704^3 zero-filling 1.4 GB and
+//     casting it (1.4 GB read, 0.7 GB written) is 3.5 GB of traffic, when
+//     the samples of a stage lie in thin bands around the previous depth
+//     and touch a few per cent of the volume.  For a large volume (the
+//     wrapper's rule) the bricked form keeps a map of 8^3-voxel bricks:
+//     ``trilinear_bwd_mark_kernel`` marks the bricks that the in-range
+//     corners of the samples with a nonzero cotangent fall in (plain
+//     stores, a warp's lanes in one brick marking it once),
+//     ``trilinear_bwd_zero_kernel`` zeroes the marked bricks of the
+//     uninitialised f32 buffer, the scatter adds into it, and
+//     ``trilinear_bwd_finish_kernel`` writes the bf16 output in one linear
+//     pass, the cast of a marked brick or zeros.  A small volume takes the
+//     single pass: the wrapper zero-fills the f32 buffer, the finish pass
+//     casts all of it;
+//   * the atomics, 8 a sample, where neighbouring lanes often hold one
+//     cell.  ``trilinear_bwd_scatter_kernel`` gives a warp 32 consecutive
+//     samples at a time; the lanes in a row in one cell sum their 8
+//     corner values into the run's first lane by a segmented shuffle sum
+//     (``run_sum``), and that lane adds each nonzero sum with one
+//     fire-and-forget global atomic (``red.global.add.f32``); a warp whose
+//     cotangents are all zero does nothing.  The warps on the card at one
+//     time take far-apart chunks of samples (``spread_chunk``): on
+//     neighbouring rays their atomics meet on the same voxels, which the
+//     L2 serialises.  On the H100, merging further
+//     before the atomics lost: a block-wide hash table in shared memory
+//     (its f32 adds are compare-and-swap loops there) and
+//     __match_any_sync over 8 corners (its cost grows with the distinct
+//     keys in a warp, which along a ray are many) both cost more than the
+//     global atomics they saved.  Offsets are 32-bit (the wrapper keeps
+//     the volume below 2^31 elements), C = 1 is a template parameter
+//     (run-time C: an atomic a (corner, channel)).
+// d_coords, when asked, is ``trilinear_bwd_coords_kernel``: a thread a
+// sample, the corners in the reference's order, channels summed in order,
+// the product rule through the fractional weights (corner indices carry
+// no gradient).  The d_volume sums run in an order that changes from run
+// to run.
 // ---------------------------------------------------------------------------
 
 // The shuffle schedule that sums every group of peers (the lanes holding
@@ -543,56 +565,324 @@ bilinear_bwd_kernel(const float* __restrict__ img, const float2* __restrict__ co
     }
 }
 
-template <typename T>
-__global__ void trilinear_bwd_kernel(const T* __restrict__ vol,
-                                     const float* __restrict__ coords,
-                                     const float* __restrict__ ct,
-                                     float* __restrict__ d_vol,
-                                     float* __restrict__ d_coords,
-                                     int X, int Y, int Z, int C, long long N,
-                                     int normalized, int align) {
-    const long long n = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-    if (n >= N) return;
-    float x = coords[3 * n], y = coords[3 * n + 1], z = coords[3 * n + 2];
-    float sx = 1.0f, sy = 1.0f, sz = 1.0f;
+// One sample's trilinear cell for K2b: the low corner (x0, y0, z0), the
+// fractions, and an 8-bit mask of the corners inside the volume (bit k =
+// 4 ox + 2 oy + oz), tested in float before any conversion, so a far-off or
+// NaN coordinate has mask 0 and is never converted.
+struct Cell3 {
+    int x0, y0, z0;
+    int mask;
+    float fx, fy, fz;
+};
+
+__device__ __forceinline__ Cell3 tri_cell(const float* co, int X, int Y, int Z,
+                                          int normalized, int align) {
+    float x = co[0], y = co[1], z = co[2];
     if (normalized) {
         x = unnormalize(x, X, align);
         y = unnormalize(y, Y, align);
         z = unnormalize(z, Z, align);
+    }
+    const float x0f = floorf(x), y0f = floorf(y), z0f = floorf(z);
+    Cell3 c;
+    c.fx = x - x0f;
+    c.fy = y - y0f;
+    c.fz = z - z0f;
+    // per axis: bit 0 the low corner inside, bit 1 the high one
+    const int mx = (int)(x0f >= 0.0f && x0f < (float)X) | (int)(x0f >= -1.0f && x0f < (float)(X - 1)) << 1;
+    const int my = (int)(y0f >= 0.0f && y0f < (float)Y) | (int)(y0f >= -1.0f && y0f < (float)(Y - 1)) << 1;
+    const int mz = (int)(z0f >= 0.0f && z0f < (float)Z) | (int)(z0f >= -1.0f && z0f < (float)(Z - 1)) << 1;
+    c.mask = 0;
+#pragma unroll
+    for (int k = 0; k < 8; ++k)
+        c.mask |= (((mx >> ((k >> 2) & 1)) & (my >> ((k >> 1) & 1)) & (mz >> (k & 1))) & 1) << k;
+    c.x0 = c.mask ? (int)x0f : 0;
+    c.y0 = c.mask ? (int)y0f : 0;
+    c.z0 = c.mask ? (int)z0f : 0;
+    return c;
+}
+
+// Corner k's voxel and its weight (wx * wy) * wz, as the plain version
+// forms them.
+__device__ __forceinline__ int cell_voxel(const Cell3& c, int k, int Y, int Z) {
+    return ((c.x0 + ((k >> 2) & 1)) * Y + (c.y0 + ((k >> 1) & 1))) * Z + c.z0 + (k & 1);
+}
+__device__ __forceinline__ float cell_weight(const Cell3& c, int k) {
+    const float wx = ((k >> 2) & 1) ? c.fx : 1.0f - c.fx;
+    const float wy = ((k >> 1) & 1) ? c.fy : 1.0f - c.fy;
+    const float wz = (k & 1) ? c.fz : 1.0f - c.fz;
+    return wx * wy * wz;
+}
+
+constexpr int kBwdRun = 4;                        // 32-sample chunks a warp
+constexpr int kBwdWarps = kThreads / 32;
+constexpr int kBwdTile = kThreads * kBwdRun;      // samples a block
+constexpr int kBrick = 8;                         // brick edge, voxels
+
+// Runs of lanes holding one key (a key compared with the previous
+// lane's): each lane's run end, from the warp's run heads.
+__device__ __forceinline__ int run_end(bool head, int lane) {
+    const unsigned heads = __ballot_sync(kFull, head);
+    const unsigned above = heads & ~((2u << lane) - 1u);
+    return above ? __ffs(above) - 2 : 31;
+}
+
+// x summed over each run into its first lane (a segmented sum by
+// doubling: lane i adds lane i + d's partial sum while i + d is in its run).
+template <int K>
+__device__ __forceinline__ void run_sum(float (&x)[K], int lane, int end) {
+#pragma unroll
+    for (int d = 1; d < 32; d <<= 1) {
+        const bool in = lane + d <= end;
+#pragma unroll
+        for (int i = 0; i < K; ++i) {
+            const float o = __shfl_down_sync(kFull, x[i], d);
+            if (in) x[i] += o;
+        }
+    }
+}
+
+// A cell's key for run detection: its low corner, each index + 1 in 21
+// bits (a side below 2^21 - 1); -1 - lane for a sample with no corner in
+// range, so it is a run of its own.
+__device__ __forceinline__ long long cell_key(const Cell3& c, int lane) {
+    if (c.mask == 0) return -1 - lane;
+    return ((long long)(c.x0 + 1) << 42) | ((long long)(c.y0 + 1) << 21) | (c.z0 + 1);
+}
+
+// An f32 add to global memory that returns nothing.
+__device__ __forceinline__ void red_add(float* p, float v) {
+    asm volatile("red.global.add.f32 [%0], %1;" ::"l"(__cvta_generic_to_global(p)), "f"(v));
+}
+
+// The bricked form's first pass: the bricks that a sample's in-range
+// corners fall in, for every sample with a nonzero cotangent row, marked 1
+// in ``bricks`` by plain stores (a lane leaves a brick to the previous
+// lane when that lane marks it too).
+__global__ void __launch_bounds__(kThreads)
+trilinear_bwd_mark_kernel(const float* __restrict__ coords, const float* __restrict__ ct,
+                          int* __restrict__ bricks, int X, int Y, int Z, int C, int N,
+                          int normalized, int align) {
+    const int p = blockIdx.x * kThreads + threadIdx.x;
+    const int lane = threadIdx.x & 31;
+    const int BY = (Y + kBrick - 1) / kBrick, BZ = (Z + kBrick - 1) / kBrick;
+    Cell3 c;
+    c.mask = 0;
+    if (p < N) {
+        bool nz = false;
+        for (int ch = 0; ch < C; ++ch) nz |= __ldg(ct + (long long)p * C + ch) != 0.0f;
+        if (nz) c = tri_cell(coords + 3 * p, X, Y, Z, normalized, align);
+    }
+    if (!__any_sync(kFull, c.mask != 0)) return;
+    int b[8];
+#pragma unroll
+    for (int k = 0; k < 8; ++k) {
+        b[k] = -1;
+        if ((c.mask >> k) & 1)
+            b[k] = (((c.x0 + ((k >> 2) & 1)) / kBrick) * BY + (c.y0 + ((k >> 1) & 1)) / kBrick) *
+                       BZ + (c.z0 + (k & 1)) / kBrick;
+        bool repeat = false;
+#pragma unroll
+        for (int j = 0; j < k; ++j) repeat |= b[j] == b[k];
+        const int key = repeat ? -1 : b[k];
+        const int prev = __shfl_up_sync(kFull, key, 1);
+        if (key >= 0 && (lane == 0 || prev != key)) bricks[key] = 1;
+    }
+}
+
+// The bricked form's second pass: a thread reads one brick's mark; the
+// warp zeroes its marked bricks' voxels in ``buf`` (f32, (X, Y, Z, C))
+// together, a lane two of a brick's 64 (x, y) rows.
+__global__ void __launch_bounds__(kThreads)
+trilinear_bwd_zero_kernel(const int* __restrict__ bricks, float* __restrict__ buf, int X, int Y,
+                          int Z, int C, int n_bricks) {
+    const int t = blockIdx.x * kThreads + threadIdx.x;
+    const int lane = threadIdx.x & 31;
+    unsigned todo = __ballot_sync(kFull, t < n_bricks && bricks[t] != 0);
+    const int BY = (Y + kBrick - 1) / kBrick, BZ = (Z + kBrick - 1) / kBrick;
+    while (todo) {
+        const int b = t - lane + __ffs(todo) - 1;
+        todo &= todo - 1;
+        const int bz = b % BZ, bxy = b / BZ, by = bxy % BY, bx = bxy / BY;
+        const int z0 = bz * kBrick, span = min(kBrick, Z - z0) * C;
+        for (int r = lane; r < kBrick * kBrick; r += 32) {
+            const int x = bx * kBrick + r / kBrick, y = by * kBrick + r % kBrick;
+            if (x >= X || y >= Y) continue;
+            float* row = buf + ((long long)(x * Y + y) * Z + z0) * C;
+            if (span % 4 == 0 && (reinterpret_cast<uintptr_t>(row) & 15) == 0) {
+                for (int i = 0; i < span; i += 4)
+                    *reinterpret_cast<float4*>(row + i) = make_float4(0.f, 0.f, 0.f, 0.f);
+            } else {
+                for (int i = 0; i < span; ++i) row[i] = 0.0f;
+            }
+        }
+    }
+}
+
+// The chunk of 32 * kBwdRun samples that warp w takes, of ``chunks``: the
+// chunks in kSpread interleaved streams, so the warps on the card at one
+// time work on samples far apart (far-apart rays), not on neighbouring
+// rays whose atomics meet on the same voxels; -1 past the end.
+constexpr int kSpread = 64;
+__device__ __forceinline__ int spread_chunk(int w, int chunks) {
+    const int per = (chunks + kSpread - 1) / kSpread;
+    const int q = (w % kSpread) * per + w / kSpread;
+    return q < chunks ? q : -1;
+}
+
+// d_volume's scatter into ``dst`` (f32 (X, Y, Z, C), zero where it is
+// added to).  A warp takes kBwdRun chunks of 32 consecutive samples
+// (``spread_chunk`` picks which).  CT =
+// 1: the lanes in a row in one cell sum their 8 corner values into the
+// run's first lane (``run_sum``), which adds each nonzero one with one
+// global atomic.  Run-time C: an atomic a (corner, channel).  ``counts``
+// (or null) receives the (corner, channel) scatters of nonzero cotangents
+// and the global atomics issued.
+template <int CT>
+__global__ void __launch_bounds__(kThreads)
+trilinear_bwd_scatter_kernel(const float* __restrict__ coords, const float* __restrict__ ct,
+                             float* __restrict__ dst, int X, int Y, int Z, int C_rt, int N,
+                             int normalized, int align, unsigned long long* __restrict__ counts) {
+    __shared__ unsigned s_counts[2];
+    if (counts != nullptr && threadIdx.x < 2) s_counts[threadIdx.x] = 0u;
+    const int C = CT ? CT : C_rt;
+    const int lane = threadIdx.x & 31;
+    unsigned scatters = 0, atomics = 0;
+    const int chunk = spread_chunk(blockIdx.x * kBwdWarps + (threadIdx.x >> 5),
+                                   (N + 32 * kBwdRun - 1) / (32 * kBwdRun));
+    for (int it = 0; it < kBwdRun && chunk >= 0; ++it) {
+        const int p = (chunk * kBwdRun + it) * 32 + lane;
+        if constexpr (CT == 1) {
+            Cell3 c;
+            c.mask = 0;
+            const float g = p < N ? __ldg(ct + p) : 0.0f;
+            if (!__any_sync(kFull, g != 0.0f)) continue;
+            if (p < N) c = tri_cell(coords + 3 * p, X, Y, Z, normalized, align);
+            if (g != 0.0f) scatters += __popc(c.mask);
+            // the lanes in a row in one cell (neighbouring samples of a
+            // ray; a zero cotangent adds 0) sum into the run's first lane
+            const long long key = cell_key(c, lane);
+            const long long prev = __shfl_up_sync(kFull, key, 1);
+            const bool head = lane == 0 || prev != key;
+            float x[8];
+#pragma unroll
+            for (int k = 0; k < 8; ++k) x[k] = c.mask ? g * cell_weight(c, k) : 0.0f;
+            run_sum<8>(x, lane, run_end(head, lane));
+            if (!head) continue;
+#pragma unroll
+            for (int k = 0; k < 8; ++k) {
+                if (!((c.mask >> k) & 1) || x[k] == 0.0f) continue;
+                red_add(dst + cell_voxel(c, k, Y, Z), x[k]);
+                ++atomics;
+            }
+        } else {
+            if (p >= N) continue;
+            const Cell3 c = tri_cell(coords + 3 * p, X, Y, Z, normalized, align);
+            for (int k = 0; k < 8; ++k) {
+                if (!((c.mask >> k) & 1)) continue;
+                const int v = cell_voxel(c, k, Y, Z);
+                const float wk = cell_weight(c, k);
+                for (int ch = 0; ch < C; ++ch) {
+                    const float gc = __ldg(ct + (long long)p * C + ch);
+                    if (gc == 0.0f) continue;
+                    ++scatters;
+                    red_add(dst + (long long)v * C + ch, gc * wk);
+                    ++atomics;
+                }
+            }
+        }
+    }
+    if (counts != nullptr) {
+        __syncthreads();
+        atomicAdd(s_counts, scatters);
+        atomicAdd(s_counts + 1, atomics);
+        __syncthreads();
+        if (threadIdx.x == 0) {
+            atomicAdd(counts, (unsigned long long)s_counts[0]);
+            atomicAdd(counts + 1, (unsigned long long)s_counts[1]);
+        }
+    }
+}
+
+// The volume-dtype (bf16) gradient in one linear pass: a warp an (x, y)
+// row, a lane 8 voxels of z at a time; a touched brick's values are the
+// f32 buffer's cast, an untouched one's zeros (``bricks`` null: every
+// brick touched, the single-pass form).  ``fast``: C = 1, Z a multiple of
+// 8 and both volumes 16-byte aligned (a lane's 8 voxels as two float4
+// loads and one 16-byte store).
+__global__ void __launch_bounds__(kThreads)
+trilinear_bwd_finish_kernel(const float* __restrict__ buf, const int* __restrict__ bricks,
+                            __nv_bfloat16* __restrict__ out, int X, int Y, int Z, int C,
+                            int fast) {
+    const int row = blockIdx.x * (kThreads / 32) + (threadIdx.x >> 5);
+    if (row >= X * Y) return;
+    const int lane = threadIdx.x & 31;
+    const int x = row / Y, y = row - x * Y;
+    const int BY = (Y + kBrick - 1) / kBrick, BZ = (Z + kBrick - 1) / kBrick;
+    const int* bmap = bricks == nullptr ? nullptr
+                                        : bricks + ((x / kBrick) * BY + y / kBrick) * BZ;
+    const long long base = (long long)row * Z * C;
+    for (int bz = lane; bz < BZ; bz += 32) {
+        const bool touched = bmap == nullptr || bmap[bz] != 0;
+        const long long e0 = base + (long long)bz * kBrick * C;
+        if (fast) {
+            uint4 o = make_uint4(0u, 0u, 0u, 0u);
+            if (touched) {
+                const float4 a = *reinterpret_cast<const float4*>(buf + e0);
+                const float4 b = *reinterpret_cast<const float4*>(buf + e0 + 4);
+                const __nv_bfloat162 h0 = __floats2bfloat162_rn(a.x, a.y);
+                const __nv_bfloat162 h1 = __floats2bfloat162_rn(a.z, a.w);
+                const __nv_bfloat162 h2 = __floats2bfloat162_rn(b.x, b.y);
+                const __nv_bfloat162 h3 = __floats2bfloat162_rn(b.z, b.w);
+                o = make_uint4(*reinterpret_cast<const unsigned*>(&h0),
+                               *reinterpret_cast<const unsigned*>(&h1),
+                               *reinterpret_cast<const unsigned*>(&h2),
+                               *reinterpret_cast<const unsigned*>(&h3));
+            }
+            *reinterpret_cast<uint4*>(out + e0) = o;
+        } else {
+            const int n = min(kBrick, Z - bz * kBrick) * C;
+            for (int i = 0; i < n; ++i)
+                out[e0 + i] = __float2bfloat16_rn(touched ? buf[e0 + i] : 0.0f);
+        }
+    }
+}
+
+// d_coords: a thread a sample, the corners in the reference's order and
+// the channels in order, as the plain version sums them.
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+trilinear_bwd_coords_kernel(const T* __restrict__ vol, const float* __restrict__ coords,
+                            const float* __restrict__ ct, float* __restrict__ d_coords,
+                            int X, int Y, int Z, int C, int N, int normalized, int align) {
+    const int n = blockIdx.x * kThreads + threadIdx.x;
+    if (n >= N) return;
+    float sx = 1.0f, sy = 1.0f, sz = 1.0f;
+    if (normalized) {
         sx = align ? 0.5f * (float)(X - 1) : 0.5f * (float)X;
         sy = align ? 0.5f * (float)(Y - 1) : 0.5f * (float)Y;
         sz = align ? 0.5f * (float)(Z - 1) : 0.5f * (float)Z;
     }
-    const float x0f = floorf(x), y0f = floorf(y), z0f = floorf(z);
-    const float fx = x - x0f, fy = y - y0f, fz = z - z0f;
-    const long long x0 = (long long)x0f, y0 = (long long)y0f, z0 = (long long)z0f;
-    const float* g = ct + n * C;
+    const Cell3 c = tri_cell(coords + 3 * n, X, Y, Z, normalized, align);
+    const float* g = ct + (long long)n * C;
     float dx = 0.0f, dy = 0.0f, dz = 0.0f;
 #pragma unroll
     for (int k = 0; k < 8; ++k) {
+        if (!((c.mask >> k) & 1)) continue;
         const int ox = (k >> 2) & 1, oy = (k >> 1) & 1, oz = k & 1;
-        const long long cx = x0 + ox, cy = y0 + oy, cz = z0 + oz;
-        if (!(cx >= 0 && cx < X && cy >= 0 && cy < Y && cz >= 0 && cz < Z)) continue;
-        const float wx = ox ? fx : 1.0f - fx;
-        const float wy = oy ? fy : 1.0f - fy;
-        const float wz = oz ? fz : 1.0f - fz;
-        const float w = wx * wy * wz;
-        const long long off = ((cx * Y + cy) * Z + cz) * C;
+        const float wx = ox ? c.fx : 1.0f - c.fx;
+        const float wy = oy ? c.fy : 1.0f - c.fy;
+        const float wz = oz ? c.fz : 1.0f - c.fz;
+        const T* v = vol + (long long)cell_voxel(c, k, Y, Z) * C;
         float s = 0.0f;
-        for (int c = 0; c < C; ++c) {
-            const float gc = g[c];
-            if (d_vol != nullptr) atomicAdd(d_vol + off + c, gc * w);
-            if (d_coords != nullptr) s += load(vol, off + c) * gc;
-        }
+        for (int ch = 0; ch < C; ++ch) s += to_float(v[ch]) * __ldg(g + ch);
         dx += s * (ox ? 1.0f : -1.0f) * wy * wz;
         dy += s * wx * (oy ? 1.0f : -1.0f) * wz;
         dz += s * wx * wy * (oz ? 1.0f : -1.0f);
     }
-    if (d_coords != nullptr) {
-        d_coords[3 * n] = dx * sx;
-        d_coords[3 * n + 1] = dy * sy;
-        d_coords[3 * n + 2] = dz * sz;
-    }
+    d_coords[3 * n] = dx * sx;
+    d_coords[3 * n + 1] = dy * sy;
+    d_coords[3 * n + 2] = dz * sz;
 }
 
 inline unsigned blocks_for(long long total) {
@@ -726,23 +1016,63 @@ int bilinear_sample_2d_bwd(const float* img, const float* coords,
 
 // K2b.  vol (X, Y, Z, C) f32 or bf16, coords (N, 3) f32, ct (N, C) f32;
 // d_vol (X, Y, Z, C) f32 zero-filled by the caller, or NULL; d_coords
-// (N, 3) f32, or NULL.
+// (N, 3) f32, or NULL.  Extended (the old arguments keep their order):
+// d_vol_out (X, Y, Z, C) bf16, or NULL: receives d_vol's cast; bricks, or
+// NULL: the bricked form's map of ceil(X/8) ceil(Y/8) ceil(Z/8) int32
+// zero-filled by the caller, d_vol then uninitialised (its untouched
+// bricks are never read) and d_vol_out required; counts (2,) uint64 or
+// NULL: adds the (corner, channel) scatters of nonzero cotangents and the
+// global atomics issued.  The volume below 2^31 elements, each side below
+// 2^21 - 1.
 int trilinear_sample_3d_bwd(const void* vol, int is_bf16, const float* coords,
                             const float* ct, float* d_vol, float* d_coords,
                             int X, int Y, int Z, int C, long long N,
-                            int normalized, int align, void* stream) {
-    if (N > 0) {
-        if (is_bf16) {
-            trilinear_bwd_kernel<__nv_bfloat16><<<blocks_for(N), kThreads, 0,
-                                                  (cudaStream_t)stream>>>(
-                (const __nv_bfloat16*)vol, coords, ct, d_vol, d_coords, X, Y,
-                Z, C, N, normalized, align);
-        } else {
-            trilinear_bwd_kernel<float><<<blocks_for(N), kThreads, 0,
-                                          (cudaStream_t)stream>>>(
-                (const float*)vol, coords, ct, d_vol, d_coords, X, Y, Z, C, N,
-                normalized, align);
+                            int normalized, int align, void* stream,
+                            void* d_vol_out, int* bricks, unsigned long long* counts) {
+    constexpr int kSide = (1 << 21) - 1;                // ``cell_key``'s fields
+    if (N < 0 || C <= 0 || X <= 0 || Y <= 0 || Z <= 0 || X >= kSide || Y >= kSide ||
+        Z >= kSide || (long long)X * Y * Z * C >= (long long)INT_MAX ||
+        N > (long long)INT_MAX - kBwdTile ||
+        (bricks != nullptr && (d_vol == nullptr || d_vol_out == nullptr)))
+        return (int)cudaErrorInvalidValue;
+    cudaStream_t s = (cudaStream_t)stream;
+    const int n = (int)N;
+    if (d_vol != nullptr) {
+        if (bricks != nullptr && n > 0) {
+            const int n_bricks = ((X + kBrick - 1) / kBrick) * ((Y + kBrick - 1) / kBrick) *
+                                 ((Z + kBrick - 1) / kBrick);
+            trilinear_bwd_mark_kernel<<<blocks_for(n), kThreads, 0, s>>>(
+                coords, ct, bricks, X, Y, Z, C, n, normalized, align);
+            trilinear_bwd_zero_kernel<<<blocks_for(n_bricks), kThreads, 0, s>>>(
+                bricks, d_vol, X, Y, Z, C, n_bricks);
         }
+        if (n > 0) {
+            // warps for every chunk of every stream (``spread_chunk``)
+            const int chunks = (n + 32 * kBwdRun - 1) / (32 * kBwdRun);
+            const int warps = kSpread * ((chunks + kSpread - 1) / kSpread);
+            const unsigned grid = (unsigned)((warps + kBwdWarps - 1) / kBwdWarps);
+            if (C == 1)
+                trilinear_bwd_scatter_kernel<1><<<grid, kThreads, 0, s>>>(
+                    coords, ct, d_vol, X, Y, Z, C, n, normalized, align, counts);
+            else
+                trilinear_bwd_scatter_kernel<0><<<grid, kThreads, 0, s>>>(
+                    coords, ct, d_vol, X, Y, Z, C, n, normalized, align, counts);
+        }
+        if (d_vol_out != nullptr) {
+            const int fast = C == 1 && Z % kBrick == 0 && aligned(d_vol, 16) &&
+                             aligned(d_vol_out, 16);
+            trilinear_bwd_finish_kernel<<<blocks_for((long long)X * Y * 32), kThreads, 0, s>>>(
+                d_vol, bricks, (__nv_bfloat16*)d_vol_out, X, Y, Z, C, fast);
+        }
+    }
+    if (d_coords != nullptr && n > 0) {
+        if (is_bf16)
+            trilinear_bwd_coords_kernel<__nv_bfloat16><<<blocks_for(n), kThreads, 0, s>>>(
+                (const __nv_bfloat16*)vol, coords, ct, d_coords, X, Y, Z, C, n, normalized,
+                align);
+        else
+            trilinear_bwd_coords_kernel<float><<<blocks_for(n), kThreads, 0, s>>>(
+                (const float*)vol, coords, ct, d_coords, X, Y, Z, C, n, normalized, align);
     }
     return (int)cudaGetLastError();
 }

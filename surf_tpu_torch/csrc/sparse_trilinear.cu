@@ -56,18 +56,43 @@
 // (-fmad=false), so the outputs are equal bit for bit to
 // ``sparse_trilinear_multi_plain``'s and the occupancy exactly equal.
 //
-// K3b sparse_trilinear_multi_bwd (training): the gradient with respect to
-// each stage's storage, given the cotangents of the four outputs.  The
-// JAX package gets it from XLA's autodiff of sparse_trilinear's gathers.
-// Bound: bytes — per point and stage the same 8 table and validity reads,
-// the cotangents read once, 8 x C atomic adds into the (P*8, C) gradient.
-// Design: one thread per point; for each stage the 8 corner rows are
-// resolved as in K3; per corner one coefficient per cotangent (the weight
-// for feats, dw/da for jac, d2w/dadb for hmix, d3w/dxdydz for third) is
-// formed, and their sum over the cotangents of each channel is added to
-// the corner's gradient row with f32 atomicAdd (order changes run to
-// run).  Absent voxels and clamped-away corners get nothing, exactly where
-// the forward read 0.
+// K3b sparse_trilinear_multi_bwd (training and finetune): the gradient
+// with respect to each stage's storage, given the cotangents of the four
+// outputs (any of them absent).  The JAX package gets it from XLA's
+// autodiff of sparse_trilinear's gathers.
+// Bound: bytes — per point and stage the same 8 table and validity reads
+// as K3, the cotangents read once, and the (P*8, C) gradients, which the
+// wrapper zero-fills (capacity-sized: most of the bound) before the
+// kernel adds into them.
+// Design.  A thread a point reading the cotangents at n * ctot + oc for
+// each of 4 stages x 8 corners x 7 channels puts lanes 112 B apart (every
+// warp load touches 32 sectors) and issues one scalar atomic a (point,
+// corner, channel): 15.6 M at the training step's 69,632 points.  Here a
+// block takes kPoints points in K3's two phases:
+//   1. geometry: a thread a (point, stage) resolves the 8 corners' storage
+//      offsets and the 3 cell fractions into shared memory, with K3's own
+//      ``resolve_cell``;
+//   2. sums: thread t keeps channel oc = t % ctot (its stage and storage
+//      column fixed) and walks a run of consecutive points of the block,
+//      so a warp's lanes read neighbouring channels of a point: each
+//      cotangent span is read as contiguous runs.  For each (point,
+//      channel) the 8 corners' coefficients x cotangents are contracted
+//      axis by axis (the 8 cotangent terms w, dw/da, d2w/dadb, d3w/dxdydz
+//      are the products of one factor per axis: the weight or the
+//      derivative scale), 72 operations instead of about 180;
+//   3. merging: the render's points are (rays, samples), so consecutive
+//      points often share a stage's corner rows; a thread sums a corner's
+//      contributions in registers while its row stays the same from one
+//      point to the next and issues one fire-and-forget atomic
+//      (``red.global.add.f32``) a run.
+// A thread issues the next point's cotangent loads before the current
+// point's sums.  The cotangents are read through their strides: the
+// training graph hands the Jacobian's over with its last two axes
+// transposed, and a copy to the contiguous layout cost about as much as
+// the kernel's own reads.  Absent voxels and clamped-away corners get
+// nothing, exactly where the forward read 0; a (point, channel) whose
+// cotangents are all zero adds nothing.  The sums run in an order that
+// changes from run to run.
 
 #include <climits>
 #include <cstdint>
@@ -92,21 +117,6 @@ struct Stages {
     int n;
     int ctot;
 };
-
-__device__ __forceinline__ long long lookup_row(const Stage& st, long long cx,
-                                                long long cy, long long cz) {
-    const long long half = st.res / 2;
-    const int slot = (int)(((cx & 1) << 2) | ((cy & 1) << 1) | (cz & 1));
-    const long long pidx = ((cx >> 1) * half + (cy >> 1)) * half + (cz >> 1);
-    const int prow = st.table[pidx];
-    if (prow < 0) return -1;
-    const long long row = (long long)prow * 8 + slot;
-    return st.cvalid[row] ? row : -1;
-}
-
-__device__ __forceinline__ long long clampll(long long v, long long lo, long long hi) {
-    return v < lo ? lo : (v > hi ? hi : v);
-}
 
 // ---------------------------------------------------------------------------
 // K3: phase 1 (geometry a (point, stage)), phase 2 (sums a (point, channel))
@@ -143,6 +153,63 @@ __device__ __forceinline__ int nearest_axis(float p, int res, bool& inside) {
     return (int)fminf(fmaxf(n, 0.0f), (float)(res - 1));
 }
 
+// An f32 add to global memory that returns nothing.  (The gradient's
+// pointer reaches K3b through shared memory, so a plain atomicAdd would
+// be a generic one, with a branch to a shared-memory spin loop.)
+__device__ __forceinline__ void red_add(float* p, float v) {
+    asm volatile("red.global.add.f32 [%0], %1;" ::"l"(__cvta_generic_to_global(p)), "f"(v)
+                 : "memory");
+}
+
+// Phase 1 of K3 and K3b: a point's cell at one stage.  The 8 corners
+// clamped to the border BEFORE the lookup (as the reference does), their
+// 8 parent-table reads issued together, then the 8 validity reads (with
+// NEAREST a 9th of each, the nearest voxel's), all in 32-bit index
+// arithmetic; ``off`` receives each present corner's storage offset (row
+// * C), -1 where absent, ``ax`` the three axes (their fractions ``f``), and
+// with NEAREST ``occ`` the nearest voxel's occupancy.
+template <bool NEAREST>
+__device__ __forceinline__ void resolve_cell(const Stage& S, const float* p,
+                                             CellAxis (&ax)[3], int (&off)[8], bool& occ) {
+    constexpr int NL = NEAREST ? 9 : 8;
+    const int res = S.res, half = res >> 1, hh = half * half;
+    const float px = p[0], py = p[1], pz = p[2];
+    ax[0] = cell_axis(px, res);
+    ax[1] = cell_axis(py, res);
+    ax[2] = cell_axis(pz, res);
+    bool inside = true;
+    int nx = 0, ny = 0, nz = 0;
+    if constexpr (NEAREST) {
+        nx = nearest_axis(px, res, inside);
+        ny = nearest_axis(py, res, inside);
+        nz = nearest_axis(pz, res, inside);
+    }
+    // lookup k: corner k = 4 ox + 2 oy + oz, then (k = 8) the nearest
+    // voxel; parent index (px * half + py) * half + pz and slot, by axis
+    const int vx[3] = {ax[0].v0, ax[0].v1, nx}, vy[3] = {ax[1].v0, ax[1].v1, ny},
+              vz[3] = {ax[2].v0, ax[2].v1, nz};
+    int pidx[NL], slot[NL];
+#pragma unroll
+    for (int k = 0; k < NL; ++k) {
+        const int a = k == 8 ? 2 : (k >> 2) & 1, b = k == 8 ? 2 : (k >> 1) & 1,
+                  c = k == 8 ? 2 : k & 1;
+        pidx[k] = (vx[a] >> 1) * hh + (vy[b] >> 1) * half + (vz[c] >> 1);
+        slot[k] = ((vx[a] & 1) << 2) | ((vy[b] & 1) << 1) | (vz[c] & 1);
+    }
+    int row[NL];
+#pragma unroll
+    for (int k = 0; k < NL; ++k) row[k] = __ldg(S.table + pidx[k]);
+    unsigned char cv[NL];
+#pragma unroll
+    for (int k = 0; k < NL; ++k) {
+        row[k] = row[k] * 8 + slot[k];
+        cv[k] = row[k] >= 0 ? __ldg(S.cvalid + row[k]) : 0;
+    }
+#pragma unroll
+    for (int k = 0; k < 8; ++k) off[k] = cv[k] ? row[k] * S.C : -1;
+    if constexpr (NEAREST) occ = inside && cv[8];
+}
+
 template <int MODE>
 __global__ void __launch_bounds__(kK3Threads)
 sparse_trilinear_multi_kernel(const float* __restrict__ pts, int N, Stages st,
@@ -171,43 +238,14 @@ sparse_trilinear_multi_kernel(const float* __restrict__ pts, int N, Stages st,
     for (int i = threadIdx.x; i < ns * kPoints; i += kK3Threads) {
         const int si = i / kPoints, j = i % kPoints;
         if (j >= np) continue;
-        const Stage& S = s_st[si];
-        const int res = S.res, half = res >> 1, hh = half * half;
-        const float* p = pts + 3 * (long long)(n0 + j);
-        const float px = p[0], py = p[1], pz = p[2];
-        const CellAxis ax = cell_axis(px, res), ay = cell_axis(py, res),
-                       az = cell_axis(pz, res);
-        bool inside = true;
-        const int nx = nearest_axis(px, res, inside), ny = nearest_axis(py, res, inside),
-                  nz = nearest_axis(pz, res, inside);
-        // lookup k: corner k = 4 ox + 2 oy + oz, then (k = 8) the nearest
-        // voxel; parent index (px * half + py) * half + pz and slot, by axis
-        const int vx[3] = {ax.v0, ax.v1, nx}, vy[3] = {ay.v0, ay.v1, ny},
-                  vz[3] = {az.v0, az.v1, nz};
-        int pidx[9], slot[9];
-#pragma unroll
-        for (int k = 0; k < 9; ++k) {
-            const int a = k == 8 ? 2 : (k >> 2) & 1, b = k == 8 ? 2 : (k >> 1) & 1,
-                      c = k == 8 ? 2 : k & 1;
-            pidx[k] = (vx[a] >> 1) * hh + (vy[b] >> 1) * half + (vz[c] >> 1);
-            slot[k] = ((vx[a] & 1) << 2) | ((vy[b] & 1) << 1) | (vz[c] & 1);
-        }
-        int row[9];
-#pragma unroll
-        for (int k = 0; k < 9; ++k) row[k] = __ldg(S.table + pidx[k]);
-        unsigned char cv[9];
-#pragma unroll
-        for (int k = 0; k < 9; ++k) {
-            row[k] = row[k] * 8 + slot[k];
-            cv[k] = row[k] >= 0 ? __ldg(S.cvalid + row[k]) : 0;
-        }
-        // storage offset of each present corner, -1 where absent
+        CellAxis a[3];
         int off[8];
-#pragma unroll
-        for (int k = 0; k < 8; ++k) off[k] = cv[k] ? row[k] * S.C : -1;
+        bool occ_near;
+        resolve_cell<true>(s_st[si], pts + 3 * (long long)(n0 + j), a, off, occ_near);
+        const CellAxis &ax = a[0], &ay = a[1], &az = a[2];
         s_off[si][0][j] = make_int4(off[0], off[1], off[2], off[3]);
         s_off[si][1][j] = make_int4(off[4], off[5], off[6], off[7]);
-        s_occ[si][j] = inside && cv[8];
+        s_occ[si][j] = occ_near;
         if constexpr (MODE == kValue) {
             // the weights as the plain version forms them: (wx * wy) * wz
             const float g[3] = {1.0f - ax.f, 1.0f - ay.f, 1.0f - az.f};
@@ -292,61 +330,157 @@ sparse_trilinear_multi_kernel(const float* __restrict__ pts, int N, Stages st,
     }
 }
 
-__global__ void sparse_trilinear_multi_bwd_kernel(
-        const float* __restrict__ pts, long long N, Stages st,
-        const float* __restrict__ ct_feats, const float* __restrict__ ct_jac,
-        const float* __restrict__ ct_hmix, const float* __restrict__ ct_third) {
-    const long long n = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-    if (n >= N) return;
-    const float p[3] = {pts[3 * n], pts[3 * n + 1], pts[3 * n + 2]};
-    const int ctot = st.ctot;
-    for (int si = 0; si < st.n; ++si) {
-        const Stage& S = st.s[si];
-        const long long res = S.res;
-        const float scale = 0.5f * (float)(res - 1);
-        float f[3];
-        long long c0[3];
-        for (int a = 0; a < 3; ++a) {
-            const float c = (p[a] + 1.0f) * 0.5f * (float)(res - 1);
-            const float fl = floorf(c);
-            f[a] = c - fl;
-            c0[a] = (long long)fl;
-        }
-        const int C = S.C;
-        for (int k = 0; k < 8; ++k) {
-            const int ox = (k >> 2) & 1, oy = (k >> 1) & 1, oz = k & 1;
-            const long long row = lookup_row(S, clampll(c0[0] + ox, 0, res - 1),
-                                             clampll(c0[1] + oy, 0, res - 1),
-                                             clampll(c0[2] + oz, 0, res - 1));
-            if (row < 0) continue;
-            const float wx = ox ? f[0] : 1.0f - f[0];
-            const float wy = oy ? f[1] : 1.0f - f[1];
-            const float wz = oz ? f[2] : 1.0f - f[2];
-            const float sx = ox ? scale : -scale;
-            const float sy = oy ? scale : -scale;
-            const float sz = oz ? scale : -scale;
-            const float w = wx * wy * wz;
-            const float jx = sx * wy * wz, jy = wx * sy * wz, jz = wx * wy * sz;
-            const float hxy = sx * sy * wz, hxz = sx * wy * sz, hyz = wx * sy * sz;
-            const float t3 = sx * sy * sz;
-            float* g = S.grad + row * C;
-            for (int c = 0; c < C; ++c) {
-                const long long oc = S.coff + c;
-                float v = 0.0f;
-                if (ct_feats != nullptr) v += w * ct_feats[n * ctot + oc];
-                if (ct_jac != nullptr) {
-                    v += jx * ct_jac[(n * 3 + 0) * ctot + oc];
-                    v += jy * ct_jac[(n * 3 + 1) * ctot + oc];
-                    v += jz * ct_jac[(n * 3 + 2) * ctot + oc];
-                }
-                if (ct_hmix != nullptr) {
-                    v += hxy * ct_hmix[(n * 3 + 0) * ctot + oc];
-                    v += hxz * ct_hmix[(n * 3 + 1) * ctot + oc];
-                    v += hyz * ct_hmix[(n * 3 + 2) * ctot + oc];
-                }
-                if (ct_third != nullptr) v += t3 * ct_third[n * ctot + oc];
-                atomicAdd(g + c, v);
+// The strides, in elements, of K3b's four cotangents (feats, jac, hmix,
+// third): point n, derivative a (jac, hmix) and channel c at n * sn + a *
+// sa + c * sc.  The training graph hands the Jacobian's cotangent over
+// with its (a, c) axes transposed; reading it in place saves a copy.
+struct CtLayout {
+    long long sn[4];
+    int sa[4], sc[4];
+};
+
+// K3b: phase 1 as K3's (resolve_cell, no nearest voxel), phase 2 a
+// thread a channel over a run of consecutive points.  ``counts`` (or
+// null) receives the (point, corner, channel) scatters of nonzero
+// cotangents and the atomics issued.
+__global__ void __launch_bounds__(kK3Threads)
+sparse_trilinear_multi_bwd_kernel(const float* __restrict__ pts, int N, Stages st,
+                                  const float* __restrict__ ct_feats,
+                                  const float* __restrict__ ct_jac,
+                                  const float* __restrict__ ct_hmix,
+                                  const float* __restrict__ ct_third, CtLayout lay,
+                                  unsigned long long* __restrict__ counts) {
+    __shared__ int4 s_off[kMaxStages][2][kPoints + 1];
+    __shared__ float4 s_f[kMaxStages][kPoints + 1];
+    __shared__ Stage s_st[kMaxStages];
+    __shared__ unsigned s_counts[2];
+    if (threadIdx.x == 0) {
+#pragma unroll
+        for (int i = 0; i < kMaxStages; ++i) s_st[i] = st.s[i];
+        s_counts[0] = s_counts[1] = 0u;
+    }
+    __syncthreads();
+    const int ns = st.n, ctot = st.ctot;
+    const int n0 = blockIdx.x * kPoints;
+    const int np = min(kPoints, N - n0);
+
+    for (int i = threadIdx.x; i < ns * kPoints; i += kK3Threads) {
+        const int si = i / kPoints, j = i % kPoints;
+        if (j >= np) continue;
+        CellAxis a[3];
+        int off[8];
+        bool unused;
+        resolve_cell<false>(s_st[si], pts + 3 * (long long)(n0 + j), a, off, unused);
+        s_off[si][0][j] = make_int4(off[0], off[1], off[2], off[3]);
+        s_off[si][1][j] = make_int4(off[4], off[5], off[6], off[7]);
+        s_f[si][j] = make_float4(a[0].f, a[1].f, a[2].f, 0.0f);
+    }
+    __syncthreads();
+
+    // phase 2: ``groups`` runs of consecutive points, ctot channels each
+    const int groups = kK3Threads / ctot;
+    unsigned scatters = 0, atomics = 0;
+    if ((int)threadIdx.x < groups * ctot) {
+        const int oc = threadIdx.x % ctot, grp = threadIdx.x / ctot;
+        const int per = (np + groups - 1) / groups;
+        const int j0 = grp * per, j1 = min(np, j0 + per);
+        const int si = (ns > 1 && oc >= s_st[1].coff) + (ns > 2 && oc >= s_st[2].coff) +
+                       (ns > 3 && oc >= s_st[3].coff);
+        const Stage& S = s_st[si];
+        float* grad = S.grad + (oc - S.coff);
+        const float scale = 0.5f * (float)(S.res - 1);
+        int cur[8];
+        float acc[8];
+#pragma unroll
+        for (int k = 0; k < 8; ++k) cur[k] = -1;
+        // the cotangent tensor T[a][b][c] of point j, one factor an axis: 0
+        // the weight, 1 the derivative scale (T000 feats, T100 dx, T010 dy,
+        // T001 dz, T110 dxy, T101 dxz, T011 dyz, T111 dxdydz), index q =
+        // 4 a + 2 b + c; the next point's loads are issued before this
+        // point's sums
+        auto load_t = [&](int j, float (&t)[8]) {
+            const long long n = n0 + j;
+#pragma unroll
+            for (int q = 0; q < 8; ++q) t[q] = 0.0f;
+            if (j >= j1) return;
+            if (ct_feats != nullptr) t[0] = __ldg(ct_feats + n * lay.sn[0] + oc * lay.sc[0]);
+            if (ct_jac != nullptr) {
+                const float* q = ct_jac + n * lay.sn[1] + oc * lay.sc[1];
+                t[4] = __ldg(q);
+                t[2] = __ldg(q + lay.sa[1]);
+                t[1] = __ldg(q + 2 * lay.sa[1]);
             }
+            if (ct_hmix != nullptr) {
+                const float* q = ct_hmix + n * lay.sn[2] + oc * lay.sc[2];
+                t[6] = __ldg(q);
+                t[5] = __ldg(q + lay.sa[2]);
+                t[3] = __ldg(q + 2 * lay.sa[2]);
+            }
+            if (ct_third != nullptr) t[7] = __ldg(ct_third + n * lay.sn[3] + oc * lay.sc[3]);
+        };
+        float tn[8];
+        load_t(j0, tn);
+        for (int j = j0; j < j1; ++j) {
+            float t[8];
+#pragma unroll
+            for (int q = 0; q < 8; ++q) t[q] = tn[q];
+            load_t(j + 1, tn);
+            bool nz = false;
+#pragma unroll
+            for (int q = 0; q < 8; ++q) nz |= t[q] != 0.0f;
+            if (!nz) continue;
+            // index q = 4 a + 2 b + c of T; contract x, then y, then z
+            const float4 f = s_f[si][j];
+            const float A[2][2] = {{1.0f - f.x, -scale}, {f.x, scale}};   // [ox][a]
+            const float B[2][2] = {{1.0f - f.y, -scale}, {f.y, scale}};
+            const float Cz[2][2] = {{1.0f - f.z, -scale}, {f.z, scale}};
+            float u[2][4];                                // [ox][2 b + c]
+#pragma unroll
+            for (int ox = 0; ox < 2; ++ox)
+#pragma unroll
+                for (int bc = 0; bc < 4; ++bc)
+                    u[ox][bc] = t[bc] * A[ox][0] + t[4 + bc] * A[ox][1];
+            float v[8];
+#pragma unroll
+            for (int k = 0; k < 8; ++k) {
+                const int ox = (k >> 2) & 1, oy = (k >> 1) & 1, oz = k & 1;
+                const float w0 = u[ox][0] * B[oy][0] + u[ox][2] * B[oy][1];   // c = 0
+                const float w1 = u[ox][1] * B[oy][0] + u[ox][3] * B[oy][1];   // c = 1
+                v[k] = w0 * Cz[oz][0] + w1 * Cz[oz][1];
+            }
+            const int4 lo = s_off[si][0][j], hi = s_off[si][1][j];
+            const int off[8] = {lo.x, lo.y, lo.z, lo.w, hi.x, hi.y, hi.z, hi.w};
+#pragma unroll
+            for (int k = 0; k < 8; ++k) {
+                if (off[k] < 0) continue;
+                ++scatters;
+                if (off[k] == cur[k]) {
+                    acc[k] += v[k];
+                    continue;
+                }
+                if (cur[k] >= 0) {
+                    red_add(grad + cur[k], acc[k]);
+                    ++atomics;
+                }
+                cur[k] = off[k];
+                acc[k] = v[k];
+            }
+        }
+#pragma unroll
+        for (int k = 0; k < 8; ++k) {
+            if (cur[k] >= 0) {
+                red_add(grad + cur[k], acc[k]);
+                ++atomics;
+            }
+        }
+    }
+    if (counts != nullptr) {
+        atomicAdd(s_counts, scatters);
+        atomicAdd(s_counts + 1, atomics);
+        __syncthreads();
+        if (threadIdx.x == 0) {
+            atomicAdd(counts, (unsigned long long)s_counts[0]);
+            atomicAdd(counts + 1, (unsigned long long)s_counts[1]);
         }
     }
 }
@@ -370,20 +504,10 @@ Stages make_stages(int nstages, const long long* tables, const long long* cvalid
     st.ctot = coff;
     return st;
 }
-
-constexpr int kThreads = 128;
-
-inline unsigned blocks_for(long long n) {
-    return (unsigned)((n + kThreads - 1) / kThreads);
-}
-
-// K3's launch over ``st``: mode MODE, 32-bit index rule (N below 2^31, each
-// table below 2^31 entries; the wrapper also keeps each storage and
-// validity array below 2^31), 1 to kK3Threads channels in all.
-template <int MODE>
-int launch_k3(const float* pts, long long N, const Stages& st, float* feats,
-              unsigned char* occ, float* jac, float* hmix, float* third, void* stream) {
-    if (N <= 0) return 0;
+// K3's and K3b's index rule over ``st``: 32-bit index arithmetic (N below
+// 2^31, each table below 2^31 entries; the wrappers also keep each storage
+// and validity array below 2^31), 1 to kK3Threads channels in all.
+inline int k3_args_bad(long long N, const Stages& st) {
     if (N > (long long)INT_MAX - kPoints || st.ctot <= 0 || st.ctot > kK3Threads)
         return (int)cudaErrorInvalidValue;
     for (int i = 0; i < st.n; ++i) {
@@ -391,6 +515,16 @@ int launch_k3(const float* pts, long long N, const Stages& st, float* feats,
         if (st.s[i].res < 2 || half * half * half >= (long long)INT_MAX)
             return (int)cudaErrorInvalidValue;
     }
+    return 0;
+}
+
+// K3's launch over ``st`` in mode MODE.
+template <int MODE>
+int launch_k3(const float* pts, long long N, const Stages& st, float* feats,
+              unsigned char* occ, float* jac, float* hmix, float* third, void* stream) {
+    if (N <= 0) return 0;
+    const int bad = k3_args_bad(N, st);
+    if (bad) return bad;
     const unsigned blocks = (unsigned)((N + kPoints - 1) / kPoints);
     sparse_trilinear_multi_kernel<MODE><<<blocks, kK3Threads, 0, (cudaStream_t)stream>>>(
         pts, (int)N, st, feats, occ, jac, hmix, third);
@@ -433,19 +567,33 @@ int sparse_trilinear_multi_third(const float* pts, long long N, int nstages,
 
 // K3b.  grads[i] f32 (P*8, C_i), zero-filled by the caller, receive the
 // storage gradients.  Cotangents: ct_feats (N, sum C), ct_jac and ct_hmix
-// (N, 3, sum C), ct_third (N, sum C), each f32 or NULL (zero).
+// (N, 3, sum C), ct_third (N, sum C), each f32 or NULL (zero).  Extended:
+// counts (2,) uint64 or NULL (see the kernel); ct_strides, 12 int64 or
+// NULL (contiguous): (point, derivative, channel) strides of each
+// cotangent in that order (the derivative's ignored for feats and third).
+// K3's index rule.
 int sparse_trilinear_multi_bwd(const float* pts, long long N, int nstages,
                                const long long* tables, const long long* cvalids,
                                const long long* grads, const int* res,
                                const int* C, const float* ct_feats,
                                const float* ct_jac, const float* ct_hmix,
-                               const float* ct_third, void* stream) {
+                               const float* ct_third, void* stream,
+                               unsigned long long* counts, const long long* ct_strides) {
     if (nstages < 1 || nstages > kMaxStages) return (int)cudaErrorInvalidValue;
     const Stages st = make_stages(nstages, tables, cvalids, nullptr, grads, res, C);
+    const int bad = k3_args_bad(N, st);
+    if (bad) return bad;
+    CtLayout lay;
+    for (int i = 0; i < 4; ++i) {
+        const bool d = i == 1 || i == 2;              // (N, 3, sum C) or (N, sum C)
+        lay.sn[i] = ct_strides ? ct_strides[3 * i] : (d ? 3 : 1) * (long long)st.ctot;
+        lay.sa[i] = ct_strides ? (int)ct_strides[3 * i + 1] : (d ? st.ctot : 0);
+        lay.sc[i] = ct_strides ? (int)ct_strides[3 * i + 2] : 1;
+    }
     if (N > 0) {
-        sparse_trilinear_multi_bwd_kernel<<<blocks_for(N), kThreads, 0,
-                                            (cudaStream_t)stream>>>(
-            pts, N, st, ct_feats, ct_jac, ct_hmix, ct_third);
+        const unsigned blocks = (unsigned)((N + kPoints - 1) / kPoints);
+        sparse_trilinear_multi_bwd_kernel<<<blocks, kK3Threads, 0, (cudaStream_t)stream>>>(
+            pts, (int)N, st, ct_feats, ct_jac, ct_hmix, ct_third, lay, counts);
     }
     return (int)cudaGetLastError();
 }

@@ -369,10 +369,38 @@ def trilinear_sample_bwd_plain(volume, coords, ct, *, normalized=True,
     return d_vol, d_coords
 
 
+BRICK = 8          # K2b's bricks: 8^3 voxels
+
+
+def k2b_bricks(shape):
+    """The shape (ceil(X/8), ceil(Y/8), ceil(Z/8)) of K2b's brick map for
+    a volume of ``shape`` (X, Y, Z, ...)."""
+    return tuple(-(-int(n) // BRICK) for n in shape[:3])
+
+
+def k2b_bricked(volume, n):
+    """K2b's form for a volume and n samples.  The single pass zero-fills
+    the full f32 gradient and casts it: 8 bytes a volume element besides
+    the bf16 output.  The bricked form first re-reads the coordinates and
+    the cotangent (16 bytes a sample) to mark the 8^3 bricks that the
+    samples touch, and zeroes and casts only those.  A bf16 volume takes
+    the bricked form where the full buffer's 8 bytes an element outweigh
+    the 16 a sample (on the training step's four calls: bricked at 352^3
+    and 704^3, where it measured faster, and not at 88^3 and 176^3, where
+    it measured slower); an f32 volume's gradient is the f32 buffer
+    itself, which the single pass fills."""
+    return volume.dtype == torch.bfloat16 and volume.numel() * 8 > n * 16
+
+
 def trilinear_sample_bwd(volume, coords, ct, *, normalized=True,
-                         align_corners=True, need_volume=True, need_coords=True):
+                         align_corners=True, need_volume=True, need_coords=True,
+                         bricked=None, counts=None):
     """K2b wrapper.  Same contract as ``trilinear_sample_bwd_plain``; an
-    f32 or bf16 volume (X, Y, Z, C), f32 coords (N, 3) and ct (N, C)."""
+    f32 or bf16 volume (X, Y, Z, C), f32 coords (N, 3) and ct (N, C).
+    ``bricked`` (None: ``k2b_bricked``'s rule) picks the form of a bf16
+    volume's gradient; ``counts``, a zeroed (2,) int64 CUDA tensor, receives
+    the (corner, channel) scatters of nonzero cotangents and the global
+    atomics the kernel issued (the rest were merged before an atomic)."""
     if volume.device.type == "cpu" and coords.device.type == "cpu":
         return trilinear_sample_bwd_plain(
             volume, coords, ct, normalized=normalized, align_corners=align_corners,
@@ -385,21 +413,38 @@ def trilinear_sample_bwd(volume, coords, ct, *, normalized=True,
             or tuple(coords.shape) != (N, 3) or tuple(ct.shape) != (N, C):
         raise ValueError("trilinear_sample_bwd: needs an f32/bf16 volume "
                          "(X,Y,Z,C), f32 coords (N,3) and ct (N,C)")
-    d_vol = torch.zeros(volume.shape, dtype=torch.float32,
-                        device=volume.device) if need_volume else None
+    _k2_size_rule(volume, coords)
+    bf16 = volume.dtype == torch.bfloat16
+    if bricked is None:
+        bricked = k2b_bricked(volume, N)
+    if bricked and not bf16:
+        raise ValueError("trilinear_sample_bwd: the bricked form is for a bf16 volume")
+    d_vol = d_out = bricks = None
+    if need_volume:
+        # the f32 sum: uninitialised in the bricked form (the kernel zeroes
+        # the bricks it touches and reads no other)
+        alloc = torch.empty if bricked else torch.zeros
+        d_vol = alloc(volume.shape, dtype=torch.float32, device=volume.device)
+        if bf16:
+            d_out = torch.empty_like(volume)
+        if bricked:
+            bricks = torch.zeros(k2b_bricks(volume.shape), dtype=torch.int32,
+                                 device=volume.device)
     d_co = torch.empty_like(coords) if need_coords else None
     fn = _build.kernel_fn("grid_sample", "trilinear_sample_3d_bwd",
-                          [_P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _L, _I, _I, _P])
-    _build.check(fn(volume.data_ptr(), int(volume.dtype == torch.bfloat16),
-                    coords.data_ptr(), ct.data_ptr(),
+                          [_P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _L, _I, _I, _P,
+                           _P, _P, _P])
+    _build.check(fn(volume.data_ptr(), int(bf16), coords.data_ptr(), ct.data_ptr(),
                     d_vol.data_ptr() if need_volume else None,
                     d_co.data_ptr() if need_coords else None,
                     X, Y, Z, C, N, int(normalized), int(align_corners),
-                    _build.stream_of(volume)), "trilinear_sample_3d_bwd")
+                    _build.stream_of(volume),
+                    d_out.data_ptr() if d_out is not None else None,
+                    bricks.data_ptr() if bricks is not None else None,
+                    counts.data_ptr() if counts is not None else None),
+                 "trilinear_sample_3d_bwd")
     _build.launches["trilinear_sample_3d_bwd"] += 1
-    if need_volume:
-        d_vol = d_vol.to(volume.dtype)
-    return d_vol, d_co
+    return (d_out if bf16 else d_vol) if need_volume else None, d_co
 
 
 class _TrilinearSample(torch.autograd.Function):

@@ -309,34 +309,57 @@ def sparse_trilinear_multi_bwd_plain(stages, pts, ct_feats=None, ct_jac=None,
 
 
 def sparse_trilinear_multi_bwd(stages, pts, ct_feats=None, ct_jac=None,
-                               ct_hmix=None, ct_third=None):
+                               ct_hmix=None, ct_third=None, counts=None):
     """K3b wrapper: one launch over up to 4 stages.  Same contract as
-    ``sparse_trilinear_multi_bwd_plain``."""
+    ``sparse_trilinear_multi_bwd_plain``.  ``counts``, a zeroed (2,) int64
+    CUDA tensor, receives the (point, corner, channel) scatters of nonzero
+    cotangents and the atomics the kernel issued (the rest were merged in
+    registers)."""
     pts = pts.detach()
     if pts.device.type == "cpu":
         return sparse_trilinear_multi_bwd_plain(stages, pts, ct_feats, ct_jac,
                                                 ct_hmix, ct_third)
-    pts = pts.float().contiguous()
-    cts = [None if c is None else c.detach().float().contiguous()
-           for c in (ct_feats, ct_jac, ct_hmix, ct_third)]
-    tables, cvalids, res, cs = _stage_args(stages, "sparse_trilinear_multi_bwd",
-                                           check_storage=False)
-    _build.require_cuda("sparse_trilinear_multi_bwd", pts,
-                        *[t for g, _ in stages for t in (g.parent_table, g.cvalid)],
-                        *[c for c in cts if c is not None])
-    n = pts.shape[0]
+    # autograd needs dense gradients: zero-filled at capacity, then added to
     grads = [torch.zeros((s.shape[0], s.shape[-1]), dtype=torch.float32,
                          device=pts.device) for _, s in stages]
+    k3b_launch(stages, pts, (ct_feats, ct_jac, ct_hmix, ct_third), grads, counts)
+    return grads
+
+
+def k3b_launch(stages, pts, cts, grads, counts=None):
+    """K3b's kernel alone: adds the storage gradients of the cotangents
+    ``cts`` (feats, jac, hmix, third; any None) into ``grads`` [(P*8, C)
+    f32 per stage]."""
+    pts = pts.detach().float().contiguous()
+    # the kernel reads each cotangent through its strides (the Jacobian's
+    # comes with its last two axes transposed): no copy
+    cts = [None if c is None else c.detach().float() for c in cts]
+    tables, cvalids, res, cs = _stage_args(stages, "sparse_trilinear_multi_bwd",
+                                           check_storage=False)
+    _k3_size_rule(stages, pts.shape[0])
+    _build.require_cuda("sparse_trilinear_multi_bwd", pts, *grads,
+                        *[t for g, _ in stages for t in (g.parent_table, g.cvalid)])
+    strides = []
+    for c, deriv in zip(cts, (False, True, True, False)):
+        if c is None:
+            strides += [0, 0, 0]
+            continue
+        if c.device != pts.device:
+            raise ValueError("sparse_trilinear_multi_bwd: a cotangent on another device")
+        strides += list(c.stride()) if deriv else [c.stride(0), 0, c.stride(1)]
+    strides = (ctypes.c_longlong * 12)(*strides)
     gptr = (ctypes.c_longlong * len(stages))(*[g.data_ptr() for g in grads])
     fn = _build.kernel_fn("sparse_trilinear", "sparse_trilinear_multi_bwd",
-                          [_P, _L, _I] + [_P] * 10)
-    _build.check(fn(pts.data_ptr(), n, len(stages), ctypes.addressof(tables),
+                          [_P, _L, _I] + [_P] * 12)
+    _build.check(fn(pts.data_ptr(), pts.shape[0], len(stages), ctypes.addressof(tables),
                     ctypes.addressof(cvalids), ctypes.addressof(gptr),
                     ctypes.addressof(res), ctypes.addressof(cs),
                     *[None if c is None else c.data_ptr() for c in cts],
-                    _build.stream_of(pts)), "sparse_trilinear_multi_bwd")
+                    _build.stream_of(pts),
+                    counts.data_ptr() if counts is not None else None,
+                    ctypes.addressof(strides)),
+                 "sparse_trilinear_multi_bwd")
     _build.launches["sparse_trilinear_multi_bwd"] += 1
-    return grads
 
 
 class _StorageGrad(torch.autograd.Function):

@@ -5,6 +5,11 @@ they run on the card's machine: ``python -m pytest tests/test_torch_cuda.py
 
 * K1b, K2b, K3b and K4w against their plain versions on odd shapes with
   points outside the image / volume / grid;
+* K2b at C = 1, 3, 5 in f32 and bf16, both forms of a bf16 volume's
+  gradient, with and without d_coords, on a band of samples in a few
+  bricks, a whole-volume scatter, a one-voxel pile-up and all-zero
+  cotangents; K3b for every subset of its cotangents at 1-4 stages, with
+  absent rows, clamped corners and ragged N;
 * K1 and K1b against their plain versions at every channel count their
   kernels specialise and two they do not, one and five views, one point
   and a count that is no multiple of the block, normalized and pixel
@@ -251,6 +256,64 @@ def test_k2_matches_plain_bit_for_bit(C, dtype):
     assert _build.launches["trilinear_sample_3d"] == n_calls
 
 
+def _k2b_cases(g):
+    """(name, coords, cotangent mask) of K2b calls on a volume of
+    ``shape``: a band of ray-ordered samples in a few bricks, samples
+    spread over the whole volume and past its faces, a pile-up of every
+    sample in one voxel's cell, and the band again with an all-zero
+    cotangent; N no multiple of the block."""
+    t = torch.linspace(0.0, 1.0, 48)
+    o = torch.rand(23, 1, 3, generator=g) * 0.3 - 0.8
+    band = (o + t[None, :, None] * torch.tensor([0.15, 0.05, 0.3])).reshape(-1, 3)
+    spread = torch.rand(3001, 3, generator=g) * 2.4 - 1.2
+    pile = torch.tensor([0.11, -0.23, 0.37]) + torch.rand(777, 3, generator=g) * 1e-3
+    return [("band", band, 1.0), ("whole volume", spread, 1.0), ("pile-up", pile, 1.0),
+            ("zero cotangent", band, 0.0)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("C", [1, 3, 5])
+def test_k2b_forms_match_plain(C, dtype):
+    """K2b against its plain version on the card (atomics: rtol 1e-5, atol
+    1e-5 times max(1, the largest entry); one bf16 step for a bf16
+    volume's gradient, summed in f32 and rounded once), both forms of a
+    bf16 volume's gradient (single pass and bricked), with and without
+    d_coords, on ``_k2b_cases``; one volume whose sides are multiples of 8
+    and one whose are not; rows of the cotangent zero one in five."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    from surf_tpu_torch import _build
+    dt = getattr(torch, dtype)
+    g = torch.Generator().manual_seed(60 + C)
+    dev = torch.device("cuda")
+    _build.reset_launches()
+    n_calls = 0
+    forms = (False, True) if dt == torch.bfloat16 else (False,)
+    for shape in ((16, 24, 32), (13, 9, 11)):
+        vol = torch.randn(*shape, C, generator=g).to(dev, dt)
+        for what, co, on in _k2b_cases(g):
+            co = co.to(dev)
+            ct = torch.randn(co.shape[0], C, generator=g) * on
+            ct[::5] = 0.0
+            ct = ct.to(dev)
+            for need in ((True, False), (True, True), (False, True)):
+                kw = dict(align_corners=False, need_volume=need[0], need_coords=need[1])
+                ref = tgs.trilinear_sample_bwd_plain(vol, co, ct, **kw)
+                for bricked in forms:
+                    got = tgs.trilinear_sample_bwd(vol, co, ct, bricked=bricked, **kw)
+                    n_calls += 1
+                    for a, b, want in zip(got, ref, need):
+                        assert (a is None) == (not want), (what, need)
+                        if want:
+                            assert a.dtype == b.dtype
+                            rtol = 2.0 ** -7 if b.dtype == torch.bfloat16 else RTOL
+                            _close(a.float().cpu().numpy(), b.float().cpu().numpy(),
+                                   rtol=rtol)
+    torch.cuda.synchronize()
+    assert _build.launches["trilinear_sample_3d_bwd"] == n_calls
+
+
 K3_SPECS = {"4 stages C=7": ((32, 0.3, 7), (16, 0.5, 7), (8, 0.7, 7), (4, 0.9, 7)),
             "C=1,5,8": ((16, 0.4, 1), (8, 0.6, 5), (4, 1.0, 8)),
             "one stage C=8": ((8, 0.5, 8),)}
@@ -310,6 +373,59 @@ def test_k3_matches_plain_bit_for_bit(spec, mode):
                     assert torch.equal(a, b), (spec, ns, n, mode, name)
     torch.cuda.synchronize()
     assert _build.launches["sparse_trilinear_multi"] == n_calls
+
+
+K3B_SUBSETS = [m for m in range(1, 16)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("subset", K3B_SUBSETS)
+def test_k3b_matches_plain(subset):
+    """K3b against its plain version on the card for every subset of the
+    four cotangents (bit i of ``subset``: feats, jac, hmix, third; the rest
+    None), at 1 to 4 stages of ``K3_SPECS`` (absent parents and children,
+    capacity padding rows), on ray-ordered points whose neighbours share
+    corner rows, points on voxel centres, on the box's faces (clamped
+    corners) and outside it; one point and 3001 (no multiple of the
+    block); the Jacobian's cotangent with its last two axes transposed, as
+    the training graph gives it.  Atomics: rtol 1e-5, atol 1e-5 times
+    max(1, the largest entry)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    from surf_tpu_torch import _build
+    g = torch.Generator().manual_seed(70 + subset)
+    dev = torch.device("cuda")
+    _build.reset_launches()
+    n_calls = 0
+    for spec in K3_SPECS.values():
+        stages = _k3_stages(g, dev, spec)
+        res = stages[0][0].res
+        t = torch.linspace(0.0, 1.0, 100)
+        rays = (torch.rand(10, 1, 3, generator=g) * 1.4 - 0.7
+                + t[None, :, None] * torch.tensor([0.1, -0.05, 0.2])).reshape(-1, 3)
+        pts = torch.cat([rays, torch.rand(2001, 3, generator=g) * 2.3 - 1.15])
+        pts[1000:1300] = torch.randint(0, res, (300, 3), generator=g).float() \
+            * (2.0 / (res - 1)) - 1.0
+        pts[1300:1304] = torch.tensor([[-1.0] * 3, [1.0] * 3, [1.0, -1.0, 0.0],
+                                       [0.0, 1.0, -1.0]])
+        pts = pts.to(dev)
+        n, C = pts.shape[0], sum(s.shape[1] for _, s in stages)
+        cts = [torch.randn(*sh, generator=g).to(dev) if (subset >> i) & 1 else None
+               for i, sh in enumerate(((n, C), (n, 3, C), (n, 3, C), (n, C)))]
+        if cts[1] is not None:
+            # the Jacobian's cotangent as the training graph hands it over:
+            # its last two axes transposed (read through its strides)
+            cts[1] = cts[1].transpose(1, 2).contiguous().transpose(1, 2)
+        for m in (1, n):
+            sub = [None if c is None else c[:m] for c in cts]
+            got = tsp.sparse_trilinear_multi_bwd(stages, pts[:m], *sub)
+            ref = tsp.sparse_trilinear_multi_bwd_plain(stages, pts[:m], *sub)
+            n_calls += 1
+            assert len(got) == len(stages)
+            for a, b in zip(got, ref):
+                _close(a.cpu().numpy(), b.cpu().numpy())
+    torch.cuda.synchronize()
+    assert _build.launches["sparse_trilinear_multi_bwd"] == n_calls
 
 
 @pytest.mark.cuda

@@ -6,10 +6,12 @@ of the JAX package's functions, on the same seeded numpy inputs:
   gradient taken with respect to the unpacked image), d_image and
   d_coords, every coordinate convention;
 * K2b: ``_trilinear_core_cm`` (``trilinear_sample_3d_cm``), d_volume and
-  d_coords;
+  d_coords, in f32 and on a bf16 C = 1 volume with ray-ordered pile-ups;
+  its form rule and brick map against a numpy model;
 * K3b: the storage gradient of ``sparse_trilinear`` over three stages,
   with cotangents on the features, the Jacobian, the mixed second and the
-  third derivatives; and the point gradient of the same four outputs
+  third derivatives, and with each subset of them the training and
+  finetune steps send; and the point gradient of the same four outputs
   (the derivative tower the training graph climbs);
 * K4: dX (K4 on the transposed table) and dW (K4w) of all six
   neighbour-row sparse convolutions of the hybrid U-Net, through the
@@ -132,6 +134,72 @@ def test_k2b_trilinear_cm_vjp(align):
     _close(d_co.numpy(), d_co_j, err_msg="d_coords")
 
 
+def _ray_samples(rng, n_rays, n_samples, lo, hi, step):
+    """Ray-ordered samples, as ``depth_render`` lays them out: rays
+    starting in [lo, hi)^3, each walking ``n_samples`` points less than
+    ``step`` apart, so neighbouring samples pile onto a few voxels."""
+    o = rng.uniform(lo, hi, (n_rays, 1, 3))
+    d = rng.uniform(-step, step, (n_rays, 1, 3))
+    return (o + np.arange(n_samples)[None, :, None] * d).reshape(-1, 3)
+
+
+@pytest.mark.parametrize("align", [False, True])
+def test_k2b_bf16_pileup_vjp(align):
+    """K2b's plain version on a bf16 C = 1 volume (the matching volume's
+    form) with ray-ordered samples piling onto a few voxels, samples on
+    the volume's faces and corners and outside it, and zero cotangent
+    rows.  The JAX package's bf16 VJP adds in bf16 (its scatter target is
+    the volume's dtype), so at a pile-up it rounds after every add; the
+    port sums in f32 and rounds once.  So d_volume is held to JAX's VJP on
+    the f32 widening of the same bf16 values, rounded once to bf16, within
+    one bf16 step (2^-8 relative); d_coords (f32 in both) to JAX's bf16
+    VJP within RTOL."""
+    rng = np.random.RandomState(21)
+    vol = jnp.asarray(rng.randn(12, 10, 16, 1).astype(np.float32)).astype(jnp.bfloat16)
+    faces = np.array([[-1, -1, -1], [1, 1, 1], [1, -1, 0.3], [1.05, 0.2, 0.1],
+                      [-1.2, 0, 0], [0.3, 1.3, -0.2], [0.0, -1.0, 1.0]])
+    co = np.concatenate([_ray_samples(rng, 40, 32, -0.8, 0.6, 0.002), faces,
+                         rng.uniform(-1.2, 1.2, (100, 3))]).astype(np.float32)
+    ct = rng.randn(len(co), 1).astype(np.float32)
+    ct[::7] = 0.0
+
+    def f(v, c):
+        return jgs.trilinear_sample_3d_cm(v, c, align_corners=align)
+    _, vjp = jax.vjp(f, vol, jnp.asarray(co))
+    _, d_co_j = vjp(jnp.asarray(ct))
+    _, vjp32 = jax.vjp(f, vol.astype(jnp.float32), jnp.asarray(co))
+    d_vol_j = np.asarray(vjp32(jnp.asarray(ct))[0].astype(jnp.bfloat16).astype(jnp.float32))
+    tvol = torch.from_numpy(np.array(vol.astype(jnp.float32))).bfloat16()
+    d_vol, d_co = tgs.trilinear_sample_bwd_plain(tvol, _t(co), _t(ct), align_corners=align)
+    assert d_vol.dtype == torch.bfloat16
+    _close(d_vol.float().numpy(), d_vol_j, rtol=2.0 ** -8, err_msg="d_volume")
+    _close(d_co.numpy(), d_co_j, err_msg="d_coords")
+    # a real pile-up: many samples share one cell
+    cells = np.stack([np.floor(tgs._unnormalize(co[:1280, a], n, align))
+                      for a, n in enumerate((12, 10, 16))], -1)
+    assert np.unique(cells, axis=0, return_counts=True)[1].max() >= 16
+
+
+def test_k2b_form_rule_and_brick_map():
+    """K2b's host-side choices against a numpy model: the brick map's
+    shape (ceil of each side over 8) and the form rule (bricked for a bf16
+    volume whose full f32 buffer, 8 bytes an element, outweighs 16 bytes a
+    sample), at the training step's four call sites (``depth_render`` of
+    views 0 and src: 19,200 rays x 128 samples at 88^3; 76,800 x 64 x 2 at
+    176^3; 76,800 x 32 x 2 at 352^3; 307,200 x 16 x 2 at 704^3) and on
+    ragged shapes."""
+    for shape in ((88, 88, 88, 1), (13, 9, 11, 3), (1, 8, 17, 1), (704, 704, 704, 1)):
+        assert tgs.k2b_bricks(shape) == tuple(int(np.ceil(n / 8)) for n in shape[:3])
+    sites = {88: 19200 * 128, 176: 76800 * 64 * 2, 352: 76800 * 32 * 2, 704: 307200 * 16 * 2}
+    forms = {}
+    for res, n in sites.items():
+        vol = torch.empty((res, res, res, 1), dtype=torch.bfloat16, device="meta")
+        forms[res] = tgs.k2b_bricked(vol, n)
+        assert forms[res] == (res ** 3 * 8 > n * 16)
+        assert not tgs.k2b_bricked(vol.float(), n)
+    assert forms == {88: False, 176: False, 352: True, 704: True}
+
+
 # ---------------------------------------------------------------------------
 # K3b
 # ---------------------------------------------------------------------------
@@ -185,6 +253,33 @@ def test_k3b_storage_gradient_vjp():
     ref = vjp(tuple(jnp.asarray(c) for c in cts))
     got = tsp.sparse_trilinear_multi_bwd_plain(
         [(g[1], _t(g[2])) for g in grids], _t(pts), *[_t(c) for c in cts])
+    for i, (a, b) in enumerate(zip(got, ref)):
+        _close(a.numpy(), b, err_msg=f"stage {i}")
+
+
+@pytest.mark.parametrize("subset", ["feats", "feats+jac", "feats+jac+hmix",
+                                    "feats+jac+hmix+third"])
+def test_k3b_cotangent_subsets_vjp(subset):
+    """K3b's plain version for each subset of cotangents that the training
+    and finetune steps send (the others None), on ray-ordered points whose
+    neighbours share corner rows, against ``jax.vjp`` of the JAX tower with
+    the absent cotangents zero."""
+    rng = np.random.RandomState(40 + len(subset))
+    grids = [_grid_pair(rng, r, k, c) for r, k, c in ((16, 0.5, 7), (8, 0.7, 7), (4, 1.0, 7))]
+    pts = np.concatenate([_ray_samples(rng, 6, 40, -0.7, 0.7, 0.01),
+                          rng.uniform(-1.1, 1.1, (60, 3))]).astype(np.float32)
+    n, C = len(pts), 21
+    on = [name in subset.split("+") for name in ("feats", "jac", "hmix", "third")]
+    cts = [rng.randn(*sh).astype(np.float32) if o else None
+           for sh, o in zip(((n, C), (n, 3, C), (n, 3, C), (n, C)), on)]
+    jgrids = [g[0] for g in grids]
+    _, vjp = jax.vjp(lambda *st: _jax_tower(jgrids, st, jnp.asarray(pts)),
+                     *[jnp.asarray(g[2]) for g in grids])
+    ref = vjp(tuple(jnp.asarray(c) if c is not None else jnp.zeros(sh, jnp.float32)
+                    for c, sh in zip(cts, ((n, C), (n, 3, C), (n, 3, C), (n, C)))))
+    got = tsp.sparse_trilinear_multi_bwd_plain(
+        [(g[1], _t(g[2])) for g in grids], _t(pts), *[None if c is None else _t(c)
+                                                      for c in cts])
     for i, (a, b) in enumerate(zip(got, ref)):
         _close(a.numpy(), b, err_msg=f"stage {i}")
 
