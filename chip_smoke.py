@@ -81,7 +81,29 @@ Phases, one line each (any failure exits non-zero, with no result line):
    ``--load_vol`` reads it, bit for bit (the bf16 matching volume
    included).  Prints s/step, peak memory,
    ``mesh_s`` and ``render_rays_per_s``;
-9. reference: the tiny model on the card against the same model on the
+9. dtu: the DTU data path at full width, on the procedural scene written
+   as a DTU scan (5 views at DTU's native 1200x1600, light 3: cam files,
+   pair.txt, PNG images and masks, GT and pseudo depth PFMs, pseudo point
+   clouds; the port's own writers) in a temporary directory under exp/
+   that the phase deletes.  ``Validator.validate`` with ``clean_mesh`` on
+   confs/surf.conf's ``DTUDataset`` (576x800, 144x200 render, 4 stages to
+   704^3, 512^3 mesh): every forward kernel launched, a non-empty mesh
+   with no more faces after cleaning than before, the PNG artifacts,
+   ``val_img`` equal to the rendered colour's 8-bit form.  A ``Trainer``
+   (5 views of 480x640, 512 rays) takes 2 steps and saves; a fresh one
+   resumes from the checkpoint with the Adam moments, steps, learning
+   rates and parameters equal bit for bit, and takes 1 step: every
+   backward kernel launched, the loss finite.  A ``Finetuner`` on
+   confs/surf_finetune.conf's ``DTUDatasetFinetune`` at 1200x1600 from
+   that checkpoint takes 3 steps (K3 and K3b launched).  In each part the
+   largest call of every kernel launched there is recorded and held
+   against its plain version (an ``also_checked`` entry of the kernel's
+   row, with ``call_site`` "dtu ...").  Prints ``read_png``'s time on one
+   1200x1600 image, the loaders' seconds per item, ``build_s``,
+   ``mesh_s``, ``clean_mesh_s``, s/step and peak memory, and each kernel
+   row gains its launches in the three parts
+   (``launches_in_dtu_validate`` / ``_train`` / ``_finetune``);
+10. reference: the tiny model on the card against the same model on the
    CPU (plain versions, themselves held against the JAX package by the
    tier-1 tests): a validate build + render, and one training step's
    loss terms and gradients, also against the same step on the card with
@@ -591,76 +613,93 @@ def texel_load(image, co, normalized=True, align=True, ct=None):
     return out
 
 
-def k1_entry(what, image, co, align):
-    """K1 against its plain version and F.grid_sample at one call site."""
+def k1_entry(what, image, co, align, normalized=True):
+    """K1 against its plain version and F.grid_sample at one call site
+    (pixel coordinates, ``normalized`` False, go to F.grid_sample
+    normalized with align_corners=True)."""
+    import torch
     import torch.nn.functional as F
     from surf_tpu_torch.ops import grid_sample as gs
-    got = gs.bilinear_sample(image, co, align_corners=align)
-    err = check_close(f"K1 {what}", got,
-                      gs.bilinear_sample_plain(image, co, align_corners=align), 1e-5, 1e-5)
+    kw = {"normalized": normalized, "align_corners": align}
+    got = gs.bilinear_sample(image, co, **kw)
+    err = check_close(f"K1 {what}", got, gs.bilinear_sample_plain(image, co, **kw),
+                      1e-5, 1e-5)
     nchw = image.permute(0, 3, 1, 2).contiguous()
-    lib_grid = co[:, None]
+    co_n, align_n = co, align
+    if not normalized:
+        H, W = image.shape[1:3]
+        co_n = torch.stack([co[..., 0] * (2.0 / (W - 1)) - 1.0,
+                            co[..., 1] * (2.0 / (H - 1)) - 1.0], -1)
+        align_n = True
+    lib_grid = co_n[:, None]
 
     def lib():
         return F.grid_sample(nchw, lib_grid, mode="bilinear", padding_mode="zeros",
-                             align_corners=align)
-    check_close(f"K1 {what} vs F.grid_sample", got, lib()[:, :, 0].permute(0, 2, 1),
+                             align_corners=align_n)
+    # (F.grid_sample takes normalized coordinates: converted pixel ones move
+    # by up to ~1e-4 pixel at 1600 columns, so there the library is held
+    # against the plain version at the converted coordinates)
+    lib_ref = got if normalized else gs.bilinear_sample_plain(image, co_n,
+                                                              align_corners=True)
+    check_close(f"K1 {what} vs F.grid_sample", lib_ref, lib()[:, :, 0].permute(0, 2, 1),
                 1e-4, 1e-4)
     V, N, C = got.shape
-    texels = distinct_taps(image.shape[:3], co, align)
+    texels = distinct_taps(image.shape[:3], co_n, align_n)
     b_ms, b_by = bound(nbytes(co) + nbytes(got) + texels * C * 4, V * N * C * 12)
     return {"shape": f"{what}: image {tuple(image.shape)} f32, {N} points x {V} views, "
-                     f"align_corners={align}, {texels} distinct texels read",
-            "data": texel_load(image, co, align=align),
+                     f"align_corners={align}"
+                     + ("" if normalized else ", pixel coordinates")
+                     + f", {texels} distinct texels read",
+            "data": texel_load(image, co, normalized, align),
             "max_abs_err": err,
-            "ms": time_ms(lambda: gs.bilinear_sample(image, co, align_corners=align)),
-            "plain_ms": time_ms(lambda: gs.bilinear_sample_plain(image, co,
-                                                                 align_corners=align), 5),
+            "ms": time_ms(lambda: gs.bilinear_sample(image, co, **kw)),
+            "plain_ms": time_ms(lambda: gs.bilinear_sample_plain(image, co, **kw), 5),
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": time_ms(lib)}
 
 
-def k2_entry(what, vol, pts):
+def k2_entry(what, vol, pts, align=False):
     """K2 against its plain version and F.grid_sample 3D (axes flipped)
-    at one call site (align_corners=False, as every K2 call of the path).
+    at one call site (align_corners=False, as every K2 call of the path,
+    unless ``align`` says otherwise).
     ``data``: the distinct 32-byte sectors the gathers touch and, at
     C = 1, K2's time on the f32 copy F.grid_sample reads."""
     import torch.nn.functional as F
     from surf_tpu_torch.ops import grid_sample as gs
-    got = gs.trilinear_sample(vol, pts, align_corners=False)
+    got = gs.trilinear_sample(vol, pts, align_corners=align)
     err = check_close(f"K2 {what}", got,
-                      gs.trilinear_sample_plain(vol, pts, align_corners=False), 0.0, 0.0)
+                      gs.trilinear_sample_plain(vol, pts, align_corners=align), 0.0, 0.0)
     vol_f = vol.float().permute(3, 0, 1, 2)[None].contiguous()
     lib_grid = pts.flip(-1)[None, None, None].contiguous()
 
     def lib():
         return F.grid_sample(vol_f, lib_grid, mode="bilinear", padding_mode="zeros",
-                             align_corners=False)
+                             align_corners=align)
     check_close(f"K2 {what} vs F.grid_sample", got,
                 lib().reshape(vol.shape[-1], -1).t(), 1e-4, 1e-4)
     n, C = got.shape
-    voxels = distinct_taps(vol.shape[:3], pts, False)
+    voxels = distinct_taps(vol.shape[:3], pts, align)
     b_ms, b_by = bound(nbytes(pts) + nbytes(got) + voxels * C * vol.element_size(),
                        n * C * 30)
     # a gather reads whole 32-byte sectors: the distinct ones the taps touch
     # (at C = 1) and their time at the memory rate
-    sectors = distinct_taps(vol.shape[:3], pts, False, 32 // vol.element_size()) \
+    sectors = distinct_taps(vol.shape[:3], pts, align, 32 // vol.element_size()) \
         if C == 1 else None
     data = {"distinct_32B_sectors": sectors,
             "sectors_ms": sectors and sectors * 32 / HBM_BYTES_PER_S * 1e3}
     if C == 1:
         # on the f32 copy F.grid_sample reads (at C = 1 the same layout)
         v32 = vol_f.view(vol.shape)
-        check_close(f"K2 {what} f32 copy", gs.trilinear_sample(v32, pts, align_corners=False),
+        check_close(f"K2 {what} f32 copy", gs.trilinear_sample(v32, pts, align_corners=align),
                     got, 0.0, 0.0)
         data["ms_f32_volume"] = time_ms(
-            lambda: gs.trilinear_sample(v32, pts, align_corners=False))
+            lambda: gs.trilinear_sample(v32, pts, align_corners=align))
     return {"shape": f"{what}: volume {tuple(vol.shape)} {str(vol.dtype).split('.')[-1]}, "
                      f"{n} points, {voxels} distinct voxels read",
             "data": data,
             "max_abs_err": err,
-            "ms": time_ms(lambda: gs.trilinear_sample(vol, pts, align_corners=False)),
+            "ms": time_ms(lambda: gs.trilinear_sample(vol, pts, align_corners=align)),
             "plain_ms": time_ms(lambda: gs.trilinear_sample_plain(vol, pts,
-                                                                  align_corners=False), 5),
+                                                                  align_corners=align), 5),
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": time_ms(lib)}
 
 
@@ -1235,17 +1274,105 @@ def record_k4_train_calls():
         reg_net.apply_hybrid, reg_net.gather_conv = hybrid, gconv
 
 
-def k4_train_entries(largest):
-    """K4 at the training step's largest forward call and largest dX call
-    (on the transposed table; its index bytes: the forward's)."""
+def k4_train_entries(largest, where="training step"):
+    """K4 at the largest forward call and largest dX call (on the
+    transposed table; its index bytes: the forward's) that
+    ``record_k4_train_calls`` recorded, those of them that were made."""
     out = []
     for kind in ("forward", "dX"):
+        if kind not in largest:
+            continue
         _, grid, i, x, idx, w, live = largest[kind]
         what, ib = K4_CALLS[i]
         out.append(k4_entry(grid, i, x, idx, w, live,
-                            what=f"training step, largest {kind}: {grid.res}^3 {what}"
+                            what=f"{where}, largest {kind}: {grid.res}^3 {what}"
                                  + (" (transposed table)" if kind == "dX" else ""),
                             index_bytes=ib(grid.parents.shape[0])))
+    return out
+
+
+@contextlib.contextmanager
+def record_forward_calls():
+    """Inside the block, the largest call of K1, K2 and K3 (by output
+    elements) with its arguments, for ``largest_call_entries``; K4's are
+    ``record_k4_train_calls``'s.  Yields the dict kernel -> (size, args,
+    kwargs)."""
+    from surf_tpu_torch.ops import grid_sample as gs, sparse as sp
+    where = {"bilinear_sample_2d": (gs, "bilinear_sample",
+                                    lambda a, k: a[1].shape[0] * a[1].shape[1]
+                                    * a[0].shape[-1]),
+             "trilinear_sample_3d": (gs, "trilinear_sample",
+                                     lambda a, k: a[1].shape[0] * a[0].shape[-1]),
+             "sparse_trilinear_multi": (sp, "sparse_trilinear_multi",
+                                        lambda a, k: a[1].shape[0] * sum(
+                                            st.shape[1] for _, st in a[0]) * K3_MODES[
+                                            k3_mode(k)][0])}
+    largest, orig = {}, {}
+
+    def wrap(name, fn, size):
+        def rec(*a, **k):
+            n = size(a, k)
+            if n > largest.get(name, (-1,))[0]:
+                kept = ([(g, st.detach()) for g, st in a[0]], a[1].detach()) \
+                    if name == "sparse_trilinear_multi" else tuple(t.detach() for t in a)
+                largest[name] = (n, kept, k)
+            return fn(*a, **k)
+        return rec
+
+    for name, (mod, attr, size) in where.items():
+        orig[name] = getattr(mod, attr)
+        setattr(mod, attr, wrap(name, orig[name], size))
+    try:
+        yield largest
+    finally:
+        for name, (mod, attr, _) in where.items():
+            setattr(mod, attr, orig[name])
+
+
+def k3_mode(kw):
+    """The ``K3_MODES`` entry of a K3 call's flags."""
+    return "third" if kw.get("third") else "derivs" if kw.get("derivs") else "value"
+
+
+def largest_call_entries(where, fwd, k4_largest, records):
+    """Each kernel that a part of the dtu phase launched, held against its
+    plain version (and timed, with its bound) at the largest call it made
+    there: K1-K3 from ``record_forward_calls``, K4 from
+    ``record_k4_train_calls``, the backward kernels from
+    ``record_backward_calls`` (K3b's largest of the most cotangents).
+    Returns kernel -> [entries]."""
+    import torch
+    out = {}
+
+    what = f"{where}, largest call"
+
+    def add(name, e):
+        e["call_site"] = where
+        out.setdefault(name, []).append(e)
+        say("kernel", f"{name} in the {where}: " + json.dumps(e))
+    for name, (_, a, k) in fwd.items():
+        if name == "bilinear_sample_2d":
+            add(name, k1_entry(what, a[0], a[1], k.get("align_corners", True),
+                               k.get("normalized", True)))
+        elif name == "trilinear_sample_3d":
+            if not k.get("normalized", True):
+                fail(f"{where}: a K2 call with pixel coordinates, which k2_entry "
+                     "does not check")
+            add(name, k2_entry(what, a[0], a[1], k.get("align_corners", True)))
+        else:
+            add(name, k3_entry(what, a[0], a[1].contiguous(), k3_mode(k)))
+    for e in k4_train_entries(k4_largest, where):
+        add("gather_conv", e)
+    for name in BWD_KERNELS:
+        keyed = [r for key, r in records.items() if key[0] == name]
+        if not keyed:
+            continue
+        n_, a_, k_ = max(keyed, key=lambda r: (r[0], sum(x is not None for x in r[1])))
+        if name == "gather_conv_dw":
+            a_ = (a_[0], a_[1].to(torch.int32).contiguous()) + tuple(a_[2:])
+        e = bwd_entry(name, (n_, a_, k_))
+        e["shape"] = f"{what}: " + e["shape"]
+        add(name, e)
     return out
 
 
@@ -1789,7 +1916,266 @@ def finetune_phase(ckpt, n_steps=3, dev="cuda", conf_path=None):
 
 
 # ---------------------------------------------------------------------------
-# phase 9: tiny model, card against CPU
+# phase 9: the DTU data path
+# ---------------------------------------------------------------------------
+
+DTU_VIEWS = (23, 24, 22, 25, 21)
+
+
+def dtu_confs(root, conf_path=None, ft_conf_path=None):
+    """confs/surf.conf and confs/surf_finetune.conf (or the given files)
+    read from the DTU-layout scene at ``root``: its scan, its views as the
+    training references, the first as the validation and finetune
+    reference, light 3 throughout."""
+    from surf_tpu_torch.config import ConfigFactory
+    from surf_tpu_torch.data.dtu_scene import LIGHT, SCAN
+    conf = ConfigFactory.parse_file(conf_path or os.path.join(HERE, "confs", "surf.conf"))
+    for key in ("train_dataset", "val_dataset"):
+        d = conf[key]
+        d["data_dir"], d["scene"], d["light_idx"] = root, [SCAN], [LIGHT]
+    conf["train_dataset"]["ref_view"] = list(DTU_VIEWS)
+    conf["val_dataset"]["ref_view"] = [DTU_VIEWS[0]]
+    ft = ConfigFactory.parse_file(
+        ft_conf_path or os.path.join(HERE, "confs", "surf_finetune.conf"))
+    d = ft["finetune_dataset"]
+    d["data_dir"], d["scene"], d["ref_view"] = root, SCAN, DTU_VIEWS[0]
+    return conf, ft
+
+
+def dtu_phase(dev="cuda", conf_path=None, ft_conf_path=None, image_hw=(1200, 1600),
+              mesh_resolution=512):
+    """The DTU data path at full width, on a DTU-layout scene that the
+    phase writes (the procedural scene at DTU's native 1200x1600, 5 views,
+    with the port's own PNG and PFM writers) into a temporary directory
+    under exp/ and deletes:
+
+    1. ``Validator.validate`` on confs/surf.conf's ``val_dataset``
+       (576x800, a 144x200 render, 4 stages to 704^3, 512^3 mesh) with
+       ``clean_mesh`` on: every forward kernel launched, a non-empty mesh
+       before and after cleaning with no more faces after, the PNG
+       artifacts written and ``val_img`` equal to the rendered colour's
+       8-bit form;
+    2. a ``Trainer`` on its ``train_dataset`` (5 views of 480x640, 512
+       rays) for 2 steps, saved, then a fresh ``Trainer``
+       resumed from that checkpoint (``--mode train --resume``) whose Adam
+       moments, steps and learning rates equal the saved ones bit for bit,
+       and one more step; every backward kernel launched, the loss finite;
+    3. a ``Finetuner`` on confs/surf_finetune.conf's ``DTUDatasetFinetune``
+       at 1200x1600 from the resumed trainer's checkpoint, 3 steps, the
+       loss finite.
+
+    In each part, the largest call of each kernel it launched (in the
+    validate, the resumed training step and the last finetune step) is
+    recorded and then held against its plain version at the tolerances of
+    the kernel's row, with its times and bound (``largest_call_entries``).
+    The training's peak memory includes the recorded calls' tensors.
+    Also times ``read_png`` on one of the scene's 1200x1600 RGB images.
+
+    Returns (the launches of each part, the phase's numbers, the
+    entries of each part by kernel).  (``dev``
+    "cpu" with tiny confs and a small ``image_hw`` rehearses the phase.)"""
+    import math
+    import shutil
+    import tempfile
+    import numpy as np
+    import torch
+    from surf_tpu_torch import _build, validate
+    from surf_tpu_torch.data.dtu_scene import LIGHT, SCAN, write_dtu_scene
+    from surf_tpu_torch.finetune import Finetuner
+    from surf_tpu_torch.io import read_png
+    from surf_tpu_torch.train import Trainer
+    cuda = dev == "cuda"
+    train_steps, ft_steps = 2, 3
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize()
+    os.makedirs(os.path.join(HERE, "exp"), exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_dtu_", dir=os.path.join(HERE, "exp"))
+    try:
+        t0 = time.time()
+        root = write_dtu_scene(os.path.join(tmp, "dtu"), view_ids=DTU_VIEWS,
+                               image_hw=image_hw)
+        nums = {"scene_write_s": time.time() - t0}
+        # one 1200x1600 RGB image of the scene (rows filtered as libpng
+        # filters them): the first read builds the unfilter library
+        png = os.path.join(root, "Rectified_raw", SCAN,
+                           f"rect_{DTU_VIEWS[0] + 1:03d}_{LIGHT}_r5000.png")
+        png_s = []
+        for _ in range(4):
+            t0 = time.time()
+            read_png(png)
+            png_s.append(time.time() - t0)
+        nums.update(read_png_cold_s=png_s[0], read_png_s=statistics.median(png_s[1:]))
+        conf, ft_conf = dtu_confs(root, conf_path, ft_conf_path)
+        launches = {}
+
+        # 1. validate with --clean_mesh
+        v = validate.Validator(conf, device=dev, mesh_resolution=mesh_resolution, seed=0,
+                               base_exp_dir=os.path.join(tmp, "val"), clean_mesh=True)
+        t0 = time.time()
+        item = v.dataset[0]
+        nums["val_load_s_per_item"] = time.time() - t0
+        written, write = {}, validate.write_artifacts
+
+        def recorded(*args):
+            written["args"] = args
+            return write(*args)
+        validate.write_artifacts = recorded
+        try:
+            sync()
+            _build.reset_launches()
+            with record_forward_calls() as fwd, record_k4_train_calls() as (_, k4):
+                (m,) = v.validate()
+            sync()
+        finally:
+            validate.write_artifacts = write
+        launches["validate"] = dict(_build.launches)
+        missing = [k for k in FWD_KERNELS if launches["validate"][k] <= 0]
+        if missing:
+            fail(f"dtu: the DTU validate launched no {missing}")
+        if not m["finite"] or not 0 < m["mesh_faces"] <= m["mesh_faces_before_clean"]:
+            fail(f"dtu: non-finite render or a mesh that cleaning emptied or grew: {m}")
+        d, file_name, epoch, color = written["args"][:4]
+        val_png = os.path.join(d, "val_img", f"{file_name}_epoch{epoch}.png")
+        if not np.array_equal(read_png(val_png),
+                              (color * 256).clip(0, 255).astype(np.uint8)):
+            fail("dtu: val_img's PNG differs from the rendered colour's 8-bit form")
+        arts = sorted(os.path.relpath(os.path.join(dp, f), d) for dp, _, fs in os.walk(d)
+                      for f in fs if not dp.endswith("meshes"))
+        if len(arts) != 8:
+            fail(f"dtu: expected 2 PNGs and 3 depth PNG/.npy pairs, found {arts}")
+        nums.update({k: m[k] for k in ("build_s", "mesh_s", "clean_mesh_s",
+                                       "render_rays_per_s", "mesh_faces_before_clean",
+                                       "mesh_faces", "active_voxels", "psnr")})
+        nums["val_item_hw"] = list(item["imgs"].shape[1:3])
+        say("dtu", f"validate ({file_name}, {len(arts)} artifacts): "
+            + " ".join(f"{k}={v}" for k, v in nums.items()))
+        del v, item, written
+        t0 = time.time()
+        entries = {"validate": largest_call_entries("dtu validate", fwd, k4, {})}
+        nums["validate_kernel_checks_s"] = time.time() - t0
+        del fwd, k4
+        if cuda:
+            torch.cuda.empty_cache()
+
+        # 2. train, save, resume, one more step
+        t = Trainer(conf, device=dev, seed=0, base_exp_dir=os.path.join(tmp, "train"))
+        t0 = time.time()
+        items = [t.dataset[i] for i in range(train_steps + 1)]
+        nums["train_load_s_per_item"] = (time.time() - t0) / len(items)
+        batches = [validate.to_device(b, dev) for b in items]
+        n = len(t.dataset)
+        if cuda:
+            torch.cuda.reset_peak_memory_stats()
+        _build.reset_launches()
+        times = []
+        for i in range(train_steps):
+            sync()
+            t0 = time.time()
+            res = t.step(batches[i], i / n)
+            sync()
+            times.append(time.time() - t0)
+            if not all(math.isfinite(x) for x in res.values()):
+                fail(f"dtu: non-finite training loss terms at step {i}: {res}")
+        ckpt = t.save(0)
+        t2 = Trainer(conf, device=dev, seed=0, base_exp_dir=os.path.join(tmp, "train"),
+                     resume=ckpt)
+        same = t2.start_epoch == 1 and t2.scheduler.last_epoch == t.scheduler.last_epoch
+        for g1, g2 in zip(t.optimizer.param_groups, t2.optimizer.param_groups):
+            same &= g1["lr"] == g2["lr"] and len(g1["params"]) == len(g2["params"])
+            for a, b in zip(g1["params"], g2["params"]):
+                s1, s2 = t.optimizer.state[a], t2.optimizer.state[b]
+                same &= torch.equal(a.detach(), b.detach()) and all(
+                    torch.equal(s1[k], s2[k]) for k in ("step", "exp_avg", "exp_avg_sq"))
+        if not same:
+            fail("dtu: the resumed trainer's parameters, Adam moments, steps or learning "
+                 "rates differ from the saved ones")
+        del t
+        records, _, restore = record_backward_calls()
+        try:
+            with record_forward_calls() as fwd, record_k4_train_calls() as (_, k4):
+                sync()
+                t0 = time.time()
+                res = t2.step(batches[train_steps], train_steps / n)
+                sync()
+                times.append(time.time() - t0)
+        finally:
+            restore()
+        if not all(math.isfinite(x) for x in res.values()):
+            fail(f"dtu: non-finite loss terms after the resume: {res}")
+        launches["train"] = dict(_build.launches)
+        missing = [k for k in BWD_KERNELS if launches["train"][k] <= 0]
+        if missing:
+            fail(f"dtu: the DTU training steps launched no {missing}")
+        nums.update({"train_s_per_step": times, "train_resumed_step_s": times[-1],
+                     "train_peak_mem_gb": (torch.cuda.max_memory_allocated() / 2 ** 30
+                                           if cuda else 0.0),
+                     "train_loss_after_resume": res["loss"]})
+        ckpt = t2.save(1)
+        t0 = time.time()
+        entries["train"] = largest_call_entries("dtu train, resumed step", fwd, k4, records)
+        nums["train_kernel_checks_s"] = time.time() - t0
+        del fwd, k4, records
+        say("dtu", f"train: {train_steps} steps, save, resume (moments, steps and "
+            f"learning rates bit-equal), 1 step: s/step {times}, peak "
+            f"{nums['train_peak_mem_gb']:.2f} GB, load {nums['train_load_s_per_item']:.3f} "
+            "s/item")
+        del t2, batches, items
+        if cuda:
+            torch.cuda.empty_cache()
+
+        # 3. finetune on DTUDatasetFinetune from that checkpoint
+        sync()
+        t0 = time.time()
+        f = Finetuner(ft_conf, device=dev, seed=0, base_exp_dir=os.path.join(tmp, "ft"),
+                      resume=ckpt, mesh_resolution=mesh_resolution)
+        sync()
+        nums["finetune_init_s"] = time.time() - t0
+        ds = f.dataset
+        perm = f.host_rng.permutation(ds.num_views)
+        _build.reset_launches()
+        times = []
+        for i in range(ft_steps):
+            batch = validate.to_device(ds.get_random_rays(int(perm[i % len(perm)]),
+                                                          rng=f.host_rng), dev)
+            last = i == ft_steps - 1
+            records, _, restore = record_backward_calls() if last else ({}, None, None)
+            try:
+                with record_forward_calls() if last else contextlib.nullcontext({}) as fwd, \
+                        record_k4_train_calls() if last else \
+                        contextlib.nullcontext(({}, {})) as (_, k4):
+                    sync()
+                    t0 = time.time()
+                    res = f.step(batch, i)
+                    sync()
+                    times.append(time.time() - t0)
+            finally:
+                if last:
+                    restore()
+            if not all(math.isfinite(x) for x in res.values()):
+                fail(f"dtu: non-finite finetune loss terms at step {i}: {res}")
+        launches["finetune"] = dict(_build.launches)
+        missing = [k for k in ("sparse_trilinear_multi", "sparse_trilinear_multi_bwd")
+                   if launches["finetune"][k] <= 0]
+        if missing:
+            fail(f"dtu: the DTU finetune steps launched no {missing}")
+        nums.update({"finetune_s_per_step": times,
+                     "finetune_img_hw": list(ds.images.shape[1:3])})
+        say("dtu", f"finetune on DTUDatasetFinetune {nums['finetune_img_hw']}: init "
+            f"{nums['finetune_init_s']:.3f} s, s/step {times}")
+        t0 = time.time()
+        entries["finetune"] = largest_call_entries("dtu finetune, last step", fwd, k4,
+                                                   records)
+        nums["finetune_kernel_checks_s"] = time.time() - t0
+        del f, fwd, k4, records
+        return launches, nums, entries
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+# ---------------------------------------------------------------------------
+# phase 10: tiny model, card against CPU
 # ---------------------------------------------------------------------------
 
 def reference_check():
@@ -2060,6 +2446,18 @@ def main():
     for r in grid_rows:
         r["launches"] = GRID_CALLS["n"]
     rows += grid_rows
+
+    t0 = time.time()
+    dtu_launches, dtu_nums, dtu_entries = dtu_phase()
+    for r in rows:
+        for part, counts in dtu_launches.items():
+            r[f"launches_in_dtu_{part}"] = counts.get(r["name"], 0)
+            new = dtu_entries[part].get(r["name"], [])
+            if new:
+                r.setdefault("also_checked", []).extend(new)
+    dtu_nums["phase_s"] = time.time() - t0
+    say("dtu", json.dumps(dtu_nums))
+    torch.cuda.empty_cache()
 
     t0 = time.time()
     err = reference_check()

@@ -5,7 +5,10 @@
   compiled by ``nvcc`` for ``sm_90a`` with a plain C interface (no PyTorch
   headers, so a build takes seconds).  ``build_kernels()`` starts one
   ``nvcc`` per source, all at once, and waits for them.
-* ``csrc/marching_cubes.cpp``: the host marching cubes, compiled by ``g++``.
+* ``csrc/marching_cubes.cpp``, ``csrc/raycast_bvh.cpp`` and
+  ``csrc/png_unfilter.cpp``: host code (the marching cubes, the mesh
+  cleaning's BVH raycaster, the PNG reader's unfilter), compiled by
+  ``g++`` through ``host_lib``.
 
 Nothing is compiled when a module is imported.
 """

@@ -1,7 +1,7 @@
 """Host-side camera utilities (numpy).
 
-Covers the reference's camera pipeline as the synthetic scene uses it:
-projection-matrix decomposition
+Covers the reference's camera pipeline: CasMVSNet cam-file parsing
+(datasets/dtu.py:182-202), projection-matrix decomposition
 (load_K_Rt_from_P, dtu.py:14-35 — reimplemented as an RQ decomposition
 instead of cv2.decomposeProjectionMatrix), the unit-sphere scale matrix from
 frustum corners (get_scale_mat, dtu.py:204-240), and ray generation
@@ -56,6 +56,25 @@ def load_K_Rt_from_P(P):
     return intr, pose
 
 
+def read_cam_file(path, img_hw, num_interval, interval_scale=1.0,
+                  native_hw=(1200, 1600)):
+    """CasMVSNet `{vid}_cam.txt`: extrinsic 4x4, intrinsic 3x3,
+    depth_min/interval; intrinsics rescaled from the native resolution to
+    img_hw (dtu.py:182-202)."""
+    with open(path) as f:
+        lines = [l.rstrip() for l in f.readlines()]
+    extr = np.fromstring(" ".join(lines[1:5]), dtype=np.float32, sep=" ").reshape(4, 4)
+    intr3 = np.fromstring(" ".join(lines[7:10]), dtype=np.float32, sep=" ").reshape(3, 3)
+    depth_min = float(lines[11].split()[0])
+    depth_interval = float(lines[11].split()[1]) * interval_scale
+    depth_max = depth_min + depth_interval * num_interval
+    intr = np.eye(4, dtype=np.float32)
+    intr[:3, :3] = intr3
+    intr[0] *= img_hw[1] / native_hw[1]
+    intr[1] *= img_hw[0] / native_hw[0]
+    return intr, extr, [depth_min, depth_max]
+
+
 def get_scale_mat(img_hw, intrs, w2cs, near_fars, factor=0.8):
     """AABB of all view frusta -> similarity transform scaling the scene into
     the unit sphere (dtu.py:204-240).  Returns (scale_mat (4,4), 1/radius)."""
@@ -82,6 +101,26 @@ def get_scale_mat(img_hw, intrs, w2cs, near_fars, factor=0.8):
     scale_mat = np.diag([radius, radius, radius, 1.0]).astype(np.float32)
     scale_mat[:3, 3] = center
     return scale_mat, 1.0 / radius
+
+
+def normalize_cameras(img_hw, intrs, w2cs, near_fars, factor):
+    """Re-centre the world on the first view's camera and scale the views'
+    frusta into the unit sphere (dtu.py:337-364).  Returns (intrs, c2ws,
+    near_fars) of the normalised views as float32 arrays, ``scale_mat`` (the
+    re-centred frame -> unit sphere inverse), the depth ``scale_factor``
+    and ``w2c_ref_inv`` (the first view's camera-to-world)."""
+    w2c_ref_inv = np.linalg.inv(w2cs[0])
+    w2cs = [w2c @ w2c_ref_inv for w2c in w2cs]
+    scale_mat, scale_factor = get_scale_mat(img_hw, intrs, w2cs, near_fars, factor=factor)
+    new_intrs, c2ws, new_near_fars = [], [], []
+    for intr, w2c in zip(intrs, w2cs):
+        ni, c2w = load_K_Rt_from_P((intr @ w2c @ scale_mat)[:3, :4])
+        new_intrs.append(ni)
+        c2ws.append(c2w)
+        new_near_fars.append(near_far_from_campos(c2w))
+    return (np.stack(new_intrs).astype(np.float32), np.stack(c2ws).astype(np.float32),
+            np.stack(new_near_fars).astype(np.float32), scale_mat, scale_factor,
+            w2c_ref_inv)
 
 
 def rays_from_pixels(pixels_x, pixels_y, intr, c2w):

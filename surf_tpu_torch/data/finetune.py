@@ -9,16 +9,27 @@ the reference (``view_ids`` says which stored view each slot is) and
 2048 random pseudo points, ``get_rays_at(vid)`` a full validation grid.
 
 ``SyntheticDatasetFinetune`` exposes that surface over the procedural
-synthetic scene, so the finetune path runs with no download.  The DTU
-variants wait for their files and for PNG/PFM readers without ``cv2``
-and ``PIL`` (ROADMAP.md, queue 1).
+synthetic scene, so the finetune path runs with no download.
+``DTUDatasetFinetune`` (surf_tpu/data/dtu_finetune.py:105-184) reads a
+DTU scene: the reference view and its two best pair sources, CasMVSNet
+cameras, light-3 images, masks, the filtered pseudo depths and the pseudo
+point cloud; ``DTUDatasetFinetuneNeuS`` (:186-242) the NeuS-preprocessed
+layout (``cameras_sphere.npz``, ``image/``, ``mask/``).  Both read PNGs and
+PFMs through the port's own ``io`` package.
 """
 
 from __future__ import annotations
 
+import os
+
 import numpy as np
 
-from .cameras import rays_from_pixels
+from ..io.image import read_png, resize_nearest
+from ..io.pfm import read_pfm
+from ..io.ply import read_ply
+from .cameras import (read_cam_file, load_K_Rt_from_P, normalize_cameras,
+                      rays_from_pixels, near_far_from_campos)
+from .dtu import read_pairs
 from .synthetic import SyntheticDataset
 
 
@@ -124,17 +135,116 @@ class SyntheticDatasetFinetune(_FinetuneBase):
         self.pseudo_pts = ((pw - sm[:3, 3]) / sm[0, 0]).astype(np.float32)
 
 
-class _NotPorted:
+class DTUDatasetFinetune(_FinetuneBase):
     def __init__(self, confs, mode="finetune"):
-        raise NotImplementedError(
-            f"{type(self).__name__} is not ported yet: it needs the DTU files and "
-            "PNG/PFM readers without cv2 and PIL (ROADMAP.md, queue 1: the DTU "
-            "finetune loaders)")
+        self.mode = mode
+        self.data_dir = confs["data_dir"]
+        self.interval_scale = confs.get_float("interval_scale")
+        self.num_interval = confs.get_int("num_interval")
+        self.img_hw = tuple(confs.get_list("img_hw"))
+        self.n_rays = confs.get_int("n_rays")
+        self.factor = confs.get_float("factor")
+        self.num_views = 3
+        self.scene = confs.get_string("scene")
+        self.ref_view = int(confs.get_int("ref_view"))
+        self.val_res_level = confs.get_int("val_res_level", default=1)
+
+        pairs = read_pairs(self.data_dir)
+        self.all_views = [self.ref_view] + list(pairs[self.ref_view])[:self.num_views - 1]
+        print("finetune views:", self.all_views)
+
+        intrs, w2cs, near_fars = [], [], []
+        for vid in self.all_views:
+            intr, w2c, nf = read_cam_file(
+                os.path.join(self.data_dir, f"Cameras/{vid:0>8}_cam.txt"),
+                self.img_hw, self.num_interval, self.interval_scale)
+            intrs.append(intr)
+            w2cs.append(w2c)
+            near_fars.append(nf)
+        w2c_ref = w2cs[0]
+        (self.intrs, self.c2ws, self.near_fars, scale_mat, self.scale_factor,
+         w2c_ref_inv) = normalize_cameras(self.img_hw, intrs, w2cs, near_fars, self.factor)
+
+        def load_img(path):
+            return resize_nearest(read_png(path).astype(np.float32), self.img_hw[::-1])
+
+        self.images = np.stack([
+            load_img(os.path.join(
+                self.data_dir,
+                f"Rectified_raw/{self.scene}/rect_{vid + 1:0>3}_3_r5000.png")) / 256.0
+            for vid in self.all_views]).astype(np.float32)
+        self.masks = np.stack([
+            (load_img(os.path.join(
+                self.data_dir,
+                f"Depths_raw/{self.scene}/depth_visual_{vid:0>4}.png")) > 10)
+            for vid in self.all_views]).astype(np.float32)
+        self.pseudo_depths = np.stack([
+            resize_nearest(read_pfm(os.path.join(
+                self.data_dir,
+                f"PseudoMVSScore/dtu_exp/{self.scene}/filtered_avg_depth/{vid:0>8}.pfm"))[0],
+                self.img_hw[::-1])
+            for vid in self.all_views]).astype(np.float32) * self.scale_factor
+
+        ply = read_ply(os.path.join(
+            self.data_dir, f"PseudoMVSDepth/mvsnet{int(self.scene[4:]):0>3}_l3.ply"))
+        pw = ply["vertices"].astype(np.float32)
+        pw = (w2c_ref @ np.concatenate([pw, np.ones_like(pw[:, :1])], 1).T).T[:, :3]
+        self.pseudo_pts = (pw - scale_mat[:3, 3]) / scale_mat[0, 0]
+        self.scale_mat = (w2c_ref_inv @ scale_mat).astype(np.float32)
 
 
-class DTUDatasetFinetune(_NotPorted):
-    pass
+class DTUDatasetFinetuneNeuS(_FinetuneBase):
+    """Finetune variant using NeuS-preprocessed DTU (cameras_sphere.npz with
+    world_mat_i/scale_mat_i, image/{vid:06d}.png + mask/{vid:03d}.png) —
+    reference: datasets/dtu_finetune_neus.py:75-140."""
 
+    def __init__(self, confs, mode="finetune"):
+        self.mode = mode
+        self.data_dir = confs["data_dir"]
+        self.img_hw = tuple(confs.get_list("img_hw"))
+        self.n_rays = confs.get_int("n_rays")
+        self.num_views = 3
+        self.scene = confs.get_string("scene")
+        self.ref_view = int(confs.get_int("ref_view"))
+        self.val_res_level = confs.get_int("val_res_level", default=1)
 
-class DTUDatasetFinetuneNeuS(_NotPorted):
-    pass
+        pairs = read_pairs(self.data_dir)
+        self.all_views = [self.ref_view] + list(pairs[self.ref_view])[:self.num_views - 1]
+
+        cams = np.load(os.path.join(
+            self.data_dir, f"neus_data/data_DTU/dtu_{self.scene}/cameras_sphere.npz"))
+        intrs, c2ws, nfs = [], [], []
+        for vid in self.all_views:
+            P = (cams[f"world_mat_{vid}"] @ cams[f"scale_mat_{vid}"])[:3, :4]
+            ni, c2w = load_K_Rt_from_P(P)
+            intrs.append(ni)
+            c2ws.append(c2w)
+            nfs.append(near_far_from_campos(c2w))
+        self.intrs = np.stack(intrs).astype(np.float32)
+        self.c2ws = np.stack(c2ws).astype(np.float32)
+        self.near_fars = np.stack(nfs).astype(np.float32)
+        self.scale_mat = cams[f"scale_mat_{self.all_views[0]}"].astype(np.float32)
+        self.scale_factor = 1.0 / self.scale_mat[0, 0]
+
+        def load_img(path):
+            return resize_nearest(read_png(path).astype(np.float32), self.img_hw[::-1])
+
+        base = os.path.join(self.data_dir, f"neus_data/data_DTU/dtu_{self.scene}")
+        self.images = np.stack([
+            load_img(os.path.join(base, f"image/{vid:0>6}.png")) / 256.0
+            for vid in self.all_views]).astype(np.float32)
+        masks = [load_img(os.path.join(base, f"mask/{vid:0>3}.png")) > 10
+                 for vid in self.all_views]
+        # an RGB mask keeps its first channel, an L mask is (h, w) already
+        self.masks = np.stack([m[..., 0] if m.ndim == 3 else m
+                               for m in masks]).astype(np.float32)
+        self.pseudo_depths = np.stack([
+            resize_nearest(read_pfm(os.path.join(
+                self.data_dir,
+                f"PseudoMVSScore/dtu_exp/{self.scene}/filtered_avg_depth/{vid:0>8}.pfm"))[0],
+                self.img_hw[::-1])
+            for vid in self.all_views]).astype(np.float32) * self.scale_factor
+        ply = read_ply(os.path.join(
+            self.data_dir, f"PseudoMVSDepth/mvsnet{int(self.scene[4:]):0>3}_l3.ply"))
+        pw = ply["vertices"].astype(np.float32)
+        self.pseudo_pts = ((pw - self.scale_mat[:3, 3]) / self.scale_mat[0, 0]).astype(np.float32)

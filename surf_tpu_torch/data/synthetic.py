@@ -12,7 +12,7 @@ from __future__ import annotations
 
 import numpy as np
 
-from .cameras import get_scale_mat, load_K_Rt_from_P, rays_from_pixels, near_far_from_campos
+from .cameras import normalize_cameras, rays_from_pixels
 
 
 def _texture(pts):
@@ -124,27 +124,16 @@ class SyntheticDataset:
             near_fars.append([self.cam_dist - 1.5 * self.radius_world,
                               self.cam_dist + 1.5 * self.radius_world])
 
-        # recentre to ref cam, then unit-sphere normalization (dtu.py:337-364)
-        w2c_ref_inv = np.linalg.inv(w2cs[0])
-        w2cs = [w2c @ w2c_ref_inv for w2c in w2cs]
-        scale_mat, scale_factor = get_scale_mat(self.img_hw, intrs, w2cs, near_fars,
-                                                factor=1.0)
-        c2ws, new_intrs, new_near_fars = [], [], []
-        for i_, w2c in zip(intrs, w2cs):
-            P = (i_ @ w2c @ scale_mat)[:3, :4]
-            ni, c2w = load_K_Rt_from_P(P)
-            c2ws.append(c2w)
-            new_intrs.append(ni)
-            new_near_fars.append(near_far_from_campos(c2w))
+        new_intrs, c2ws, new_near_fars, scale_mat, scale_factor, w2c_ref_inv = \
+            normalize_cameras(self.img_hw, intrs, w2cs, near_fars, 1.0)
         depths = [d * scale_factor for d in depths]
         return {
             "scan": scan, "view_ids": view_ids, "imgs": np.stack(imgs),
             "depths": depths, "masks": np.stack(masks),
-            "intrs": np.stack(new_intrs).astype(np.float32),
-            "c2ws": np.stack(c2ws).astype(np.float32),
+            "intrs": new_intrs, "c2ws": c2ws,
             "scale_mat": (w2c_ref_inv @ scale_mat).astype(np.float32),
             "scale_mat_raw": scale_mat.astype(np.float32),
-            "near_fars": np.stack(new_near_fars).astype(np.float32),
+            "near_fars": new_near_fars,
             "w2c_ref": np.linalg.inv(w2c_ref_inv), "scale_factor": scale_factor,
         }
 

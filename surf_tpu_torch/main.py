@@ -1,12 +1,16 @@
 """CLI of the port, with the JAX CLI's flags (main.py):
 
-    python -m surf_tpu_torch.main --conf confs/surf_synthetic_full.conf --mode val|train
-        [--resume <npz>] [--load_vol] [--mesh_resolution 512] [--seed 0]
-    python -m surf_tpu_torch.main --conf confs/surf_synthetic_finetune.conf --mode finetune
+    python -m surf_tpu_torch.main --conf confs/surf.conf --mode val|train
+        [--resume <npz>] [--load_vol] [--clean_mesh] [--mesh_resolution 512] [--seed 0]
+    python -m surf_tpu_torch.main --conf confs/surf_finetune.conf --mode finetune
         --resume <npz> [--load_vol] [--scene <name>] [--ref_view <i>]
 
 ``--resume`` loads a model checkpoint (``model`` and ``state``), or with
-``--load_vol`` a finetune checkpoint's volumes and implicit surface.
+``--load_vol`` a finetune checkpoint's volumes and implicit surface; in
+train mode it also restores the optimizer's state and goes on from the
+epoch after the saved one (a checkpoint of either package).
+``--clean_mesh`` cleans each validation mesh against the item's dilated
+masks and the views' frusta before it is written (off by default).
 Finetune writes under ``<out>/<scene>/view<ref_view>``.  Runs on the card
 unless ``--device cpu``."""
 
@@ -37,6 +41,8 @@ def parse_args(argv=None):
                    help="finetune reference view override")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--mesh_resolution", type=int, default=512)
+    p.add_argument("--clean_mesh", action="store_true",
+                   help="clean validation meshes with the masks and view frusta")
     p.add_argument("--device", type=str, default="cuda", choices=["cuda", "cpu"])
     p.add_argument("--out", type=str, default=None,
                    help="output directory (default <base_exp_dir>/torch)")
@@ -50,14 +56,11 @@ def main(argv=None):
     set_numerics()
     conf = ConfigFactory.parse_file(args.conf)
     if args.mode == "train":
-        if args.resume is not None:
-            raise NotImplementedError(
-                "--resume in train mode needs the optimizer's moments in the checkpoint, "
-                "which the port does not save yet (ROADMAP.md, queue 1: optimizer-state "
-                "resume for --mode train)")
-        Trainer(conf, device=args.device, seed=args.seed, base_exp_dir=args.out,
-                mesh_resolution=args.mesh_resolution).train()
-        return None
+        t = Trainer(conf, device=args.device, seed=args.seed, base_exp_dir=args.out,
+                    mesh_resolution=args.mesh_resolution, resume=args.resume,
+                    clean_mesh=args.clean_mesh)
+        t.train()
+        return t
     if args.mode == "finetune":
         if args.resume is None:
             raise SystemExit("--mode finetune needs --resume <checkpoint>")
@@ -67,7 +70,7 @@ def main(argv=None):
         f.finetune()
         return f
     v = Validator(conf, device=args.device, mesh_resolution=args.mesh_resolution,
-                  seed=args.seed, base_exp_dir=args.out)
+                  seed=args.seed, base_exp_dir=args.out, clean_mesh=args.clean_mesh)
     if args.resume is not None:
         v.params, v.state, v.vol_state = resume_from(
             args.resume, v.params, v.state, load_vol=args.load_vol, device=v.device)

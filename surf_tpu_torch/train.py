@@ -13,8 +13,12 @@ before its increment.  Weight norm stays (v, g) in the parameters and is
 folded inside the differentiated forward.  The batch-norm running
 statistics and the frozen ``match_feature_network`` are state, never
 optimized; the latter is refreshed on even epochs.  A checkpoint
-(``model``, ``state``, ``epoch``; the JAX package's npz layout) is saved
-every ``save_freq`` epochs and, after the save, every ``val_freq`` epochs
+(``model``, ``state``, ``epoch``, and the optimizer's ``opt_state`` and
+``opt_struct``: the JAX package's npz layout, ``utils/opt_state.py``) is
+saved every ``save_freq`` epochs; ``resume`` (``--mode train --resume``)
+restores parameters, state and, where the checkpoint holds them, the Adam
+moments, step counts and schedule position, and training goes on from the
+epoch after the saved one.  After the save, every ``val_freq`` epochs
 the validation scenes go through the port's validate path (a
 ``Validator`` on the trained parameters and batch-norm state, under
 ``torch.no_grad``), which writes the mesh and the ``val_*`` files.  Each
@@ -35,13 +39,18 @@ from .data import get_dataset
 from .losses import compute_loss, make_loss_config
 from .nn import surf
 from .nn.core import tree_leaves
-from .utils import save_checkpoint, to_numpy_tree, warmup_cosine
+from .utils import load_checkpoint, save_checkpoint, to_numpy_tree, to_torch_tree, \
+    warmup_cosine
+from .utils.opt_state import fingerprint, opt_state_tree, restore_opt_state
 from .validate import Validator, to_device
 
 
 class Trainer:
     def __init__(self, conf, *, device="cuda", seed=0, base_exp_dir=None,
-                 params=None, state=None, mesh_resolution=512):
+                 params=None, state=None, mesh_resolution=512, resume=None,
+                 clean_mesh=False):
+        """``resume``: a training checkpoint of either package (else
+        ``params`` / ``state``, or the seeded init)."""
         self.conf = conf
         self.device = torch.device(device)
         self.epochs = conf.get_int("train.epochs")
@@ -49,15 +58,21 @@ class Trainer:
         self.log_freq = conf.get_float("train.log_freq", default=1.0)
         self.val_freq = conf.get_float("train.val_freq")
         self.mesh_resolution = mesh_resolution
+        self.clean_mesh = clean_mesh
         self.anneal_end = conf.get_float("train.anneal_end", default=0.0)
         self.base_exp_dir = base_exp_dir or os.path.join(
             conf["general.base_exp_dir"], "torch")
         self.seed = seed
-        self.dataset = get_dataset(conf["train_dataset"], "train")
+        self.dataset = get_dataset(conf["train_dataset"], "train", seed=seed)
         self.params, self.state, self.static = surf.init(
             conf["model"], seed=seed, device=self.device)
         if params is not None:
             self.params, self.state = params, state
+        ckpt = load_checkpoint(resume) if resume is not None else None
+        if ckpt is not None:
+            self.params = to_torch_tree(ckpt["model"], self.device)
+            if "state" in ckpt:
+                self.state = to_torch_tree(ckpt["state"], self.device)
         for t in tree_leaves(self.params):
             t.requires_grad_(True)
         self.loss_cfg = make_loss_config(conf["train.loss"])
@@ -79,6 +94,11 @@ class Trainer:
         self.generator = torch.Generator(device=self.device)
         self.generator.manual_seed(seed + 1)
         self.active_voxels = None
+        self.start_epoch = 0
+        if ckpt is not None and "opt_state" in ckpt:
+            restore_opt_state(self.params, self.optimizer, self.scheduler,
+                              ckpt["opt_state"], ckpt.get("opt_struct"))
+            self.start_epoch = int(ckpt["epoch"]) + 1
 
     def cos_anneal_ratio(self, step_f):
         return 1.0 if self.anneal_end == 0.0 else min(1.0, step_f / self.anneal_end)
@@ -121,7 +141,7 @@ class Trainer:
     def train(self):
         n = len(self.dataset)
         val = None
-        for epoch in range(self.epochs):
+        for epoch in range(self.start_epoch, self.epochs):
             if epoch % 2 == 0:
                 self.state = surf.refresh_match_features(self.params, self.state)
             order = np.arange(n)
@@ -146,12 +166,16 @@ class Trainer:
             if (epoch + 1) % self.val_freq == 0:
                 val = val or Validator(self.conf, device=self.device,
                                        mesh_resolution=self.mesh_resolution, seed=self.seed,
-                                       base_exp_dir=self.base_exp_dir)
+                                       base_exp_dir=self.base_exp_dir,
+                                       clean_mesh=self.clean_mesh)
                 self.validate(val, epoch)
 
     def save(self, epoch):
         path = os.path.join(self.base_exp_dir, "checkpoints",
                             f"model_{epoch:0>3}.ckpt.npz")
-        save_checkpoint(path, {"epoch": epoch, "model": to_numpy_tree(self.params),
-                               "state": to_numpy_tree(self.state)})
+        save_checkpoint(path, {
+            "epoch": epoch, "model": to_numpy_tree(self.params),
+            "state": to_numpy_tree(self.state),
+            "opt_state": opt_state_tree(self.params, self.optimizer, self.scheduler),
+            "opt_struct": np.asarray(fingerprint(self.params))})
         return path

@@ -3,10 +3,15 @@
 
 Per scene: FPN features -> 4-stage cascade -> block-skipped SDF lattice
 and host marching cubes -> chunked NeuS render of the validation rays.
-Writes the mesh (``meshes/<scene>_epoch<e>.ply``, in the scene's frame),
-``val_render_depth`` / ``val_sdf_depth`` / ``val_auxi_depth`` / ``val_img``
-/ ``val_normal`` as ``.npy``, and returns PSNR, colour L1, masked depth
-L1 and the timings ``build_s``, ``mesh_s`` and ``render_rays_per_s``.
+With ``clean_mesh`` (``--clean_mesh``) and an item that has ``masks``,
+the mesh is cleaned against the dilated masks and the views' frusta
+(``geometry.clean_mesh``) before it is moved to the scene's frame.
+Writes the mesh (``meshes/<scene>_epoch<e>.ply``) and the artifacts
+``Runner.validate`` writes (surf_tpu/runner.py:653-676), under the same
+names: ``val_img`` and ``val_normal`` as 8-bit PNGs, ``val_render_depth``,
+``val_sdf_depth`` and ``val_auxi_depth`` as magma PNGs plus ``.npy``.
+Returns PSNR, colour L1, masked depth L1 and the timings ``build_s``,
+``mesh_s`` (and ``clean_mesh_s``) and ``render_rays_per_s``.
 """
 
 from __future__ import annotations
@@ -19,7 +24,9 @@ import torch
 from torch.profiler import record_function
 
 from .data import get_dataset
-from .geometry import Mesh, extract_geometry
+from .geometry import Mesh, clean_mesh, extract_geometry
+from .io.colormap import save_depth_png
+from .io.image import write_png
 from .nn import surf, feature_net, implicit_surface, sdf_net
 from .nn.core import materialize_weight_norm
 from .ops.feature_lookup import fuse_pyramid
@@ -92,16 +99,37 @@ def render_full_image(isf_params, isf_static, ipts, stages_ff, matching, feats_f
             cat["sdf_depth"].reshape(h, w), cat["render_depth"].reshape(h, w))
 
 
+def write_artifacts(d, file_name, epoch, color, normal, sdf_depth, render_depth,
+                    auxi_depth=None):
+    """The validate's image artifacts under ``d`` as ``Runner.validate``
+    writes them: colour and normal as 8-bit PNGs, each depth as a magma PNG
+    and its ``.npy`` (``auxi_depth``, the matching field's stage-0 depth,
+    where the cascade gave one)."""
+    tag = f"{file_name}_epoch{epoch}"
+    write_png(os.path.join(d, "val_img", tag + ".png"),
+              (color * 256).clip(0, 255).astype(np.uint8))
+    write_png(os.path.join(d, "val_normal", tag + ".png"),
+              (normal * 128 + 128).clip(0, 255).astype(np.uint8))
+    depths = {"val_render_depth": render_depth, "val_sdf_depth": sdf_depth}
+    if auxi_depth is not None:
+        depths["val_auxi_depth"] = auxi_depth
+    for sub, depth in depths.items():
+        save_depth_png(depth, os.path.join(d, sub, tag + ".png"))
+        np.save(os.path.join(d, sub, tag + ".npy"), depth)
+
+
 class Validator:
     def __init__(self, conf, *, device="cuda", mesh_resolution=512, seed=0,
-                 base_exp_dir=None, params=None, state=None, vol_state=None):
+                 base_exp_dir=None, params=None, state=None, vol_state=None,
+                 clean_mesh=False):
         self.conf = conf
         self.device = torch.device(device)
         self.mesh_resolution = mesh_resolution
+        self.clean_mesh = clean_mesh
         self.val_chunk = conf.get_int("train.val_ray_chunk", default=4096)
         self.base_exp_dir = base_exp_dir or os.path.join(
             conf["general.base_exp_dir"], "torch")
-        self.dataset = get_dataset(conf["val_dataset"], "val")
+        self.dataset = get_dataset(conf["val_dataset"], "val", seed=seed)
         self.params, self.state, self.static = surf.init(
             conf["model"], seed=seed, device=self.device)
         if params is not None:
@@ -155,7 +183,15 @@ class Validator:
             with record_function("mesh"):
                 verts, tris, _ = self.extract_geometry(stages_ff, self.mesh_resolution)
             mesh_s = time.time() - t0
-            mesh = Mesh(verts, tris).apply_transform(np.asarray(inputs["scale_mat"]))
+            mesh = Mesh(verts, tris)
+            clean = {}
+            if self.clean_mesh and "masks" in inputs:
+                t0 = time.time()
+                mesh = clean_mesh(mesh, np.asarray(inputs["masks"]),
+                                  np.asarray(inputs["intrs"]), np.asarray(inputs["c2ws"]))
+                clean = {"clean_mesh_s": time.time() - t0,
+                         "mesh_faces_before_clean": int(len(tris))}
+            mesh.apply_transform(np.asarray(inputs["scale_mat"]))
             scene, file_name = inputs["scene"], inputs["file_name"]
             d = self.base_exp_dir
             for sub in ("meshes", "val_img", "val_normal", "val_sdf_depth",
@@ -171,14 +207,10 @@ class Validator:
             render_s = time.time() - t0
             n_rays = int(ipts["rays_o"].shape[0])
 
-            tag = f"{file_name}_epoch{epoch}.npy"
-            np.save(os.path.join(d, "val_img", tag), color)
-            np.save(os.path.join(d, "val_normal", tag), normal)
-            np.save(os.path.join(d, "val_render_depth", tag), render_depth)
-            np.save(os.path.join(d, "val_sdf_depth", tag), sdf_depth)
-            if "depth_stage0" in mf_outputs:
-                np.save(os.path.join(d, "val_auxi_depth", tag),
-                        mf_outputs["depth_stage0"].cpu().numpy())
+            auxi = mf_outputs["depth_stage0"].cpu().numpy() \
+                if "depth_stage0" in mf_outputs else None
+            write_artifacts(d, file_name, epoch, color, normal, sdf_depth, render_depth,
+                            auxi)
 
             gt = np.asarray(inputs["color"])
             mse = float(((color.reshape(-1, 3) - gt) ** 2).mean())
@@ -197,10 +229,11 @@ class Validator:
                 m["sdf_depth_loss"] = float(
                     (np.abs(sdf_depth - depth_ref) * msdf).sum() / (msdf.sum() + 1e-8))
             m.update({
-                "build_s": build_s, "mesh_s": mesh_s,
+                "build_s": build_s, "mesh_s": mesh_s, **clean,
                 "render_rays_per_s": n_rays / max(render_s, 1e-9),
                 "active_voxels": [int(g.cvalid.sum()) for g, _ in stages],
-                "mesh_vertices": int(len(verts)), "mesh_faces": int(len(tris)),
+                "mesh_vertices": int(len(mesh.vertices)),
+                "mesh_faces": int(len(mesh.faces)),
                 "finite": bool(np.isfinite(color).all() and np.isfinite(normal).all()
                                and np.isfinite(sdf_depth).all()
                                and np.isfinite(render_depth).all()),

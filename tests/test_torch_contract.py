@@ -3,8 +3,10 @@
 * a kernel wrapper given CPU tensors takes its plain version and counts
   no launch; given tensors on another device it raises (no fallback);
 * no module of surf_tpu_torch, nor chip_smoke.py, imports jax or
-  anything of surf_tpu (checked on the import statements with ``ast``:
-  ``surf_tpu_torch`` itself starts with ``surf_tpu``);
+  anything of surf_tpu, nor ``cv2``, ``PIL``, ``matplotlib`` or
+  ``skimage``, none of which the card's machine has (checked on the
+  import statements with ``ast``: ``surf_tpu_torch`` itself starts with
+  ``surf_tpu``);
 * the entry point refuses to run without a card unless asked for the CPU.
 
 The kernels themselves only run on the card: ``test_kernels_match_plain``
@@ -94,7 +96,7 @@ def _imports(path):
 
 def _forbidden(name):
     top = name.split(".")[0]
-    return top in ("jax", "jaxlib", "surf_tpu")
+    return top in ("jax", "jaxlib", "surf_tpu", "cv2", "PIL", "matplotlib", "skimage")
 
 
 def test_port_imports_no_jax_and_no_surf_tpu():
@@ -106,6 +108,9 @@ def test_port_imports_no_jax_and_no_surf_tpu():
            if _forbidden(n)]
     assert not bad, bad
     assert _forbidden("surf_tpu.ops") and not _forbidden("surf_tpu_torch.ops")
+    assert all(_forbidden(n) for n in ("cv2", "PIL.Image", "matplotlib.cm",
+                                       "skimage.morphology"))
+    assert not _forbidden("zlib") and not _forbidden("scipy.ndimage")
 
 
 def test_entry_point_needs_a_card_unless_cpu(monkeypatch):
@@ -118,7 +123,8 @@ def test_entry_point_needs_a_card_unless_cpu(monkeypatch):
 
 def test_train_entry_point_needs_a_card_unless_cpu(monkeypatch):
     from surf_tpu_torch import main
-    assert main.parse_args(["--mode", "train"]).device == "cuda"
+    args = main.parse_args(["--mode", "train"])
+    assert args.device == "cuda" and not args.clean_mesh
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(SystemExit):
         main.main(["--conf", os.path.join(ROOT, "confs", "surf_synthetic_full.conf"),

@@ -567,3 +567,57 @@ def test_k4_k4w_ragged(case, with_live):
         x = torch.randn(M * cin + 1, generator=g).to("cuda")[1:].reshape(M, cin)
         assert x.is_contiguous() and x.data_ptr() % 16 != 0
     _k4_check(x, idx, w, ct, live if with_live else None)
+
+
+@pytest.mark.cuda
+def test_dtu_layout_validate_on_the_card(tmp_path, monkeypatch):
+    """The tiny model's validate on a DTU-layout scene (written by
+    ``data.dtu_scene`` at 96x128, read by ``DTUDataset`` at 48x64) with
+    ``clean_mesh`` on, on the card against the same on the CPU, the render
+    unperturbed and the hybrid U-Net at stage 1: K1-K4 launched; colour, normal and depths within 1e-4
+    (the tiny model's card-against-CPU tolerance in chip_smoke.py); a
+    non-empty mesh that cleaning does not grow; the PNG and ``.npy``
+    artifacts written."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    import re
+    from surf_tpu_torch import _build, validate
+    from surf_tpu_torch.card import set_numerics
+    from surf_tpu_torch.data.dtu_scene import write_dtu_scene
+    set_numerics()
+    root = write_dtu_scene(str(tmp_path / "scene"), image_hw=(96, 128))
+    conf = ConfigFactory.parse_string(re.sub(
+        r"val_dataset \{[^}]*\}\n", "val_dataset {\n dataset_name = DTUDataset\n"
+        f" data_dir = {root}\n scene = [scan24]\n ref_view = [0]\n light_idx = [3]\n"
+        " num_src_view = 2\n val_res_level = 4\n factor = 1.0\n interval_scale = 1\n"
+        " num_interval = 192\n img_hw = [48, 64]\n}\n", TINY, count=1))
+    arrays, write = {}, validate.write_artifacts
+    runs = {}
+    for dev in ("cpu", "cuda"):
+        def recorded(*args, dev=dev):
+            arrays[dev] = args[3:]
+            return write(*args)
+        monkeypatch.setattr(validate, "write_artifacts", recorded)
+        kw = {} if dev == "cpu" else {"params": tckpt.to_torch_tree(init[0], dev),
+                                      "state": tckpt.to_torch_tree(init[1], dev)}
+        v = validate.Validator(conf, device=dev, mesh_resolution=32, clean_mesh=True,
+                               base_exp_dir=str(tmp_path / dev), **kw)
+        if dev == "cpu":
+            init = (tckpt.to_numpy_tree(v.params), tckpt.to_numpy_tree(v.state))
+        v.static["implicit_surface"] = dict(v.static["implicit_surface"], perturb=0.0)
+        v.static["dense_unet_max_res"] = 16     # the hybrid U-Net at stage 1: K4 runs
+        _build.reset_launches()
+        (runs[dev],) = v.validate()
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            launches = dict(_build.launches)
+    for k in ("bilinear_sample_2d", "trilinear_sample_3d", "sparse_trilinear_multi",
+              "gather_conv"):
+        assert launches[k] > 0, k
+    for got, ref in zip(arrays["cuda"], arrays["cpu"]):
+        _close(np.asarray(got), np.asarray(ref), rtol=1e-4, atol=1e-4)
+    for m in runs.values():
+        assert m["finite"] and 0 < m["mesh_faces"] <= m["mesh_faces_before_clean"]
+    for sub, ext in (("val_img", "png"), ("val_normal", "png"), ("val_sdf_depth", "npy"),
+                     ("val_render_depth", "png"), ("val_auxi_depth", "npy")):
+        assert (tmp_path / "cuda" / sub / f"scan24_view0_light3_epoch0.{ext}").exists()

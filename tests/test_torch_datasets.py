@@ -1,0 +1,272 @@
+"""The port's DTU loaders (surf_tpu_torch/data: ``DTUDataset``,
+``DTUDatasetFinetune``, ``DTUDatasetFinetuneNeuS``) against the JAX
+package's on the same miniature on-disk scenes (the DTU and NeuS layouts
+of tests/test_datasets.py, copied here, written by PIL and cv2) and the
+same seed.  Every key of every item must be equal exactly: images, masks
+and depths are the same pixels (the port reads them with its own PNG/PFM
+readers and nearest resize, the JAX package with PIL and cv2), and the
+cameras, rays and pseudo points come from the same numpy arithmetic on
+the same values, so the tolerance for them is 0 as well."""
+
+import os
+
+import cv2
+import numpy as np
+import pytest
+from PIL import Image
+
+from surf_tpu.config import ConfigFactory as JConfig
+from surf_tpu.data import get_loader as j_get_loader
+from surf_tpu.data.dtu import DTUDataset as JDTU
+from surf_tpu.data.dtu_finetune import (DTUDatasetFinetune as JFinetune,
+                                        DTUDatasetFinetuneNeuS as JNeuS)
+from surf_tpu.io.pfm import write_pfm
+from surf_tpu.io.ply import write_ply
+
+from surf_tpu_torch.config import ConfigFactory as TConfig
+from surf_tpu_torch.data import (DTUDataset as TDTU, DTUDatasetFinetune as TFinetune,
+                                 DTUDatasetFinetuneNeuS as TNeuS, get_dataset)
+
+H, W = 48, 64
+
+
+def write_cam(path, vid):
+    ang = vid * 0.3
+    R = np.array([[np.cos(ang), -np.sin(ang), 0],
+                  [np.sin(ang), np.cos(ang), 0],
+                  [0, 0, 1]], np.float32)
+    t = np.array([0.1 * vid, 0.05 * vid, 4.0 + 0.1 * vid], np.float32)
+    extr = np.eye(4, dtype=np.float32)
+    extr[:3, :3] = R
+    extr[:3, 3] = t
+    intr = np.array([[800.0, 0, 800], [0, 800, 600], [0, 0, 1]], np.float32)
+    with open(path, "w") as f:
+        f.write("extrinsic\n")
+        for row in extr:
+            f.write(" ".join(str(x) for x in row) + "\n")
+        f.write("\nintrinsic\n")
+        for row in intr:
+            f.write(" ".join(str(x) for x in row) + "\n")
+        f.write("\n2.5 0.01\n")
+
+
+def write_pairs(root, n):
+    with open(root / "Cameras/pair.txt", "w") as f:
+        f.write(f"{n}\n")
+        for ref in range(n):
+            srcs = [v for v in range(n) if v != ref][:4]
+            f.write(f"{ref}\n{len(srcs)} " +
+                    " ".join(f"{s} {100 - i}" for i, s in enumerate(srcs)) + "\n")
+
+
+def save_png(path, img, writer):
+    """PIL or cv2 (which takes BGR) writes the same pixels."""
+    if writer == "cv2":
+        assert cv2.imwrite(str(path), img[..., ::-1] if img.ndim == 3 else img)
+    else:
+        Image.fromarray(img).save(path)
+
+
+@pytest.fixture(scope="module")
+def dtu_root(tmp_path_factory):
+    """The DTU layout of tests/test_datasets.py:38-70, plus the finetune
+    loader's filtered pseudo depths and point cloud; odd views written by
+    cv2, even ones by PIL."""
+    root = tmp_path_factory.mktemp("dtu")
+    scan = "scan24"
+    for d in ("Cameras", f"Rectified_raw/{scan}", f"Depths_raw/{scan}",
+              f"Pseudo_depths/{scan}", "Pseudo_points", "PseudoMVSDepth",
+              f"PseudoMVSScore/dtu_exp/{scan}/filtered_avg_depth"):
+        os.makedirs(root / d, exist_ok=True)
+    write_pairs(root, 5)
+    rng = np.random.RandomState(0)
+    for vid in range(5):
+        writer = "cv2" if vid % 2 else "pil"
+        write_cam(root / f"Cameras/{vid:08d}_cam.txt", vid)
+        img = (rng.rand(H * 4, W * 4, 3) * 255).astype(np.uint8)
+        for light in range(7):
+            save_png(root / f"Rectified_raw/{scan}/rect_{vid + 1:0>3}_{light}_r5000.png",
+                     img, writer)
+        depth = rng.rand(H, W).astype(np.float32) * 2 + 2.5
+        write_pfm(str(root / f"Depths_raw/{scan}/depth_map_{vid:0>4}.pfm"), depth)
+        write_pfm(str(root / f"Pseudo_depths/{scan}/{vid:0>8}.pfm"), depth * 1.01)
+        write_pfm(str(root / f"PseudoMVSScore/dtu_exp/{scan}/filtered_avg_depth/"
+                             f"{vid:0>8}.pfm"),
+                  rng.rand(H * 2, W * 2).astype(np.float32) * 2 + 2.5)
+        mask = (rng.rand(H * 4, W * 4) > 0.3).astype(np.uint8) * 255
+        save_png(root / f"Depths_raw/{scan}/depth_visual_{vid:0>4}.png", mask, writer)
+    write_ply(str(root / "Pseudo_points/mvsnet024_l3.ply"),
+              rng.randn(500, 3).astype(np.float32))
+    write_ply(str(root / "PseudoMVSDepth/mvsnet024_l3.ply"),
+              rng.randn(700, 3).astype(np.float32))
+    return str(root)
+
+
+@pytest.fixture(scope="module")
+def neus_root(tmp_path_factory):
+    """The NeuS layout of tests/test_datasets.py:158-221; view 0's mask is
+    RGB (the loader keeps its first channel), the others are L."""
+    root = tmp_path_factory.mktemp("neus")
+    scan = "scan24"
+    base = root / f"neus_data/data_DTU/dtu_{scan}"
+    for d in (base / "image", base / "mask", root / "Cameras", root / "PseudoMVSDepth",
+              root / f"PseudoMVSScore/dtu_exp/{scan}/filtered_avg_depth"):
+        os.makedirs(d, exist_ok=True)
+    write_pairs(root, 5)
+    rng = np.random.RandomState(1)
+    cams = {}
+    intr = np.eye(4, dtype=np.float32)
+    intr[:3, :3] = np.array([[800.0, 0, 800], [0, 800, 600], [0, 0, 1]])
+    scale = np.eye(4, dtype=np.float32) * 2.0
+    scale[3, 3] = 1.0
+    scale[:3, 3] = [0.1, 0.2, 0.3]
+    for vid in range(5):
+        ang = vid * 0.3
+        R = np.array([[np.cos(ang), -np.sin(ang), 0],
+                      [np.sin(ang), np.cos(ang), 0],
+                      [0, 0, 1]], np.float32)
+        extr = np.eye(4, dtype=np.float32)
+        extr[:3, :3] = R
+        extr[:3, 3] = [0.1 * vid, 0.05 * vid, 4.0]
+        cams[f"world_mat_{vid}"] = intr @ extr
+        cams[f"scale_mat_{vid}"] = scale
+        img = (rng.rand(H * 2, W * 2, 3) * 255).astype(np.uint8)
+        Image.fromarray(img).save(base / f"image/{vid:0>6}.png")
+        mask = (rng.rand(H * 2, W * 2) > 0.3).astype(np.uint8) * 255
+        if vid == 0:
+            mask = np.stack([mask, 255 - mask, mask], -1)
+        Image.fromarray(mask).save(base / f"mask/{vid:0>3}.png")
+        depth = rng.rand(H, W).astype(np.float32) * 2 + 2.5
+        write_pfm(str(root / f"PseudoMVSScore/dtu_exp/{scan}/"
+                             f"filtered_avg_depth/{vid:0>8}.pfm"), depth)
+    np.savez(base / "cameras_sphere.npz", **cams)
+    write_ply(str(root / "PseudoMVSDepth/mvsnet024_l3.ply"),
+              rng.randn(500, 3).astype(np.float32))
+    return str(root)
+
+
+def confs(text):
+    return JConfig.parse_string(text)["d"], TConfig.parse_string(text)["d"]
+
+
+def assert_items_equal(got, ref):
+    assert sorted(got) == sorted(ref)
+    for k in ref:
+        a, b = got[k], ref[k]
+        if isinstance(b, str):
+            assert a == b, k
+            continue
+        a, b = np.asarray(a), np.asarray(b)
+        assert a.dtype == b.dtype and a.shape == b.shape, (k, a.dtype, b.dtype, a.shape)
+        np.testing.assert_array_equal(a, b, err_msg=k)
+
+
+def dtu_conf(root, mode):
+    if mode == "train":
+        return f"""d {{
+            data_dir = {root}
+            scene = [scan24]
+            ref_view = [0, 1, 2, 3, 4]
+            num_src_view = 2
+            light_idx = [3, 5]
+            factor = 1.0
+            interval_scale = 1
+            num_interval = 192
+            img_hw = [{H}, {W}]
+            n_rays = 64
+        }}"""
+    return f"""d {{
+        data_dir = {root}
+        scene = [scan24]
+        ref_view = [1, 3]
+        light_idx = [3]
+        num_src_view = 2
+        val_res_level = 2
+        factor = 1.0
+        interval_scale = 1
+        num_interval = 192
+        img_hw = [{H}, {W}]
+    }}"""
+
+
+@pytest.mark.parametrize("mode", ["train", "val"])
+def test_dtu_items_equal_jax(dtu_root, mode):
+    jc, tc = confs(dtu_conf(dtu_root, mode))
+    jds = JDTU(jc, mode, rng=np.random.RandomState(7))
+    tds = TDTU(tc, mode, rng=np.random.RandomState(7))
+    assert len(tds) == len(jds) == (10 if mode == "train" else 2)
+    # in order, so that the generator's stream advances alike
+    for i in list(range(len(jds))) + [0]:
+        assert_items_equal(tds[i], jds[i])
+
+
+def test_get_dataset_passes_the_seeded_generator_as_get_loader_does(dtu_root):
+    text = dtu_conf(dtu_root, "train").replace("d {", "d {\n dataset_name = DTUDataset", 1)
+    jc, tc = confs(text)
+    _, _, jds = j_get_loader(jc, "train", seed=3)
+    tds = get_dataset(tc, "train", seed=3)
+    for i in (4, 0, 4):
+        assert_items_equal(tds[i], jds[i])
+    other = get_dataset(tc, "train", seed=4)[0]
+    assert not np.array_equal(other["pixels_x"], tds[0]["pixels_x"])
+
+
+def finetune_conf(root, img_hw, ref_view):
+    return f"""d {{
+        data_dir = {root}
+        scene = scan24
+        ref_view = {ref_view}
+        factor = 1.0
+        interval_scale = 1.0
+        num_interval = 192
+        img_hw = [{img_hw[0]}, {img_hw[1]}]
+        n_rays = 32
+        val_res_level = 4
+    }}"""
+
+
+def check_finetune_surface(tds, jds):
+    for k in ("all_views", "images", "masks", "intrs", "c2ws", "near_fars",
+              "pseudo_depths", "pseudo_pts", "scale_mat", "scale_factor", "scene"):
+        a, b = getattr(tds, k), getattr(jds, k)
+        if isinstance(b, (str, list)):
+            assert a == b, k
+        else:
+            a, b = np.asarray(a), np.asarray(b)
+            assert a.dtype == b.dtype and a.shape == b.shape, k
+            np.testing.assert_array_equal(a, b, err_msg=k)
+    assert_items_equal(tds.get_all_images(), jds.get_all_images())
+    rj, rt = np.random.RandomState(5), np.random.RandomState(5)
+    for vid in (0, 2, 1):
+        assert_items_equal(tds.get_random_rays(vid, rng=rt), jds.get_random_rays(vid, rng=rj))
+        assert_items_equal(tds.get_rays_at(vid), jds.get_rays_at(vid))
+
+
+@pytest.mark.parametrize("img_hw", [(H, W), (H * 3, W * 3)])
+def test_dtu_finetune_equals_jax(dtu_root, img_hw):
+    jc, tc = confs(finetune_conf(dtu_root, img_hw, 2))
+    jds, tds = JFinetune(jc), TFinetune(tc)
+    assert tds.all_views == [2, 0, 1]
+    check_finetune_surface(tds, jds)
+
+
+def test_dtu_finetune_neus_equals_jax(neus_root):
+    jc, tc = confs(finetune_conf(neus_root, (H, W), 0))
+    jds, tds = JNeuS(jc), TNeuS(tc)
+    assert tds.masks.shape == (3, H, W) and tds.all_views == [0, 1, 2]
+    check_finetune_surface(tds, jds)
+
+
+def test_finetune_datasets_through_get_dataset(dtu_root, neus_root):
+    for name, root, cls in (("DTUDatasetFinetune", dtu_root, TFinetune),
+                            ("DTUDatasetFinetuneNeuS", neus_root, TNeuS)):
+        text = finetune_conf(root, (H, W), 1).replace("d {", f"d {{\n dataset_name = {name}", 1)
+        ds = get_dataset(TConfig.parse_string(text)["d"], "finetune", seed=0)
+        assert type(ds) is cls and ds.images.shape == (3, H, W, 3)
+
+
+@pytest.mark.parametrize("name", ["BMVSDataset", "TanksDataset", "ETH3DDataset"])
+def test_jpeg_datasets_raise(name):
+    conf = TConfig.parse_string(f"d {{ dataset_name = {name} }}")["d"]
+    with pytest.raises(NotImplementedError, match="JPEG"):
+        get_dataset(conf, "val")

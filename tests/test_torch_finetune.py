@@ -380,8 +380,9 @@ def test_finetune_cli_end_to_end(tmp_path):
     """``main --mode finetune --device cpu``: from a training checkpoint, 2
     steps with the step -1 mesh and a checkpoint; a ``--load_vol`` resume
     that takes one more step on the saved volumes; ``--mode val
-    --load_vol`` on the same checkpoint.  Train ``--resume`` and finetune
-    without ``--resume`` are refused."""
+    --load_vol`` on the same checkpoint.  Train ``--resume`` of a
+    checkpoint of the conf's last epoch trains no further; finetune
+    without ``--resume`` is refused."""
     from surf_tpu_torch.train import Trainer
     base = CONF.replace("./exp/tiny", str(tmp_path / "exp"))
     first = base.replace("val_freq = 10", "val_freq = 1000\n    val_before_finetune = true"
@@ -418,8 +419,11 @@ def test_finetune_cli_end_to_end(tmp_path):
     res = main(["--conf", paths["again"], "--mode", "val", "--resume", saved, "--load_vol"]
                + args)
     assert res[0]["finite"] and np.isfinite(res[0]["psnr"])
-    with pytest.raises(NotImplementedError, match="optimizer-state resume"):
-        main(["--conf", paths["again"], "--mode", "train", "--resume", ckpt] + args)
+    # train --resume goes on from the epoch after the saved one: here the
+    # conf's last epoch was saved, so nothing is left to train
+    resumed = main(["--conf", paths["again"], "--mode", "train", "--resume", ckpt] + args)
+    assert resumed.start_epoch == 1 == resumed.epochs
+    assert not os.path.exists(os.path.join(str(tmp_path / "out"), "checkpoints"))
     with pytest.raises(SystemExit):
         main(["--conf", paths["again"], "--mode", "finetune"] + args)
 

@@ -16,8 +16,13 @@ floor covers the three leaves whose gradient is 0 by softmax shift
 invariance, which both sides give as round-off of order 1e-9); the
 batch-norm running statistics after the step 1e-5.  Also: one optimizer
 update against ``optax.multi_transform`` Adam with the runner's schedule
-(params within 1e-5 relative), the schedule at 10 fractional epochs, and
-the npz checkpoint layout read bit for bit by the other package."""
+(params within 1e-5 relative), the schedule at 10 fractional epochs, the
+npz checkpoint layout read bit for bit by the other package, and the
+optimizer-state resume of ``--mode train --resume``: a JAX runner's
+checkpoint resumes in the port (moments and counts bit for bit, the next
+update within the Adam test's 1e-5), the port's checkpoint passes the
+JAX runner's ``_restore_opt_state`` with its fingerprint, and the CLI
+goes on from the saved epoch."""
 
 import numpy as np
 import jax
@@ -35,6 +40,7 @@ from surf_tpu.utils.scheduler import warmup_cosine as j_sched
 
 from surf_tpu_torch.config import ConfigFactory
 from surf_tpu_torch.convert import from_jax
+from surf_tpu_torch.io import read_png
 from surf_tpu_torch.losses import compute_loss as t_loss, make_loss_config as t_cfg
 from surf_tpu_torch.nn import surf as tsurf
 from surf_tpu_torch.train import Trainer
@@ -289,7 +295,165 @@ def test_trainer_validates_every_val_freq_epochs_after_the_save(tmp_path):
     for sub in ("val_img", "val_normal", "val_render_depth", "val_sdf_depth",
                 "val_auxi_depth"):
         names = sorted(p.name for p in (ref_dir / sub).iterdir())
-        assert names and all(n.endswith("_epoch0.npy") for n in names), sub
+        # Runner.validate's artifacts: 8-bit PNGs of colour and normal, each
+        # depth as a magma PNG and its .npy
+        stems = {n[:n.rindex(".")] for n in names}
+        exts = (".png",) if sub in ("val_img", "val_normal") else (".npy", ".png")
+        assert stems and all(st.endswith("_epoch0") for st in stems), sub
+        assert names == sorted(st + e for st in stems for e in exts), sub
         assert sorted(p.name for p in (out / sub).iterdir()) == names, sub
         for n in names:
-            np.testing.assert_array_equal(np.load(out / sub / n), np.load(ref_dir / sub / n))
+            load = np.load if n.endswith(".npy") else lambda p: read_png(str(p))
+            np.testing.assert_array_equal(load(out / sub / n), load(ref_dir / sub / n))
+
+
+# -- optimizer-state resume (``--mode train --resume``) ---------------------------
+
+def _sched(conf):
+    return j_sched(conf.get_int("train.epochs"), conf.get_float("train.warmup"),
+                   conf.get_float("train.alpha"))
+
+
+def _runner_optimizer(conf, steps):
+    """The JAX runner's own ``_make_optimizer`` and ``_label_fn`` on a
+    stand-in for the runner (a Runner would back up the code tree and
+    build its loaders)."""
+    from types import SimpleNamespace
+    from surf_tpu.runner import Runner
+    ns = SimpleNamespace(_steps_per_epoch=steps, lr_conf=conf["train.lr_conf"],
+                         _lr_scale=_sched(conf))
+    ns._label_fn = lambda p: Runner._label_fn(ns, p)
+    return Runner._make_optimizer(ns)
+
+
+def _optax_steps(opt, params, grads, n, opt_state=None):
+    opt_state = opt.init(params) if opt_state is None else opt_state
+    for _ in range(n):
+        upd, opt_state = opt.update(grads, opt_state, params)
+        params = optax.apply_updates(params, upd)
+    return params, opt_state
+
+
+def _set_grads(trainer, grads):
+    for path, t in _paths(trainer.params):
+        t.grad = torch.from_numpy(np.array(_get(grads, path)))
+
+
+def test_train_resumes_from_a_jax_checkpoint(setup, tmp_path):
+    """Runner.save's checkpoint after two optax updates: the port's Trainer
+    restores parameters, moments, counts and schedule (start epoch 1), and
+    its next update equals optax's third at the Adam test's tolerance
+    (rtol 1e-5, atol 1e-8)."""
+    from types import SimpleNamespace
+    from surf_tpu.runner import Runner
+    from surf_tpu_torch.utils.opt_state import leaves_with_path
+    _, g_j, _, _, _, _ = _run(setup, "step1_dense")
+    conf, params = setup["conf"], setup["params"]
+    tconf = ConfigFactory.parse_string(TINY)
+    steps = len(JDataset(conf["train_dataset"], "train"))
+    opt = _runner_optimizer(conf, steps)
+    p_j, s_j = _optax_steps(opt, params, g_j, 2)
+    Runner.save(SimpleNamespace(is_main=True, base_exp_dir=str(tmp_path), params=p_j,
+                                state=setup["state"], opt_state=s_j), 0)
+    trainer = Trainer(tconf, device="cpu",
+                      resume=str(tmp_path / "checkpoints" / "model_000.ckpt.npz"))
+    assert trainer.start_epoch == 1 and trainer.scheduler.last_epoch == 2
+    inner = s_j.inner_states
+    for g in trainer.optimizer.param_groups:
+        adam, sched = inner[g["name"]].inner_state
+        assert int(sched.count) == 2
+        np.testing.assert_allclose(
+            g["lr"], float(conf["train.lr_conf"][f"{g['name']}_lr"])
+            * float(_sched(conf)(2 / steps)), rtol=1e-6)
+    for path, t in leaves_with_path(trainer.params):
+        group = "mlp" if path[0] == "implicit_surface" else "feat"
+        adam = inner[group].inner_state[0]
+        st = trainer.optimizer.state[t]
+        assert int(st["step"]) == int(adam.count) == 2
+        np.testing.assert_array_equal(st["exp_avg"].numpy(), np.asarray(_get(adam.mu, path)))
+        np.testing.assert_array_equal(st["exp_avg_sq"].numpy(),
+                                      np.asarray(_get(adam.nu, path)))
+        np.testing.assert_array_equal(t.detach().numpy(), np.asarray(_get(p_j, path)))
+    p_j3, _ = _optax_steps(opt, p_j, g_j, 1, s_j)
+    _set_grads(trainer, g_j)
+    trainer.update()
+    for path, t in _paths(trainer.params):
+        np.testing.assert_allclose(t.detach().numpy(), np.asarray(_get(p_j3, path)),
+                                   rtol=1e-5, atol=1e-8, err_msg=str(path))
+
+
+
+def test_port_checkpoint_restores_under_the_jax_runner(setup, tmp_path):
+    """The port's training checkpoint after two updates: its ``opt_struct``
+    is the JAX runner's fingerprint character for character,
+    ``_restore_opt_state`` accepts it, and the restored optax state equals
+    optax's own after the same two updates (moments rtol 1e-5, counts
+    exactly).  A changed fingerprint or leaf shape is refused by both."""
+    from surf_tpu.runner import _opt_state_fingerprint, _restore_opt_state
+    from surf_tpu_torch.utils.opt_state import leaves_with_path, restore_opt_state
+    _, g_j, _, _, _, _ = _run(setup, "step1_dense")
+    conf, params = setup["conf"], setup["params"]
+    tconf = ConfigFactory.parse_string(TINY)
+    tp, ts = from_jax(jax.tree.map(np.asarray, params), jax.tree.map(np.asarray, setup["state"]))
+    trainer = Trainer(tconf, device="cpu", params=tp, state=ts, base_exp_dir=str(tmp_path))
+    for _ in range(2):
+        _set_grads(trainer, g_j)
+        trainer.update()
+    path = trainer.save(0)
+    ck = jckpt.load_checkpoint(path)
+    opt = _runner_optimizer(conf, trainer.steps_per_epoch)
+    assert str(ck["opt_struct"]) == _opt_state_fingerprint(opt.init(params))
+    restored = _restore_opt_state(opt, params, ck["opt_state"], ck["opt_struct"])
+    _, s_j = _optax_steps(opt, params, g_j, 2)
+    for (kp, a), b in zip(jax.tree_util.tree_flatten_with_path(restored)[0],
+                          jax.tree.leaves(s_j)):
+        a, b = np.asarray(a), np.asarray(b)
+        assert a.dtype == b.dtype and a.shape == b.shape, jax.tree_util.keystr(kp)
+        np.testing.assert_allclose(a, b, rtol=1e-5, atol=1e-12,
+                                   err_msg=jax.tree_util.keystr(kp))
+    # refusals: a changed fingerprint, then a leaf of another shape
+    bad = str(ck["opt_struct"]).replace(":(129,):", ":(128,):", 1)
+    with pytest.raises(ValueError, match="structure changed"):
+        _restore_opt_state(opt, params, ck["opt_state"], bad)
+    with pytest.raises(ValueError, match="structure changed"):
+        restore_opt_state(trainer.params, trainer.optimizer, trainer.scheduler,
+                          tckpt.load_checkpoint(path)["opt_state"], bad)
+    tree = tckpt.load_checkpoint(path)["opt_state"]
+    leaf, _ = next(leaves_with_path(trainer.params["implicit_surface"]))
+    node = tree[0]["mlp"][0][0][1]["implicit_surface"]       # mu
+    for k in leaf[:-1]:
+        node = node[k]
+    node[leaf[-1]] = np.zeros((1, 2, 3), np.float32)
+    with pytest.raises(ValueError, match="shape mismatch"):
+        restore_opt_state(trainer.params, trainer.optimizer, trainer.scheduler, tree)
+
+
+def test_train_resume_through_the_cli(tmp_path):
+    """``--mode train --resume``: a run from epoch 0's checkpoint trains
+    epoch 1 only, its optimizer going on from the saved counts, and writes
+    a checkpoint the JAX runner's ``_restore_opt_state`` accepts."""
+    from surf_tpu.runner import _restore_opt_state
+    from surf_tpu_torch import main
+    text = TINY.replace("n_scenes = 2\n    n_views_total = 6",
+                        "n_scenes = 1\n    n_views_total = 3", 1)
+    assert text != TINY
+    conf_path = tmp_path / "tiny.conf"
+    conf_path.write_text(text)
+    first = main.main(["--conf", str(conf_path), "--mode", "train", "--device", "cpu",
+                       "--out", str(tmp_path / "a")])
+    n = first.steps_per_epoch
+    assert n == 3 and first.scheduler.last_epoch == 2 * n
+    ckpt0 = tmp_path / "a" / "checkpoints" / "model_000.ckpt.npz"
+    resumed = main.main(["--conf", str(conf_path), "--mode", "train", "--device", "cpu",
+                         "--out", str(tmp_path / "b"), "--resume", str(ckpt0)])
+    assert resumed.start_epoch == 1
+    assert sorted(p.name for p in (tmp_path / "b" / "checkpoints").iterdir()) == \
+        ["model_001.ckpt.npz"]
+    ck = jckpt.load_checkpoint(str(tmp_path / "b" / "checkpoints" / "model_001.ckpt.npz"))
+    assert int(ck["epoch"]) == 1
+    adam, sched = ck["opt_state"][0]["mlp"][0]
+    assert int(adam[0]) == int(sched[0]) == 2 * n
+    jconf = tiny_conf()
+    params = jax.tree.map(jnp.asarray, ck["model"])
+    _restore_opt_state(_runner_optimizer(jconf, n), params, ck["opt_state"],
+                       ck["opt_struct"])
