@@ -103,7 +103,27 @@ Phases, one line each (any failure exits non-zero, with no result line):
    ``mesh_s``, ``clean_mesh_s``, s/step and peak memory, and each kernel
    row gains its launches in the three parts
    (``launches_in_dtu_validate`` / ``_train`` / ``_finetune``);
-10. reference: the tiny model on the card against the same model on the
+10. mvs: the JPEG data path at full width, for each of
+   confs/surf_bmvs.conf, surf_tanks.conf and surf_eth3d.conf (3 views of
+   576x768, 5 of 1080x1920, 7 of 1200x2400; ``val_res_level`` 4; 4
+   stages to 704^3; 512^3 mesh): the procedural scene written in the
+   dataset's layout with the conf's scan and views (JPEGs at the native
+   576x768, 1080x1920 and 4141x6212 by the port's encoder, cam files,
+   pair.txt, BlendedMVS's depth PFMs) in a temporary directory under exp/
+   that the phase deletes, then ``Validator.validate`` with
+   ``clean_mesh`` on: every forward kernel launched, finite outputs, a
+   non-empty mesh that cleaning does not grow, the PNG artifacts,
+   ``val_img`` equal to the rendered colour's 8-bit form, K1's and K2's
+   largest operands inside their 32-bit rules, and the largest call of
+   every kernel launched held against its plain version (``call_site``
+   "mvs <key> validate"; K1 also on its largest image, the colour
+   fetch's fused pyramid).  Prints ``read_jpeg``'s time on one native
+   image of each (the first read apart, the library's build apart), the
+   seconds a loaded item, ``build_s``, ``mesh_s``, ``clean_mesh_s``,
+   ``render_rays_per_s``, peak memory, and each kernel row gains its
+   launches in each validate (``launches_in_mvs_bmvs`` / ``_tanks`` /
+   ``_eth3d``);
+11. reference: the tiny model on the card against the same model on the
    CPU (plain versions, themselves held against the JAX package by the
    tier-1 tests): a validate build + render, and one training step's
    loss terms and gradients, also against the same step on the card with
@@ -638,11 +658,28 @@ def k1_entry(what, image, co, align, normalized=True):
                              align_corners=align_n)
     # (F.grid_sample takes normalized coordinates: converted pixel ones move
     # by up to ~1e-4 pixel at 1600 columns, so there the library is held
-    # against the plain version at the converted coordinates)
-    lib_ref = got if normalized else gs.bilinear_sample_plain(image, co_n,
-                                                              align_corners=True)
-    check_close(f"K1 {what} vs F.grid_sample", lib_ref, lib()[:, :, 0].permute(0, 2, 1),
-                1e-4, 1e-4)
+    # against the plain version at the converted coordinates.  Its CUDA
+    # kernel unnormalizes an align_corners=False coordinate as
+    # ((c + 1) * size - 1) / 2 with the multiply-add fused, one rounding
+    # where K1, its plain version and the JAX package round twice: at
+    # 1920-2400 columns that moves a point by up to ~1.2e-4 pixel, so there
+    # the library is held against the plain version at its own pixel
+    # coordinates, the fused form computed exactly in f64 and rounded once.)
+    data = texel_load(image, co, normalized, align)
+    lib_out = lib()[:, :, 0].permute(0, 2, 1)
+    if not normalized:
+        lib_ref = gs.bilinear_sample_plain(image, co_n, align_corners=True)
+    elif not align:
+        H, W = image.shape[1:3]
+        lib_px = torch.stack([((co[..., a] + 1.0).double() * n - 1.0).float() / 2
+                              for a, n in ((0, W), (1, H))], -1)
+        lib_ref = gs.bilinear_sample_plain(image, lib_px, normalized=False)
+        data["library_err_at_its_coordinates"] = (lib_out - lib_ref).abs().max().item()
+        data["library_err_at_k1_coordinates"] = (lib_out - got).abs().max().item()
+    else:
+        lib_ref = got
+    check_close(f"K1 {what} vs F.grid_sample", lib_ref, lib_out, 1e-4, 1e-4)
+    del lib_out
     V, N, C = got.shape
     texels = distinct_taps(image.shape[:3], co_n, align_n)
     b_ms, b_by = bound(nbytes(co) + nbytes(got) + texels * C * 4, V * N * C * 12)
@@ -650,7 +687,7 @@ def k1_entry(what, image, co, align, normalized=True):
                      f"align_corners={align}"
                      + ("" if normalized else ", pixel coordinates")
                      + f", {texels} distinct texels read",
-            "data": texel_load(image, co, normalized, align),
+            "data": data,
             "max_abs_err": err,
             "ms": time_ms(lambda: gs.bilinear_sample(image, co, **kw)),
             "plain_ms": time_ms(lambda: gs.bilinear_sample_plain(image, co, **kw), 5),
@@ -2175,7 +2212,192 @@ def dtu_phase(dev="cuda", conf_path=None, ft_conf_path=None, image_hw=(1200, 160
 
 
 # ---------------------------------------------------------------------------
-# phase 10: tiny model, card against CPU
+# phase 10: the BlendedMVS, Tanks and ETH3D validates (JPEG data path)
+# ---------------------------------------------------------------------------
+
+# key -> the conf that names the dataset, its scan and its views
+MVS_CONFS = {"bmvs": "surf_bmvs.conf", "tanks": "surf_tanks.conf", "eth3d": "surf_eth3d.conf"}
+INT32_LIMIT = 2 ** 31 - 1
+
+
+@contextlib.contextmanager
+def record_size_limits():
+    """Inside the block, the largest operands K1 and K2 were handed, against
+    their 32-bit rules (``ops/grid_sample.py``: ``_k1_layout``,
+    ``_k2_size_rule``): K1's image elements and points a view, K2's volume
+    elements and points.  Yields the dict of maxima; under "k1_largest_image"
+    the (images, coords, kwargs) of K1's call on the largest image."""
+    from surf_tpu_torch.ops import grid_sample as gs
+    most = {"k1_image_elements": 0, "k1_points_per_view": 0, "k1_views": 0,
+            "k2_volume_elements": 0, "k2_points": 0}
+    orig = {"bilinear_sample": gs.bilinear_sample, "trilinear_sample": gs.trilinear_sample}
+
+    def k1(images, coords, **kw):
+        if images.numel() > most["k1_image_elements"]:
+            most["k1_largest_image"] = (images.detach(), coords.detach(), kw)
+        for k, n in (("k1_image_elements", images.numel()),
+                     ("k1_points_per_view", coords.shape[1]), ("k1_views", images.shape[0])):
+            most[k] = max(most[k], int(n))
+        return orig["bilinear_sample"](images, coords, **kw)
+
+    def k2(volume, coords, **kw):
+        most["k2_volume_elements"] = max(most["k2_volume_elements"], int(volume.numel()))
+        most["k2_points"] = max(most["k2_points"], int(coords.shape[0]))
+        return orig["trilinear_sample"](volume, coords, **kw)
+    gs.bilinear_sample, gs.trilinear_sample = k1, k2
+    try:
+        yield most
+    finally:
+        gs.bilinear_sample, gs.trilinear_sample = orig["bilinear_sample"], orig[
+            "trilinear_sample"]
+
+
+def mvs_phase(dev="cuda", conf_paths=None, image_hw=None, mesh_resolution=512):
+    """The three cross-dataset validates at their confs' full width
+    (confs/surf_bmvs.conf, surf_tanks.conf, surf_eth3d.conf: 3 views of
+    576x768, 5 of 1080x1920, 7 of 1200x2400; ``val_res_level`` 4; 4
+    stages to 704^3; a 512^3 mesh), each on the procedural scene that the
+    phase writes in the dataset's layout (``data.mvs_scene``: the conf's
+    scan and views, JPEGs at the native 576x768, 1080x1920, 4141x6212)
+    into a temporary directory under exp/ and deletes:
+    ``Validator.validate`` with ``clean_mesh`` on, every forward kernel
+    launched, finite outputs, a non-empty mesh that cleaning does not
+    grow, the PNG artifacts written and ``val_img`` equal to the rendered
+    colour's 8-bit form; K1's and K2's largest operands held against
+    their 32-bit rules; the largest call of every kernel launched held
+    against its plain version (``largest_call_entries``, ``call_site``
+    "mvs <key> validate"), and K1's call on its largest image (the colour
+    fetch's fused pyramid) too.  Also times ``read_jpeg`` on one native image
+    of each dataset (the first read apart; the library's g++ build
+    apart, before any scene is written).
+
+    Returns (the launches of each validate, the numbers of each, the
+    entries of each by kernel), keyed "bmvs", "tanks", "eth3d".  (``dev``
+    "cpu" with tiny ``conf_paths`` and small ``image_hw`` rehearses the
+    phase.)"""
+    import shutil
+    import tempfile
+    import numpy as np
+    import torch
+    from surf_tpu_torch import _build, validate
+    from surf_tpu_torch.config import ConfigFactory
+    from surf_tpu_torch.data.mvs_generic import _SPECS
+    from surf_tpu_torch.data.mvs_scene import write_mvs_scene
+    from surf_tpu_torch.io import jpeg, read_png
+    cuda = dev == "cuda"
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize()
+    os.makedirs(os.path.join(HERE, "exp"), exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_mvs_", dir=os.path.join(HERE, "exp"))
+    launches, nums, entries = {}, {}, {}
+    try:
+        t0 = time.time()
+        jpeg._lib()
+        build_s = time.time() - t0
+        for key, conf_name in MVS_CONFS.items():
+            conf = ConfigFactory.parse_file((conf_paths or {}).get(key) or os.path.join(
+                HERE, "confs", conf_name))
+            d = conf["val_dataset"]
+            name, scan = d["dataset_name"], d["scene"][0]
+            views = sorted(list(d["ref_view"]) + list(d["src_views"]))
+            native = (image_hw or {}).get(key) or _SPECS[name]["native_hw"]
+            t0 = time.time()
+            root = write_mvs_scene(os.path.join(tmp, key), name, scan, views,
+                                   image_hw=native)
+            n = {"dataset": name, "views": len(views), "native_hw": list(native),
+                 "scene_write_s": time.time() - t0}
+            if key == "bmvs":
+                n["jpeg_library_build_s"] = build_s
+            img = os.path.join(root, _SPECS[name]["img_pattern"].format(scan=scan,
+                                                                          vid=views[0]))
+            times = []
+            for _ in range(4):
+                t0 = time.time()
+                jpeg.read_jpeg(img)
+                times.append(time.time() - t0)
+            n.update(read_jpeg_first_s=times[0], read_jpeg_s=statistics.median(times[1:]))
+            d["data_dir"] = root
+            v = validate.Validator(conf, device=dev, mesh_resolution=mesh_resolution, seed=0,
+                                   base_exp_dir=os.path.join(tmp, key + "_val"),
+                                   clean_mesh=True)
+            t0 = time.time()
+            item = v.dataset[0]
+            n["val_load_s_per_item"] = time.time() - t0
+            n["val_item_hw"] = list(item["imgs"].shape[1:3])
+            del item
+            written, write = {}, validate.write_artifacts
+
+            def recorded(*args):
+                written["args"] = args
+                return write(*args)
+            validate.write_artifacts = recorded
+            try:
+                sync()
+                if cuda:
+                    torch.cuda.reset_peak_memory_stats()
+                _build.reset_launches()
+                with record_forward_calls() as fwd, record_k4_train_calls() as (_, k4), \
+                        record_size_limits() as sizes:
+                    (m,) = v.validate()
+                sync()
+            finally:
+                validate.write_artifacts = write
+            launches[key] = dict(_build.launches)
+            missing = [k for k in FWD_KERNELS if launches[key][k] <= 0]
+            if missing:
+                fail(f"mvs: the {name} validate launched no {missing}")
+            if not m["finite"] or not 0 < m["mesh_faces"] <= m["mesh_faces_before_clean"]:
+                fail(f"mvs {key}: non-finite outputs or a mesh that cleaning emptied or "
+                     f"grew: {m}")
+            dd, file_name, epoch, color = written["args"][:4]
+            val_png = os.path.join(dd, "val_img", f"{file_name}_epoch{epoch}.png")
+            if not np.array_equal(read_png(val_png),
+                                  (color * 256).clip(0, 255).astype(np.uint8)):
+                fail(f"mvs {key}: val_img's PNG differs from the rendered colour's 8-bit form")
+            arts = sorted(os.path.relpath(os.path.join(dp, f), dd)
+                          for dp, _, fs in os.walk(dd) for f in fs if not dp.endswith("meshes"))
+            if len(arts) != 8:
+                fail(f"mvs {key}: expected 2 PNGs and 3 depth PNG/.npy pairs, found {arts}")
+            k1_image, k1_co, k1_kw = sizes.pop("k1_largest_image")
+            over = {k: x for k, x in sizes.items() if k != "k1_views" and x >= INT32_LIMIT}
+            if over or sizes["k1_views"] > 65535:
+                fail(f"mvs {key}: a K1/K2 operand beyond the 32-bit rules: {sizes}")
+            n.update({k: m[k] for k in ("build_s", "mesh_s", "clean_mesh_s",
+                                        "render_rays_per_s", "mesh_faces_before_clean",
+                                        "mesh_faces", "active_voxels", "psnr",
+                                        "render_depth_loss", "sdf_depth_loss")})
+            n["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 2 ** 30 if cuda else 0.0
+            n["largest_operands"] = dict(sizes, int32_limit=INT32_LIMIT)
+            n["launches"] = {k: c for k, c in launches[key].items() if c}
+            say("mvs", f"{key} validate ({file_name}, {len(arts)} artifacts): "
+                + json.dumps(n))
+            del v, written
+            shutil.rmtree(os.path.join(tmp, key), ignore_errors=True)
+            t0 = time.time()
+            entries[key] = largest_call_entries(f"mvs {key} validate", fwd, k4, {})
+            # K1 on the largest image (the colour fetch's fused pyramid), if
+            # that is not its largest call by output
+            if k1_image.numel() > fwd["bilinear_sample_2d"][1][0].numel():
+                e = k1_entry(f"mvs {key} validate, largest image", k1_image, k1_co,
+                             k1_kw.get("align_corners", True), k1_kw.get("normalized", True))
+                e["call_site"] = f"mvs {key} validate, largest image"
+                entries[key]["bilinear_sample_2d"].append(e)
+                say("kernel", f"bilinear_sample_2d in the mvs {key} validate, largest image: "
+                    + json.dumps(e))
+            n["kernel_checks_s"] = time.time() - t0
+            nums[key] = n
+            del fwd, k4, k1_image, k1_co
+            if cuda:
+                torch.cuda.empty_cache()
+        return launches, nums, entries
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+# ---------------------------------------------------------------------------
+# phase 11: tiny model, card against CPU
 # ---------------------------------------------------------------------------
 
 def reference_check():
@@ -2457,6 +2679,18 @@ def main():
                 r.setdefault("also_checked", []).extend(new)
     dtu_nums["phase_s"] = time.time() - t0
     say("dtu", json.dumps(dtu_nums))
+    torch.cuda.empty_cache()
+
+    t0 = time.time()
+    mvs_launches, mvs_nums, mvs_entries = mvs_phase()
+    for r in rows:
+        for key, counts in mvs_launches.items():
+            r[f"launches_in_mvs_{key}"] = counts.get(r["name"], 0)
+            new = mvs_entries[key].get(r["name"], [])
+            if new:
+                r.setdefault("also_checked", []).extend(new)
+    mvs_nums["phase_s"] = time.time() - t0
+    say("mvs", json.dumps(mvs_nums))
     torch.cuda.empty_cache()
 
     t0 = time.time()

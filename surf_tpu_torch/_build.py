@@ -5,10 +5,10 @@
   compiled by ``nvcc`` for ``sm_90a`` with a plain C interface (no PyTorch
   headers, so a build takes seconds).  ``build_kernels()`` starts one
   ``nvcc`` per source, all at once, and waits for them.
-* ``csrc/marching_cubes.cpp``, ``csrc/raycast_bvh.cpp`` and
-  ``csrc/png_unfilter.cpp``: host code (the marching cubes, the mesh
-  cleaning's BVH raycaster, the PNG reader's unfilter), compiled by
-  ``g++`` through ``host_lib``.
+* ``csrc/marching_cubes.cpp``, ``csrc/raycast_bvh.cpp``,
+  ``csrc/png_unfilter.cpp`` and ``csrc/jpeg_decode.cpp``: host code (the
+  marching cubes, the mesh cleaning's BVH raycaster, the PNG reader's
+  unfilter, the JPEG codec), compiled by ``g++`` through ``host_lib``.
 
 Nothing is compiled when a module is imported.
 """
@@ -123,7 +123,7 @@ def host_lib(name, source):
         with _LOCK:
             if _stale(out, src):
                 tmp = f"{out}.{os.getpid()}.tmp"
-                subprocess.run(["g++", "-O3", "-shared", "-fPIC", "-std=c++17",
+                subprocess.run(["g++", "-O3", "-shared", "-fPIC", "-std=c++17", "-pthread",
                                 src, "-o", tmp], check=True, capture_output=True)
                 os.replace(tmp, out)
         lib = ctypes.CDLL(out)

@@ -5,13 +5,14 @@
 //
 // Median-split BVH + Moller-Trumbore. C ABI for ctypes:
 //   bvh_build(verts, nv, tris, nt) -> handle
-//   bvh_first_hit(handle, origins, dirs, n, out_tri_idx, out_t)
+//   bvh_first_hit(handle, origins, dirs, n, out_tri_idx, out_t)  (multi-threaded)
 //   bvh_free(handle)
 
 #include <algorithm>
 #include <cmath>
 #include <cstdint>
 #include <cstdlib>
+#include <thread>
 #include <vector>
 
 namespace {
@@ -105,6 +106,46 @@ inline bool tri_hit(const V3& v0, const V3& e1, const V3& e2,
     return true;
 }
 
+// first hits of rays [begin, end)
+void cast_range(const BVH* bvh, const float* origins, const float* dirs, int64_t begin,
+                int64_t end, int64_t* out_tri, float* out_t) {
+    std::vector<int> stack(128);
+    for (int64_t r = begin; r < end; ++r) {
+        V3 o = {origins[3 * r], origins[3 * r + 1], origins[3 * r + 2]};
+        V3 d = {dirs[3 * r], dirs[3 * r + 1], dirs[3 * r + 2]};
+        V3 inv_d = {1.0f / (d.x == 0 ? 1e-12f : d.x),
+                    1.0f / (d.y == 0 ? 1e-12f : d.y),
+                    1.0f / (d.z == 0 ? 1e-12f : d.z)};
+        float best_t = 1e30f;
+        int64_t best = -1;
+        if (!bvh->nodes.empty()) {
+            int sp = 0;
+            stack[sp++] = 0;
+            while (sp > 0) {
+                const Node& node = bvh->nodes[stack[--sp]];
+                if (!box_hit(node.box, o, inv_d, best_t)) continue;
+                if (node.count > 0) {
+                    for (int i = 0; i < node.count; ++i) {
+                        int tri = bvh->order[node.start + i];
+                        float t;
+                        if (tri_hit(bvh->v0[tri], bvh->e1[tri], bvh->e2[tri], o, d, t)
+                            && t < best_t) {
+                            best_t = t;
+                            best = tri;
+                        }
+                    }
+                } else {
+                    if (sp + 2 > (int)stack.size()) stack.resize(stack.size() * 2);
+                    stack[sp++] = node.left;
+                    stack[sp++] = node.right;
+                }
+            }
+        }
+        out_tri[r] = best;
+        out_t[r] = best < 0 ? -1.0f : best_t;
+    }
+}
+
 }  // namespace
 
 extern "C" {
@@ -140,42 +181,21 @@ void* bvh_build(const float* verts, int64_t nv, const int64_t* tris, int64_t nt)
 
 void bvh_first_hit(void* handle, const float* origins, const float* dirs,
                    int64_t n, int64_t* out_tri, float* out_t) {
-    BVH* bvh = (BVH*)handle;
-    std::vector<int> stack(128);
-    for (int64_t r = 0; r < n; ++r) {
-        V3 o = {origins[3 * r], origins[3 * r + 1], origins[3 * r + 2]};
-        V3 d = {dirs[3 * r], dirs[3 * r + 1], dirs[3 * r + 2]};
-        V3 inv_d = {1.0f / (d.x == 0 ? 1e-12f : d.x),
-                    1.0f / (d.y == 0 ? 1e-12f : d.y),
-                    1.0f / (d.z == 0 ? 1e-12f : d.z)};
-        float best_t = 1e30f;
-        int64_t best = -1;
-        if (!bvh->nodes.empty()) {
-            int sp = 0;
-            stack[sp++] = 0;
-            while (sp > 0) {
-                const Node& node = bvh->nodes[stack[--sp]];
-                if (!box_hit(node.box, o, inv_d, best_t)) continue;
-                if (node.count > 0) {
-                    for (int i = 0; i < node.count; ++i) {
-                        int tri = bvh->order[node.start + i];
-                        float t;
-                        if (tri_hit(bvh->v0[tri], bvh->e1[tri], bvh->e2[tri], o, d, t)
-                            && t < best_t) {
-                            best_t = t;
-                            best = tri;
-                        }
-                    }
-                } else {
-                    if (sp + 2 > (int)stack.size()) stack.resize(stack.size() * 2);
-                    stack[sp++] = node.left;
-                    stack[sp++] = node.right;
-                }
-            }
-        }
-        out_tri[r] = best;
-        out_t[r] = best < 0 ? -1.0f : best_t;
+    // the rays are independent: contiguous ranges on the host's threads
+    // (the same hits as one thread)
+    const BVH* bvh = (const BVH*)handle;
+    const int64_t per = 1 << 14;
+    const int64_t hw = std::max<int64_t>(1, std::thread::hardware_concurrency());
+    const int64_t nt = std::min<int64_t>(hw, (n + per - 1) / per);
+    if (nt <= 1) {
+        cast_range(bvh, origins, dirs, 0, n, out_tri, out_t);
+        return;
     }
+    std::vector<std::thread> workers;
+    for (int64_t k = 0; k < nt; ++k)
+        workers.emplace_back(cast_range, bvh, origins, dirs, n * k / nt, n * (k + 1) / nt,
+                             out_tri, out_t);
+    for (std::thread& w : workers) w.join();
 }
 
 void bvh_free(void* handle) { delete (BVH*)handle; }

@@ -1,26 +1,31 @@
 """Host-side datasets (numpy): ``DTUDataset``, the per-scene finetune
-surfaces ``DTUDatasetFinetune`` and ``DTUDatasetFinetuneNeuS``, and the
-procedural ``SyntheticDataset`` / ``SyntheticDatasetFinetune``, which need
-no download (``dtu_scene.write_dtu_scene``, a fixture of the tests and of
-``chip_smoke.py``, writes that scene as a DTU scan).  In mode ``finetune`` the bare dataset is the loader (its
-``get_random_rays`` draws the batches)."""
+surfaces ``DTUDatasetFinetune`` and ``DTUDatasetFinetuneNeuS``, the JPEG
+validation sets ``BMVSDataset``, ``TanksDataset`` and ``ETH3DDataset``
+(``mvs_generic.GenericMVSDataset``), and the procedural
+``SyntheticDataset`` / ``SyntheticDatasetFinetune``, which need no
+download (``dtu_scene.write_dtu_scene`` and ``mvs_scene.write_mvs_scene``,
+fixtures of the tests and of ``chip_smoke.py``, write that scene as a DTU
+scan and in the three JPEG layouts).  In mode ``finetune`` the bare
+dataset is the loader (its ``get_random_rays`` draws the batches)."""
 
 import numpy as np
 
 from .dtu import DTUDataset
 from .finetune import (DTUDatasetFinetune, DTUDatasetFinetuneNeuS,
                        SyntheticDatasetFinetune)
+from .mvs_generic import BMVSDataset, ETH3DDataset, TanksDataset
 from .synthetic import SyntheticDataset
 
 _DATASETS = {"DTUDataset": DTUDataset,
              "SyntheticDataset": SyntheticDataset,
              "SyntheticDatasetFinetune": SyntheticDatasetFinetune,
              "DTUDatasetFinetune": DTUDatasetFinetune,
-             "DTUDatasetFinetuneNeuS": DTUDatasetFinetuneNeuS}
+             "DTUDatasetFinetuneNeuS": DTUDatasetFinetuneNeuS,
+             "BMVSDataset": BMVSDataset,
+             "TanksDataset": TanksDataset,
+             "ETH3DDataset": ETH3DDataset}
 # datasets that draw from the host generator get_dataset hands them
-_SEEDED = (DTUDataset,)
-# the JPEG layouts of surf_tpu/data/mvs_generic.py (GenericMVSDataset)
-_JPEG = ("BMVSDataset", "TanksDataset", "ETH3DDataset")
+_SEEDED = (DTUDataset, BMVSDataset, TanksDataset, ETH3DDataset)
 
 
 def get_dataset(conf, mode, seed=0):
@@ -28,11 +33,6 @@ def get_dataset(conf, mode, seed=0):
     draws rays and views on the host gets ``np.random.RandomState(seed)``,
     as the JAX package's ``get_loader`` gives it."""
     name = conf["dataset_name"]
-    if name in _JPEG:
-        raise NotImplementedError(
-            f"{name} is not ported yet: its images are JPEG, and the port has no "
-            "JPEG decoder yet (ROADMAP.md, queue 1: the JPEG decoder and "
-            "GenericMVSDataset)")
     if name not in _DATASETS:
         raise NotImplementedError(f"dataset {name} is not ported yet")
     cls = _DATASETS[name]
@@ -41,5 +41,6 @@ def get_dataset(conf, mode, seed=0):
     return cls(conf, mode)
 
 
-__all__ = ["DTUDataset", "DTUDatasetFinetune", "DTUDatasetFinetuneNeuS",
-           "SyntheticDataset", "SyntheticDatasetFinetune", "get_dataset"]
+__all__ = ["BMVSDataset", "DTUDataset", "DTUDatasetFinetune", "DTUDatasetFinetuneNeuS",
+           "ETH3DDataset", "SyntheticDataset", "SyntheticDatasetFinetune", "TanksDataset",
+           "get_dataset"]

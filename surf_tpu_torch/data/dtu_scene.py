@@ -41,6 +41,24 @@ NUM_INTERVAL = 192      # the confs' num_interval: the depth range's planes
 N_POINTS = 8192
 
 
+def ring_neighbours(i, n):
+    """The ring's other cameras, nearest to camera ``i`` of ``n`` first."""
+    return sorted((j for j in range(n) if j != i),
+                  key=lambda j: (min((j - i) % n, (i - j) % n), j))
+
+
+def write_cam_file(path, w2c, intr, near, interval):
+    """A CasMVSNet cam file: the 4x4 extrinsic, the 3x3 intrinsic and the
+    depth range's start and interval (line 11), as ``read_cam_file``
+    reads them."""
+    with open(path, "w") as f:
+        f.write("extrinsic\n")
+        f.writelines(" ".join(repr(float(x)) for x in row) + "\n" for row in w2c)
+        f.write("\nintrinsic\n")
+        f.writelines(" ".join(repr(float(x)) for x in row) + "\n" for row in intr[:3, :3])
+        f.write(f"\n{near!r} {interval!r}\n")
+
+
 def write_dtu_scene(root, view_ids=(0, 1, 2, 3, 4), image_hw=NATIVE_HW):
     """Write scan ``SCAN`` under ``root``: one view per DTU view id in
     ``view_ids`` (the ring's cameras in order), under light ``LIGHT``.
@@ -68,21 +86,13 @@ def write_dtu_scene(root, view_ids=(0, 1, 2, 3, 4), image_hw=NATIVE_HW):
     with open(os.path.join(dirs["Cameras"], "pair.txt"), "w") as f:
         f.write(f"{n}\n")
         for i, ref in enumerate(view_ids):
-            # the other views, nearest around the ring first
-            others = sorted((j for j in range(n) if j != i),
-                            key=lambda j: (min((j - i) % n, (i - j) % n), j))
+            others = ring_neighbours(i, n)
             f.write(f"{ref}\n{len(others)} " + " ".join(
                 f"{view_ids[j]} {1000.0 - k:.1f}" for k, j in enumerate(others)) + "\n")
 
     for i, vid in enumerate(view_ids):
-        w2c = np.linalg.inv(poses[i])
-        with open(os.path.join(dirs["Cameras"], f"{vid:0>8}_cam.txt"), "w") as f:
-            f.write("extrinsic\n")
-            f.writelines(" ".join(repr(float(x)) for x in row) + "\n" for row in w2c)
-            f.write("\nintrinsic\n")
-            f.writelines(" ".join(repr(float(x)) for x in row) + "\n"
-                         for row in native[:3, :3])
-            f.write(f"\n{near!r} {interval!r}\n")
+        write_cam_file(os.path.join(dirs["Cameras"], f"{vid:0>8}_cam.txt"),
+                       np.linalg.inv(poses[i]), native, near, interval)
         img, depth, mask = syn._render_view(intr, poses[i], syn.radius_world, scene_seed)
         rgb = np.clip(img * 256.0, 0, 255).astype(np.uint8)
         write_png(os.path.join(dirs["Rectified_raw/{scan}"],

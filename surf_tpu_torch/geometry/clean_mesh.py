@@ -5,8 +5,8 @@ port's copy of surf_tpu/geometry/clean_mesh.py:21-88 (``--clean_mesh``).
   masks, keep faces whose vertices land in more than ``min_nb_visible``;
 * ``clean_mesh_outside_frustum``: cast a ray through every pixel of a
   ``upscale``-times finer grid of each view (the BVH raycaster,
-  csrc/raycast_bvh.cpp), keep the faces hit, then drop connected
-  components of fewer than ``min_cc`` faces.
+  csrc/raycast_bvh.cpp, on all the host's threads), keep the faces hit,
+  then drop connected components of fewer than ``min_cc`` faces.
 
 The masks are dilated with ``cv2.dilate`` by
 ``cv2.getStructuringElement(cv2.MORPH_ELLIPSE, (2r+1, 2r+1))``, rebuilt
@@ -103,7 +103,7 @@ def clean_mesh_by_mask(mesh, masks, intrs, c2ws, min_nb_visible=1):
 
 
 def clean_mesh_outside_frustum(mesh, masks, intrs, c2ws, upscale=4, min_cc=500,
-                               chunk=1 << 16):
+                               chunk=1 << 20):
     """Keep faces hit by at least one camera ray; then keep connected
     components with >= min_cc faces (utils/clean_mesh.py:38-106)."""
     if len(mesh.faces) == 0:

@@ -104,6 +104,10 @@ def test_port_imports_no_jax_and_no_surf_tpu():
     for d, _, fs in os.walk(os.path.join(ROOT, "surf_tpu_torch")):
         files += [os.path.join(d, f) for f in fs if f.endswith(".py")]
     assert len(files) > 20
+    # the JPEG slice's modules are walked too (the csrc-backed reader among them)
+    assert {os.path.join("surf_tpu_torch", *f.split("/")) for f in (
+        "io/jpeg.py", "data/mvs_generic.py", "data/mvs_scene.py")} <= {
+        os.path.relpath(f, ROOT) for f in files}
     bad = [(os.path.relpath(f, ROOT), n) for f in files for n in _imports(f)
            if _forbidden(n)]
     assert not bad, bad

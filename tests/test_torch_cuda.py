@@ -30,7 +30,10 @@ they run on the card's machine: ``python -m pytest tests/test_torch_cuda.py
   every tap present on every row; K4 twice, equal bit for bit;
 * ``loss.backward()`` of the tiny model on the card against the same step
   on the CPU (whose plain versions tests/test_torch_train.py holds against
-  the JAX package)."""
+  the JAX package);
+* the tiny model's ``--clean_mesh`` validate on the card against the CPU
+  on a DTU-layout scene and on the BlendedMVS, Tanks and ETH3D layouts
+  (JPEG images, 3, 5 and 7 views)."""
 
 import numpy as np
 import pytest
@@ -621,3 +624,65 @@ def test_dtu_layout_validate_on_the_card(tmp_path, monkeypatch):
     for sub, ext in (("val_img", "png"), ("val_normal", "png"), ("val_sdf_depth", "npy"),
                      ("val_render_depth", "png"), ("val_auxi_depth", "npy")):
         assert (tmp_path / "cuda" / sub / f"scan24_view0_light3_epoch0.{ext}").exists()
+
+
+MVS_CASES = {  # views as the confs name them; file and loader sizes
+    "BMVSDataset": ("59e864b2a9e91f2c5529325f", [1, 0, 2], (96, 128), (48, 64), 100, 1.0),
+    "TanksDataset": ("Family", [36, 34, 35, 37, 38], (54, 96), (36, 64), 150, 0.8),
+    "ETH3DDataset": ("facade", [22, 19, 20, 21, 23, 24, 25], (64, 96), (48, 96), 180, 0.8)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(MVS_CASES))
+def test_mvs_layout_validate_on_the_card(tmp_path, monkeypatch, name):
+    """The tiny model's validate on a scene in ``name``'s JPEG layout
+    (written by ``data.mvs_scene``, read by ``GenericMVSDataset``) with
+    ``clean_mesh`` on, on the card against the same on the CPU, as the DTU
+    test above: K1-K4 launched; colour, normal and depths within 1e-4; a
+    non-empty mesh that cleaning does not grow; the artifacts written."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    import re
+    from surf_tpu_torch import _build, validate
+    from surf_tpu_torch.card import set_numerics
+    from surf_tpu_torch.data.mvs_scene import write_mvs_scene
+    set_numerics()
+    scan, views, file_hw, img_hw, num_interval, factor = MVS_CASES[name]
+    root = write_mvs_scene(str(tmp_path / "scene"), name, scan, sorted(views),
+                           image_hw=file_hw)
+    conf = ConfigFactory.parse_string(re.sub(
+        r"val_dataset \{[^}]*\}\n", f"val_dataset {{\n dataset_name = {name}\n"
+        f" data_dir = {root}\n scene = [{scan}]\n ref_view = [{views[0]}]\n"
+        f" src_views = {views[1:]}\n num_src_view = {len(views) - 1}\n val_res_level = 4\n"
+        f" factor = {factor}\n interval_scale = 1\n num_interval = {num_interval}\n"
+        f" img_hw = [{img_hw[0]}, {img_hw[1]}]\n}}\n", TINY, count=1))
+    arrays, write = {}, validate.write_artifacts
+    runs = {}
+    for dev in ("cpu", "cuda"):
+        def recorded(*args, dev=dev):
+            arrays[dev] = args[3:]
+            return write(*args)
+        monkeypatch.setattr(validate, "write_artifacts", recorded)
+        kw = {} if dev == "cpu" else {"params": tckpt.to_torch_tree(init[0], dev),
+                                      "state": tckpt.to_torch_tree(init[1], dev)}
+        v = validate.Validator(conf, device=dev, mesh_resolution=32, clean_mesh=True,
+                               base_exp_dir=str(tmp_path / dev), **kw)
+        if dev == "cpu":
+            init = (tckpt.to_numpy_tree(v.params), tckpt.to_numpy_tree(v.state))
+        v.static["implicit_surface"] = dict(v.static["implicit_surface"], perturb=0.0)
+        v.static["dense_unet_max_res"] = 16     # the hybrid U-Net at stage 1: K4 runs
+        _build.reset_launches()
+        (runs[dev],) = v.validate()
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            launches = dict(_build.launches)
+    for k in ("bilinear_sample_2d", "trilinear_sample_3d", "sparse_trilinear_multi",
+              "gather_conv"):
+        assert launches[k] > 0, k
+    for got, ref in zip(arrays["cuda"], arrays["cpu"]):
+        _close(np.asarray(got), np.asarray(ref), rtol=1e-4, atol=1e-4)
+    for m in runs.values():
+        assert m["finite"] and 0 < m["mesh_faces"] <= m["mesh_faces_before_clean"]
+    for sub, ext in (("val_img", "png"), ("val_normal", "png"), ("val_sdf_depth", "npy"),
+                     ("val_render_depth", "png"), ("val_auxi_depth", "npy")):
+        assert (tmp_path / "cuda" / sub / f"{scan}_view{views[0]}_epoch0.{ext}").exists()

@@ -1,12 +1,15 @@
-"""The port's DTU loaders (surf_tpu_torch/data: ``DTUDataset``,
-``DTUDatasetFinetune``, ``DTUDatasetFinetuneNeuS``) against the JAX
-package's on the same miniature on-disk scenes (the DTU and NeuS layouts
-of tests/test_datasets.py, copied here, written by PIL and cv2) and the
-same seed.  Every key of every item must be equal exactly: images, masks
-and depths are the same pixels (the port reads them with its own PNG/PFM
-readers and nearest resize, the JAX package with PIL and cv2), and the
-cameras, rays and pseudo points come from the same numpy arithmetic on
-the same values, so the tolerance for them is 0 as well."""
+"""The port's host loaders (surf_tpu_torch/data: ``DTUDataset``,
+``DTUDatasetFinetune``, ``DTUDatasetFinetuneNeuS`` and the JPEG sets
+``BMVSDataset``, ``TanksDataset``, ``ETH3DDataset``) against the JAX
+package's on the same miniature on-disk scenes (the DTU, NeuS and BMVS
+layouts of tests/test_datasets.py, copied here and extended to the Tanks
+and ETH3D layouts, written by PIL and cv2; and the procedural scene that
+``data.mvs_scene.write_mvs_scene`` writes) and the same seed.  Every key
+of every item must be equal exactly: images, masks and depths are the
+same pixels (the port reads them with its own PNG/JPEG/PFM readers and
+nearest resize, the JAX package with PIL and cv2), and the cameras, rays
+and pseudo points come from the same numpy arithmetic on the same values,
+so the tolerance for them is 0 as well."""
 
 import os
 
@@ -20,12 +23,16 @@ from surf_tpu.data import get_loader as j_get_loader
 from surf_tpu.data.dtu import DTUDataset as JDTU
 from surf_tpu.data.dtu_finetune import (DTUDatasetFinetune as JFinetune,
                                         DTUDatasetFinetuneNeuS as JNeuS)
+from surf_tpu.data.mvs_generic import GenericMVSDataset as JGeneric
 from surf_tpu.io.pfm import write_pfm
 from surf_tpu.io.ply import write_ply
 
 from surf_tpu_torch.config import ConfigFactory as TConfig
 from surf_tpu_torch.data import (DTUDataset as TDTU, DTUDatasetFinetune as TFinetune,
                                  DTUDatasetFinetuneNeuS as TNeuS, get_dataset)
+from surf_tpu_torch.data.mvs_generic import _SPECS, GenericMVSDataset as TGeneric
+from surf_tpu_torch.data.mvs_scene import write_mvs_scene
+from surf_tpu_torch.io.image import resize_nearest
 
 H, W = 48, 64
 
@@ -265,8 +272,136 @@ def test_finetune_datasets_through_get_dataset(dtu_root, neus_root):
         assert type(ds) is cls and ds.images.shape == (3, H, W, 3)
 
 
-@pytest.mark.parametrize("name", ["BMVSDataset", "TanksDataset", "ETH3DDataset"])
-def test_jpeg_datasets_raise(name):
-    conf = TConfig.parse_string(f"d {{ dataset_name = {name} }}")["d"]
-    with pytest.raises(NotImplementedError, match="JPEG"):
-        get_dataset(conf, "val")
+# -- the JPEG datasets (GenericMVSDataset) ---------------------------------------
+
+MVS = ["BMVSDataset", "TanksDataset", "ETH3DDataset"]
+MVS_SCAN = {"BMVSDataset": "5a0271884e62597cdee0d0eb", "TanksDataset": "Family",
+            "ETH3DDataset": "facade"}
+# files at about 1/50 of the native size; the loader at a 1/25-ish img_hw
+MVS_FILE_HW = {"BMVSDataset": (72, 96), "TanksDataset": (54, 96), "ETH3DDataset": (83, 124)}
+MVS_IMG_HW = {"BMVSDataset": (48, 64), "TanksDataset": (36, 64), "ETH3DDataset": (24, 48)}
+MVS_VIEWS = 4
+
+
+@pytest.fixture(scope="module")
+def mvs_roots(tmp_path_factory):
+    """Each dataset's layout as tests/test_datasets.py:125-148 writes the
+    BMVS one: PIL JPEGs of random pixels (quality 75, 4:2:0), cam files,
+    pair.txt at the spec's path and, for BMVS, PFM depths (a quarter of
+    them below the depth range, so the masks hold zeros)."""
+    roots = {}
+    for name in MVS:
+        root = tmp_path_factory.mktemp(name)
+        spec, scan = _SPECS[name], MVS_SCAN[name]
+
+        def path(key, vid=0):
+            q = root / spec[key].format(scan=scan, vid=vid)
+            os.makedirs(q.parent, exist_ok=True)
+            return q
+        with open(path("pair_pattern"), "w") as f:
+            f.write(f"{MVS_VIEWS}\n")
+            for ref in range(MVS_VIEWS):
+                srcs = [v for v in range(MVS_VIEWS) if v != ref]
+                f.write(f"{ref}\n{len(srcs)} " +
+                        " ".join(f"{s} {10 - i}" for i, s in enumerate(srcs)) + "\n")
+        rng = np.random.RandomState(1)
+        for vid in range(MVS_VIEWS):
+            write_cam(path("cam_pattern", vid), vid)
+            img = (rng.rand(*MVS_FILE_HW[name], 3) * 255).astype(np.uint8)
+            Image.fromarray(img).save(path("img_pattern", vid))
+            if spec["depth_pattern"] is not None:
+                depth = rng.rand(*MVS_FILE_HW[name]).astype(np.float32) * 2 + 2.0
+                write_pfm(str(path("depth_pattern", vid)), depth)
+        roots[name] = str(root)
+    return roots
+
+
+@pytest.fixture(scope="module")
+def mvs_scene_roots(tmp_path_factory):
+    """The procedural scene in each layout (``write_mvs_scene``: the port's
+    JPEG encoder, 4:2:0), at the file sizes above."""
+    return {name: write_mvs_scene(str(tmp_path_factory.mktemp(name + "_scene")), name,
+                                  MVS_SCAN[name], list(range(MVS_VIEWS)),
+                                  image_hw=MVS_FILE_HW[name])
+            for name in MVS}
+
+
+def mvs_conf(name, root, mode):
+    h, w = MVS_IMG_HW[name]
+    views = ("ref_view = [0, 1, 2, 3]\n n_rays = 64" if mode == "train"
+             else "ref_view = [1, 2]\n val_res_level = 2")
+    return f"""d {{
+        dataset_name = {name}
+        data_dir = {root}
+        scene = [{MVS_SCAN[name]}]
+        {views}
+        num_src_view = 2
+        factor = 0.8
+        interval_scale = 1
+        num_interval = 100
+        img_hw = [{h}, {w}]
+    }}"""
+
+
+@pytest.mark.parametrize("layout", ["pil", "scene"])
+@pytest.mark.parametrize("mode", ["train", "val"])
+@pytest.mark.parametrize("name", MVS)
+def test_mvs_items_equal_jax(mvs_roots, mvs_scene_roots, name, mode, layout):
+    root = (mvs_roots if layout == "pil" else mvs_scene_roots)[name]
+    jc, tc = confs(mvs_conf(name, root, mode))
+    jds = JGeneric(jc, mode, name, rng=np.random.RandomState(7))
+    tds = TGeneric(tc, mode, name, rng=np.random.RandomState(7))
+    assert len(tds) == len(jds) == (4 if mode == "train" else 2)
+    # in order, so that the generator's stream advances alike
+    for i in list(range(len(jds))) + [0]:
+        item = tds[i]
+        assert_items_equal(item, jds[i])
+        assert item["imgs"].shape == (3, *MVS_IMG_HW[name], 3)
+    if name == "BMVSDataset" and layout == "pil":
+        assert 0 < item["mask"].mean() < 1
+    if name != "BMVSDataset":
+        assert not item["depth_ref"].any() and item["mask"].all()
+
+
+def test_mvs_src_views_override_pair_txt(mvs_roots):
+    text = mvs_conf("ETH3DDataset", mvs_roots["ETH3DDataset"], "val").replace(
+        "num_src_view = 2", "num_src_view = 2\n src_views = [3, 0]")
+    jc, tc = confs(text)
+    item = TGeneric(tc, "val", "ETH3DDataset")[0]
+    assert item["view_ids"].tolist() == [1, 3, 0] and int(item["src_idx"]) == 1
+    assert_items_equal(item, JGeneric(jc, "val", "ETH3DDataset")[0])
+
+
+@pytest.mark.parametrize("name", MVS)
+def test_mvs_get_dataset_equals_get_loader(mvs_roots, name):
+    jc, tc = confs(mvs_conf(name, mvs_roots[name], "train"))
+    _, _, jds = j_get_loader(jc, "train", seed=3)
+    tds = get_dataset(tc, "train", seed=3)
+    assert type(tds).__name__ == name
+    for i in (2, 0, 2):
+        assert_items_equal(tds[i], jds[i])
+    assert not np.array_equal(get_dataset(tc, "train", seed=4)[2]["pixels_x"],
+                              tds[2]["pixels_x"])
+
+
+# the confs' native -> img_hw ratios (ETH3D's changes the aspect) and the
+# scene writer's repeat of a 1036x1553 render up to ETH3D's native size
+MVS_RESIZES = [((4141, 6212), (1200, 2400)), ((1080, 1920), (1080, 1920)),
+               ((576, 768), (576, 768)), ((1036, 1553), (4141, 6212)),
+               ((1200, 2400), (300, 600))]
+
+
+@pytest.mark.parametrize("src,dst", MVS_RESIZES)
+def test_resize_nearest_at_the_mvs_ratios(src, dst):
+    rng = np.random.RandomState(8)
+    # every row and column index, through 3-channel f32 strips
+    for a in (rng.rand(src[0], 2, 3).astype(np.float32),
+              rng.rand(2, src[1], 3).astype(np.float32)):
+        dsize = (dst[1] if a.shape[1] > 2 else 2, dst[0] if a.shape[0] > 2 else 2)
+        np.testing.assert_array_equal(resize_nearest(a, dsize),
+                                      cv2.resize(a, dsize, interpolation=cv2.INTER_NEAREST))
+    a = (rng.rand(*src) * 255).astype(np.uint8)
+    ref = cv2.resize(a, dst[::-1], interpolation=cv2.INTER_NEAREST)
+    got = resize_nearest(a, dst[::-1])
+    assert got.dtype == ref.dtype and got.shape == ref.shape
+    np.testing.assert_array_equal(got, ref)
