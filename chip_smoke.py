@@ -123,7 +123,31 @@ Phases, one line each (any failure exits non-zero, with no result line):
    ``render_rays_per_s``, peak memory, and each kernel row gains its
    launches in each validate (``launches_in_mvs_bmvs`` / ``_tanks`` /
    ``_eth3d``);
-11. reference: the tiny model on the card against the same model on the
+11. dp: multi-device on the one card (correctness, not scaling).  A
+   process group of one rank (NCCL): ``parallel.mesh.dp_train_step``
+   against a plain ``Trainer.step`` (same item, seed and perturbation):
+   loss terms and batch-norm state equal bit for bit, the all-reduce
+   returns the gradient bit for bit and Adam on it gives the step's
+   parameters bit for bit, the gradient within 1e-3 of the plain step's
+   (the training step is not bit-reproducible on the card: the backward
+   kernels' and PyTorch's float atomics sum in another order from run to
+   run).  Then two gloo ranks share the card
+   (``parallel.distribute.spawn``), the full-width model with
+   ``train.data_parallel = true``, ``n_rays`` halved so both fit, and 3
+   items: a step on items (0, 1) and the padded step on (2, 2) at
+   weights [1, 0], the ranks equal bit for bit, the all-reduced
+   gradients within 1e-3 of one process's (the mean of the two items',
+   item 2's alone), one process's Adam on them equal to the ranks' bit
+   for bit; a full-width validate sharded over the two ranks (render
+   chunks and mesh lattice) against the one-process validate (1e-4, the
+   same mesh).  Each rank's largest call of every
+   kernel it launched is held against its plain version, and each kernel
+   row gains the ranks' launches (``launches_in_dp_step`` /
+   ``_validate``).  Prints the backend, each rank's peak memory, the step
+   times (two ranks, one process, NCCL at one rank), the all-reduce's time
+   and size, and the sharded validate's ``render_rays_per_s`` and
+   ``mesh_s``;
+12. reference: the tiny model on the card against the same model on the
    CPU (plain versions, themselves held against the JAX package by the
    tier-1 tests): a validate build + render, and one training step's
    loss terms and gradients, also against the same step on the card with
@@ -2397,7 +2421,567 @@ def mvs_phase(dev="cuda", conf_paths=None, image_hw=None, mesh_resolution=512):
 
 
 # ---------------------------------------------------------------------------
-# phase 11: tiny model, card against CPU
+# phase 11: multi-device (torch.distributed) on the one card
+# ---------------------------------------------------------------------------
+
+DP_RANKS = 2
+# the training items of the gloo run: super-batches (0, 1) and (2, 2), the
+# second padded with item 2 at weight 0
+DP_STEPS = (((0, 1), (1.0, 1.0), 0.0), ((2, 2), (1.0, 0.0), 0.5))
+# the gradient tolerance of reference_train_step (kernels against plain
+# versions on the card): 1e-3 of the leaf's largest entry, plus 1e-6
+DP_GRAD_RTOL, DP_GRAD_ATOL = 1e-3, 1e-6
+
+
+def dp_conf(conf_path, halve_rays=False):
+    """The configuration with ``train.data_parallel = true``
+    (confs/surf_synthetic_full.conf sets it false for the TPU's staged
+    trainer, which the port does not have); ``halve_rays``: half its
+    ``train_dataset.n_rays`` (traffic, not width), so that two full-width
+    ranks' training steps fit on one card together."""
+    from surf_tpu_torch.config import ConfigFactory
+    conf = ConfigFactory.parse_file(conf_path)
+    conf["train"]["data_parallel"] = True
+    if halve_rays:
+        conf["train_dataset"]["n_rays"] = conf.get_int("train_dataset.n_rays") // 2
+    return conf
+
+
+def dp_trainer(conf, dev, out, resume=None):
+    """A Trainer of the gloo run's parity: seed 0, the items ``DP_STEPS``
+    takes (the first 3), the render unperturbed."""
+    from surf_tpu_torch.train import Trainer
+    t = Trainer(conf, device=dev, seed=0, base_exp_dir=out, resume=resume)
+    t.dataset.metas = t.dataset.metas[:1 + max(i for s in DP_STEPS for i in s[0])]
+    t.static["implicit_surface"] = dict(t.static["implicit_surface"], perturb=0.0)
+    return t
+
+
+def dp_probe(i, dev):
+    """The SDF probe points given with item i (the same in every process)."""
+    import torch
+    g = torch.Generator().manual_seed(1000 + i)
+    return (torch.rand((1024, 3), generator=g) * 2.0 - 1.0).to(dev)
+
+
+def dp_tree_arrays(prefix, tree, grad=False):
+    from surf_tpu_torch.nn.core import tree_leaves
+    return {f"{prefix}{i}": (t.grad if grad else t).detach().cpu().numpy()
+            for i, t in enumerate(tree_leaves(tree))}
+
+
+def dp_rank(url, conf_path, out, mesh_resolution, dev):
+    """One of the gloo run's ranks: joins the group (two ranks on one card
+    take gloo), builds ``dp_trainer`` (rank 0's parameters broadcast),
+    takes the two data-parallel steps of ``DP_STEPS`` on its item of each
+    (perturbation off, ``dp_probe``), then one full-width validate of the
+    trained parameters with its render chunks and mesh lattice shared with
+    the other rank.  The launches of every kernel in the steps and in the
+    validate are counted, and the largest call of each is held against
+    its plain version (``largest_call_entries``).  Writes, under ``out``:
+    each step's parameters (and on rank 0 its all-reduced gradient and
+    loss terms) as ``step<s>_rank<r>.npz``; on rank 0 the checkpoints
+    after each step (``train/checkpoints``) and the validate's image and
+    lattice; and ``rank<r>.json`` (backend, launches, entries, times,
+    peak memory, the validate's metrics)."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from surf_tpu_torch import _build
+    from surf_tpu_torch.card import set_numerics
+    from surf_tpu_torch.parallel.distribute import maybe_initialize, rank_device
+    from surf_tpu_torch.parallel.mesh import dp_train_step
+    from surf_tpu_torch.validate import Validator, to_device
+    set_numerics()
+    cuda = dev == "cuda"
+    maybe_initialize(device=dev, init_method=url)
+    rank, dev = dist.get_rank(), rank_device(dev)
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize()
+    conf = dp_conf(conf_path, halve_rays=True)
+    t = dp_trainer(conf, dev, os.path.join(out, "train"))
+    # the group's first collective sets it up: not in the timed steps
+    dp_warm_collectives(dev)
+    rec = {"rank": rank, "backend": dist.get_backend(), "device": str(dev), "steps": []}
+    np.savez(os.path.join(out, f"init_rank{rank}.npz"), **dp_tree_arrays("p", t.params))
+    batches = [to_device(t.dataset[items[rank]], dev) for items, _, _ in DP_STEPS]
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    _build.reset_launches()
+    records, _, restore = record_backward_calls()
+    try:
+        with record_forward_calls() as fwd, record_k4_train_calls() as (_, k4):
+            for s, ((items, w, step_f), batch) in enumerate(zip(DP_STEPS, batches)):
+                timings = {}
+                sync()
+                t0 = time.time()
+                res = dp_train_step(t, batch, step_f, list(w), perturb=False,
+                                    pts_random=dp_probe(items[rank], dev), timings=timings)
+                sync()
+                rec["steps"].append(dict(timings, step_s=time.time() - t0, terms=res,
+                                         items=list(items), weights=list(w)))
+                arrays = dp_tree_arrays("p", t.params)
+                arrays.update(dp_tree_arrays("s", t.state))
+                if rank == 0:
+                    arrays.update(dp_tree_arrays("g", t.params, grad=True))
+                    t.save(s)
+                np.savez(os.path.join(out, f"step{s}_rank{rank}.npz"), **arrays)
+    finally:
+        restore()
+    rec["launches_step"] = dict(_build.launches)
+    rec["peak_gb_step"] = [torch.cuda.max_memory_allocated() / 2 ** 30,
+                           torch.cuda.max_memory_reserved() / 2 ** 30] if cuda else [0, 0]
+    missing = [k for k in FWD_KERNELS + BWD_KERNELS if rec["launches_step"][k] <= 0]
+    if missing and cuda:
+        fail(f"dp rank {rank}: the data-parallel steps launched no {missing}")
+    rec["entries_step"], rec["step_kernel_checks_s"], rec["held_gb_steps"] = dp_in_turn(
+        f"dp rank {rank} steps", fwd, k4, records, cuda)
+
+    v = Validator(conf, device=dev, mesh_resolution=mesh_resolution, seed=0,
+                  base_exp_dir=os.path.join(out, "val"), params=t.params, state=t.state)
+    got = dp_record_image_and_lattice(v)
+    _build.reset_launches()
+    sync()
+    t0 = time.time()
+    with record_forward_calls() as fwd, record_k4_train_calls() as (_, k4), torch.no_grad():
+        (m,) = v.validate()
+    sync()
+    rec.update(validate_wall_s=time.time() - t0, launches_validate=dict(_build.launches),
+               validate=m, group_size=dist.get_world_size(v.group))
+    missing = [k for k in FWD_KERNELS if rec["launches_validate"][k] <= 0]
+    if missing and cuda:
+        fail(f"dp rank {rank}: the sharded validate launched no {missing}")
+    if (got["image"] is None) != (rank != 0):
+        fail(f"dp rank {rank}: the image went to the wrong rank")
+    if rank == 0:
+        np.savez(os.path.join(out, "val_image.npz"), *got["image"])
+        np.save(os.path.join(out, "val_lattice.npy"), got["lattice"][2])
+    del got, v
+    rec["entries_validate"], rec["validate_kernel_checks_s"], rec["held_gb_validate"] = \
+        dp_in_turn(f"dp rank {rank} validate", fwd, k4, {}, cuda)
+    rec["peak_gb"] = [torch.cuda.max_memory_allocated() / 2 ** 30,
+                      torch.cuda.max_memory_reserved() / 2 ** 30] if cuda else [0, 0]
+    with open(os.path.join(out, f"rank{rank}.json"), "w") as f:
+        json.dump(rec, f)
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def dp_in_turn(where, fwd, k4, records, cuda):
+    """``largest_call_entries`` on the recorded calls, one rank at a time
+    (the others wait at a barrier holding only their records), each rank
+    dropping its records once checked: two ranks' records and a check's
+    working memory do not fit on one card together.  Returns (the
+    entries, the checks' seconds, the GiB the records held on the card).
+    (A CPU rehearsal has no kernel to check.)"""
+    import torch
+    import torch.distributed as dist
+    out, took, held = {}, 0.0, 0.0
+    for r in range(dist.get_world_size()):
+        if r == dist.get_rank() and cuda:
+            held = torch.cuda.memory_allocated() / 2 ** 30
+            t0 = time.time()
+            out = largest_call_entries(where, fwd, k4, records)
+            took = time.time() - t0
+        if r == dist.get_rank():
+            for d in (fwd, k4, records):
+                d.clear()
+            if cuda:
+                torch.cuda.empty_cache()
+        dist.barrier()
+    return out, took, held
+
+
+def dp_warm_collectives(dev):
+    """One small all-reduce, which sets up the group's communicators."""
+    import torch
+    import torch.distributed as dist
+    from surf_tpu_torch.parallel.mesh import all_reduce_sum
+    all_reduce_sum([torch.zeros(8, device=dev)])
+    if dist.get_backend() == "nccl":
+        torch.cuda.synchronize()
+
+
+def dp_record_image_and_lattice(v):
+    """Keep what ``v.validate`` renders and extracts (None on a rank other
+    than the group's first)."""
+    got, render, extract = {}, v.render_full_image, v.extract_geometry
+
+    def keep_image(*a):
+        got["image"] = render(*a)
+        return got["image"]
+
+    def keep_lattice(*a, **k):
+        got["lattice"] = extract(*a, **k)
+        return got["lattice"]
+    v.render_full_image, v.extract_geometry = keep_image, keep_lattice
+    return got
+
+
+def dp_max_err(a, b):
+    import numpy as np
+    return float(np.abs(np.asarray(a, np.float64) - np.asarray(b, np.float64)).max())
+
+
+def dp_world_size_1(conf, dev, out):
+    """In a process group of one rank: two Trainers of the same seed, one
+    taking a plain ``Trainer.step`` and the other ``dp_train_step`` on the
+    same item with perturbation on.  The forward is deterministic, the
+    backward's float atomics are not (two plain steps differ), so: the
+    loss terms and the new state equal bit for bit; the all-reduce of one
+    rank returns the step's own gradient bit for bit; a third Trainer's
+    Adam on that gradient gives the DP step's parameters bit for bit; and
+    the DP step's gradient lies within the plain step's by
+    ``DP_GRAD_RTOL`` / ``DP_GRAD_ATOL``.  Then each of the two takes a
+    second step, which is the one timed.  Returns its numbers."""
+    import numpy as np
+    import torch
+    from surf_tpu_torch.nn.core import tree_leaves
+    from surf_tpu_torch.parallel import mesh
+    from surf_tpu_torch.train import Trainer
+    from surf_tpu_torch.validate import to_device
+
+    def sync():
+        if torch.device(dev).type == "cuda":
+            torch.cuda.synchronize()
+    trainers = [Trainer(conf, device=dev, seed=0, base_exp_dir=out) for _ in range(3)]
+    plain, dpt, adam = trainers
+    batch = to_device(plain.dataset[0], dev)
+    sync()
+    t0 = time.time()
+    r_plain = plain.step(batch, 0.0)
+    sync()
+    s_plain = time.time() - t0
+    local, reduce_ = [], mesh.all_reduce_sum
+
+    def record(tensors, group=None):
+        if not local:
+            local.extend(t.clone() for t in tensors)
+        return reduce_(tensors, group)
+    mesh.all_reduce_sum, tm = record, {}
+    try:
+        sync()
+        t0 = time.time()
+        r_dp = mesh.dp_train_step(dpt, batch, 0.0, [1.0], timings=tm)
+        sync()
+        s_dp = time.time() - t0
+    finally:
+        mesh.all_reduce_sum = reduce_
+    if {k: np.float32(v) for k, v in r_plain.items()} != \
+            {k: np.float32(v) for k, v in r_dp.items()}:
+        fail(f"dp: one rank's loss terms {r_dp} are not the plain step's {r_plain}")
+    for i, (a, b) in enumerate(zip(tree_leaves(plain.state), tree_leaves(dpt.state))):
+        if not torch.equal(a, b):
+            fail(f"dp: one rank's new state leaf {i} differs from the plain step's")
+    grads = [p.grad for p in tree_leaves(dpt.params)]
+    if any(not torch.equal(a, b) for a, b in zip(local, grads)):
+        fail("dp: the all-reduce of one rank changed the gradient")
+    for p, g in zip(tree_leaves(adam.params), grads):
+        p.grad = g.clone()
+    adam.update()
+    for i, (a, b) in enumerate(zip(tree_leaves(adam.params), tree_leaves(dpt.params))):
+        if not torch.equal(a, b):
+            fail(f"dp: Adam on one rank's gradient gives parameter {i} other bits")
+    worst = dp_check_grads("one rank against the plain step", [g.cpu().numpy() for g in grads],
+                           [p.grad for p in tree_leaves(plain.params)])
+    p_err = max((a - b).abs().max().item()
+                for a, b in zip(tree_leaves(plain.params), tree_leaves(dpt.params)))
+    # the times to compare: a second step of each Trainer (the first steps
+    # of fresh Trainers ran in that order, the first one colder)
+    sync()
+    t0 = time.time()
+    plain.step(batch, 0.0)
+    sync()
+    s_plain_warm, tm_warm = time.time() - t0, {}
+    t0 = time.time()
+    mesh.dp_train_step(dpt, batch, 0.0, [1.0], timings=tm_warm)
+    sync()
+    s_dp_warm = time.time() - t0
+    nums = {"single_process_step_s": s_plain_warm, "w1_dp_step_s": s_dp_warm,
+            "single_process_first_step_s": s_plain, "w1_dp_first_step_s": s_dp,
+            "w1_all_reduce_s": tm_warm["all_reduce_s"],
+            "w1_grad_mb": tm_warm["grad_bytes"] / 2 ** 20,
+            "w1_grad_worst_rel": worst, "w1_params_max_abs_err": p_err}
+    say("dp", f"world size 1 (one card): loss terms and state equal bit for bit to the plain step's, "
+        f"the all-reduce returns the gradient bit for bit, Adam on it gives the step's "
+        f"parameters bit for bit; gradient against the plain step's worst {worst:.3e} of "
+        f"its leaf's largest, parameters {p_err:.3e} apart; second steps: plain "
+        f"{s_plain_warm:.3f} s, dp {s_dp_warm:.3f} s, all-reduce "
+        f"{tm_warm['all_reduce_s'] * 1e3:.3f} ms of {nums['w1_grad_mb']:.2f} MB (first steps, "
+        f"plain then dp: {s_plain:.3f} s, {s_dp:.3f} s)")
+    return nums
+
+
+def dp_check_grads(what, got, ref_g):
+    """Each leaf of ``got`` (numpy) within ``DP_GRAD_RTOL`` of the largest
+    entry of ``ref_g``'s leaf (tensors) plus ``DP_GRAD_ATOL``.  Returns
+    the worst error relative to the leaf's largest entry (leaves above
+    1e-6)."""
+    import numpy as np
+    worst, bad = 0.0, []
+    for i, (a, b) in enumerate(zip(got, ref_g)):
+        b = np.zeros_like(a) if b is None else b.detach().cpu().numpy()
+        d, sc = dp_max_err(a, b), float(np.abs(b).max())
+        if d > DP_GRAD_RTOL * sc + DP_GRAD_ATOL:
+            bad.append((i, tuple(b.shape), d, sc))
+        if sc > 1e-6:
+            worst = max(worst, d / sc)
+    if bad:
+        fail(f"dp: {what}: gradient leaves beyond {DP_GRAD_RTOL} x largest + "
+             f"{DP_GRAD_ATOL} (leaf, shape, max abs err, largest): {bad[:8]}")
+    return worst
+
+
+def dp_phase(dev="cuda", conf_path=None, mesh_resolution=512):
+    """Multi-device on the one card (correctness, not scaling):
+
+    1. NCCL at world size 1 (``dp_world_size_1``): ``dp_train_step`` in a
+       process group of one rank against a plain ``Trainer.step`` of the
+       same seed, item and perturbation, at full width;
+    2. two gloo ranks on the card (``parallel.distribute.spawn``, each
+       ``dp_rank``; expandable segments), confs/surf_synthetic_full.conf's
+       model at full width with ``train.data_parallel = true``,
+       ``n_rays`` halved (two full-width training steps at 512 rays do
+       not fit on one card together) and 3 training items: after the step
+       on (0, 1) and after the padded step on (2, 2) at weights [1, 0]
+       both ranks hold the same parameters and state bit for bit.
+       Against one process: the step's all-reduced gradient is the mean
+       of the two items' own gradients, and the padded step's the
+       gradient of item 2 alone from the first step's checkpoint, within
+       ``DP_GRAD_RTOL`` of each leaf's largest entry plus
+       ``DP_GRAD_ATOL`` (the backward's float atomics sum in another
+       order from run to run); the Trainer's Adam applied to that
+       gradient gives the ranks' parameters bit for bit; the padded
+       step's loss terms are item 2's (rtol 1e-4, atol 1e-5).  Then a
+       full-width validate sharded over the two ranks against the
+       one-process validate of the same parameters: colour, normal,
+       depths and SDF lattice within 1e-4 (+ 1e-4 relative), the same
+       mesh counts and active voxels.  Every kernel launched in each
+       rank's steps and validate is counted and its largest call held
+       against its plain version, one rank at a time (``dp_in_turn``).
+
+    Returns (launches by part and rank, numbers, entries by part and
+    rank).  The times are of ranks sharing one card, not of scaling.
+    (``dev`` "cpu" with a tiny ``conf_path`` and ``mesh_resolution``
+    rehearses the phase on gloo.)"""
+    import shutil
+    import tempfile
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from torch.multiprocessing.spawn import ProcessException
+    from surf_tpu_torch.nn.core import tree_leaves
+    from surf_tpu_torch.parallel import distribute
+    from surf_tpu_torch.utils import load_checkpoint, to_torch_tree
+    from surf_tpu_torch.validate import Validator, to_device
+    cuda = dev == "cuda"
+    conf_path = conf_path or os.path.join(HERE, "confs", "surf_synthetic_full.conf")
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize()
+    os.makedirs(os.path.join(HERE, "exp"), exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_dp_", dir=os.path.join(HERE, "exp"))
+    nums = {}
+    try:
+        # 1. NCCL at world size 1
+        conf = dp_conf(conf_path)
+        distribute.maybe_initialize(
+            environ={"RANK": "0", "WORLD_SIZE": "1", "LOCAL_RANK": "0",
+                     "LOCAL_WORLD_SIZE": "1"}, device=dev,
+            init_method=f"file://{os.path.join(tmp, 'w1.rdzv')}")
+        try:
+            nums["w1_backend"] = dist.get_backend()
+            dp_warm_collectives(dev)
+            nums.update(dp_world_size_1(conf, dev, os.path.join(tmp, "w1")))
+        finally:
+            dist.destroy_process_group()
+        if cuda:
+            torch.cuda.empty_cache()
+
+        # 2. two gloo ranks on the card
+        if cuda:
+            nums["parent_gb_before_ranks"] = [torch.cuda.memory_allocated() / 2 ** 30,
+                                              torch.cuda.memory_reserved() / 2 ** 30]
+        alloc = os.environ.get("PYTORCH_CUDA_ALLOC_CONF")
+        os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
+        t0 = time.time()
+        try:
+            distribute.spawn(dp_rank, DP_RANKS, (
+                f"file://{os.path.join(tmp, 'w2.rdzv')}", conf_path, tmp, mesh_resolution,
+                dev), timeout=900)
+        except (ProcessException, TimeoutError) as e:
+            fail(f"dp: the gloo ranks failed: {e}")
+        finally:
+            if alloc is None:
+                os.environ.pop("PYTORCH_CUDA_ALLOC_CONF")
+            else:
+                os.environ["PYTORCH_CUDA_ALLOC_CONF"] = alloc
+        nums["ranks_wall_s"] = time.time() - t0
+        recs = []
+        for r in range(DP_RANKS):
+            with open(os.path.join(tmp, f"rank{r}.json")) as f:
+                recs.append(json.load(f))
+        backends = {rec["backend"] for rec in recs}
+        if cuda and backends != {"gloo"}:
+            fail(f"dp: two ranks on one card took {backends}, not gloo")
+        steps = [[dict(np.load(os.path.join(tmp, f"step{s}_rank{r}.npz")))
+                  for r in range(DP_RANKS)] for s in range(len(DP_STEPS))]
+        for s, per_rank in enumerate(steps):
+            for k, a in per_rank[0].items():
+                if k[0] in "ps" and not np.array_equal(a, per_rank[1][k]):
+                    fail(f"dp: after step {s} the ranks' {k} differ")
+        say("dp", f"two {recs[0]['backend']} ranks sharing {recs[0]['device']} (a "
+            "correctness run on one card, not scaling): parameters and "
+            f"state equal bit for bit after both steps; "
+            + "; ".join(f"rank {rec['rank']}: steps "
+                        + ", ".join(f"{st['step_s']:.3f}" for st in rec["steps"])
+                        + f" s, all-reduce " + ", ".join(
+                            f"{st['all_reduce_s'] * 1e3:.1f}" for st in rec["steps"])
+                        + f" ms of {rec['steps'][0]['grad_bytes'] / 2 ** 20:.2f} MB, peak "
+                        f"{rec['peak_gb'][0]:.2f} GB allocated / {rec['peak_gb'][1]:.2f} "
+                        "reserved" for rec in recs))
+        # each rank's second step is warm, as the world-size-1 times are
+        nums["w2_dp_step_s"] = max(rec["steps"][1]["step_s"] for rec in recs)
+        say("dp", f"warm step times on the one card (correctness runs, not scaling): "
+            f"single process {nums['single_process_step_s']:.3f} s and one "
+            f"{nums['w1_backend']} rank "
+            f"{nums['w1_dp_step_s']:.3f} s at n_rays "
+            f"{dp_conf(conf_path).get_int('train_dataset.n_rays')}; two "
+            f"{recs[0]['backend']} ranks sharing "
+            f"the card {nums['w2_dp_step_s']:.3f} s at n_rays "
+            f"{dp_conf(conf_path, halve_rays=True).get_int('train_dataset.n_rays')} a rank")
+
+        # the one-process reference
+        conf = dp_conf(conf_path, halve_rays=True)
+        items = [i for st in DP_STEPS for i in st[0]]
+        ref = dp_trainer(conf, dev, os.path.join(tmp, "ref"))
+        init = np.load(os.path.join(tmp, "init_rank0.npz"))
+        params = tree_leaves(ref.params)
+        for i, p in enumerate(params):
+            if not np.array_equal(init[f"p{i}"], p.detach().cpu().numpy()):
+                fail(f"dp: the ranks' initial parameter {i} differs from one process's")
+
+        def grads_of(t, item, step_f):
+            t.optimizer.zero_grad(set_to_none=True)
+            res, _ = t.loss(to_device(t.dataset[item], dev), step_f,
+                            t.cos_anneal_ratio(step_f), perturb=False,
+                            pts_random=dp_probe(item, dev))
+            res["loss"].backward()
+            return res, [p.grad.detach().clone() if p.grad is not None
+                         else torch.zeros_like(p) for p in tree_leaves(t.params)]
+
+        def adam_on(t, grads, want, what):
+            for p, g in zip(tree_leaves(t.params), grads):
+                p.grad = torch.as_tensor(g, device=p.device)
+            t.update()
+            for i, p in enumerate(tree_leaves(t.params)):
+                if not np.array_equal(p.detach().cpu().numpy(), want[f"p{i}"]):
+                    fail(f"dp: {what}: the Adam update of the ranks' gradient gives "
+                         f"parameter {i} other bits than the ranks'")
+
+        step_f0 = DP_STEPS[0][2]
+        ga = grads_of(ref, items[0], step_f0)[1]
+        gb = grads_of(ref, items[1], step_f0)[1]
+        mean = [(a + b) / 2 for a, b in zip(ga, gb)]
+        g_dp = [steps[0][0][f"g{i}"] for i in range(len(params))]
+        worst = dp_check_grads("the step on (0, 1)", g_dp, mean)
+        adam_on(ref, g_dp, steps[0][0], "the step on (0, 1)")
+        # the parameters that one process reaches from its own mean gradient
+        ref2 = dp_trainer(conf, dev, os.path.join(tmp, "ref2"))
+        for p, g in zip(tree_leaves(ref2.params), mean):
+            p.grad = g
+        ref2.update()
+        p_err = max(dp_max_err(p.detach().cpu().numpy(), steps[0][0][f"p{i}"])
+                    for i, p in enumerate(tree_leaves(ref2.params)))
+        lr = max(g["lr"] for g in ref2.optimizer.param_groups)
+        nums.update(step_grad_worst_rel=worst, step_params_max_abs_err=p_err, step_lr=lr)
+        say("dp", f"step on (0, 1): all-reduced gradient within {DP_GRAD_RTOL} x each "
+            f"leaf's largest + {DP_GRAD_ATOL} of the two items' mean (worst {worst:.3e}); "
+            f"Adam of it equal bit for bit to the ranks'; one process's own mean-gradient "
+            f"step {p_err:.3e} from the ranks' parameters (learning rate {lr:.3e})")
+        del ref, ref2, ga, gb, mean
+        if cuda:
+            torch.cuda.empty_cache()
+
+        # the padded step against one process's step on item 2 alone
+        ck0 = os.path.join(tmp, "train", "checkpoints", "model_000.ckpt.npz")
+        pad = dp_trainer(conf, dev, os.path.join(tmp, "pad"), resume=ck0)
+        items1, _, step_f1 = DP_STEPS[1]
+        res_c, gc = grads_of(pad, items1[0], step_f1)
+        g_dp2 = [steps[1][0][f"g{i}"] for i in range(len(params))]
+        worst2 = dp_check_grads("the padded step", g_dp2, gc)
+        terms = recs[0]["steps"][1]["terms"]
+        for k, v in res_c.items():
+            v = float(v.detach()) if torch.is_tensor(v) else float(v)
+            if abs(terms[k] - v) > 1e-5 + 1e-4 * abs(v):
+                fail(f"dp: the padded step's {k} {terms[k]} is not item 2's {v}")
+        adam_on(pad, g_dp2, steps[1][0], "the padded step")
+        nums["padded_grad_worst_rel"] = worst2
+        say("dp", f"padded step on (2, 2) at [1, 0]: gradient within the tolerance of item "
+            f"2's alone from the first step's checkpoint (worst {worst2:.3e}), its loss "
+            "terms item 2's, its Adam update the ranks' bit for bit")
+        del pad, gc, g_dp2, steps
+        if cuda:
+            torch.cuda.empty_cache()
+
+        # the sharded validate against one process's
+        ck1 = load_checkpoint(os.path.join(tmp, "train", "checkpoints", "model_001.ckpt.npz"))
+        v = Validator(conf, device=dev, mesh_resolution=mesh_resolution, seed=0,
+                      base_exp_dir=os.path.join(tmp, "val1"),
+                      params=to_torch_tree(ck1["model"], dev),
+                      state=to_torch_tree(ck1["state"], dev))
+        got = dp_record_image_and_lattice(v)
+        with torch.no_grad():
+            (m1,) = v.validate()
+        del v
+        image = np.load(os.path.join(tmp, "val_image.npz"))
+        errs = {}
+        for i, name in enumerate(("color", "normal", "sdf_depth", "render_depth")):
+            errs[name] = check_close(f"dp sharded validate {name}",
+                                     torch.from_numpy(image[f"arr_{i}"]),
+                                     torch.from_numpy(got["image"][i]), 1e-4, 1e-4)
+        errs["lattice"] = check_close(
+            "dp sharded validate lattice",
+            torch.from_numpy(np.load(os.path.join(tmp, "val_lattice.npy"))),
+            torch.from_numpy(got["lattice"][2]), 1e-4, 1e-4)
+        del got, image
+        ms = recs[0]["validate"]
+        for k in ("mesh_vertices", "mesh_faces", "active_voxels"):
+            if ms[k] != m1[k] or any(rec["validate"][k] != ms[k] for rec in recs):
+                fail(f"dp: the sharded validate's {k} {ms[k]} is not one process's {m1[k]}")
+        nums.update(validate_max_abs_err=errs,
+                    sharded_render_rays_per_s=ms["render_rays_per_s"],
+                    sharded_mesh_s=ms["mesh_s"], sharded_build_s=ms["build_s"],
+                    one_process_render_rays_per_s=m1["render_rays_per_s"],
+                    one_process_mesh_s=m1["mesh_s"],
+                    mesh=[ms["mesh_vertices"], ms["mesh_faces"]],
+                    ranks=[{k: rec[k] for k in ("rank", "backend", "device", "peak_gb_step",
+                                                "peak_gb", "validate_wall_s",
+                                                "step_kernel_checks_s",
+                                                "validate_kernel_checks_s")}
+                           | {"steps": [{k: st[k] for k in ("step_s", "all_reduce_s",
+                                                            "grad_bytes")}
+                                        for st in rec["steps"]]} for rec in recs])
+        say("dp", f"sharded validate over {recs[0]['group_size']} ranks sharing one card "
+            f"(not scaling): render "
+            f"{ms['render_rays_per_s']:.1f} rays/s, mesh_s {ms['mesh_s']:.3f} (one process: "
+            f"{m1['render_rays_per_s']:.1f} rays/s, {m1['mesh_s']:.3f} s); against one "
+            f"process max abs err " + json.dumps(errs) + f"; mesh ({ms['mesh_vertices']} v, "
+            f"{ms['mesh_faces']} f) as one process's")
+        launches = {"step": [rec["launches_step"] for rec in recs],
+                    "validate": [rec["launches_validate"] for rec in recs]}
+        entries = {"step": [rec["entries_step"] for rec in recs],
+                   "validate": [rec["entries_validate"] for rec in recs]}
+        return launches, nums, entries
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+# ---------------------------------------------------------------------------
+# phase 12: tiny model, card against CPU
 # ---------------------------------------------------------------------------
 
 def reference_check():
@@ -2691,6 +3275,19 @@ def main():
                 r.setdefault("also_checked", []).extend(new)
     mvs_nums["phase_s"] = time.time() - t0
     say("mvs", json.dumps(mvs_nums))
+    torch.cuda.empty_cache()
+
+    t0 = time.time()
+    dp_launches, dp_nums, dp_entries = dp_phase()
+    for r in rows:
+        for part in ("step", "validate"):
+            r[f"launches_in_dp_{part}"] = [c.get(r["name"], 0) for c in dp_launches[part]]
+            for per_rank in dp_entries[part]:
+                new = per_rank.get(r["name"], [])
+                if new:
+                    r.setdefault("also_checked", []).extend(new)
+    dp_nums["phase_s"] = time.time() - t0
+    say("dp", json.dumps(dp_nums))
     torch.cuda.empty_cache()
 
     t0 = time.time()

@@ -152,6 +152,14 @@ def stream_of(t):
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
+def on_device(t):
+    """The launch context of a kernel on ``t``: its card made current (a
+    ctypes launch runs on the current device, which a rank that did not
+    call ``set_device`` may not have made its tensors')."""
+    import torch
+    return torch.cuda.device(t.device)
+
+
 # launches of each hand-written kernel: a wrapper adds one where it
 # launches its kernel, and nowhere else (the CPU path adds nothing)
 launches = {"bilinear_sample_2d": 0, "trilinear_sample_3d": 0,
@@ -167,11 +175,15 @@ def reset_launches():
 
 def require_cuda(what, *tensors):
     """The wrapper's device rule: a CUDA tensor launches the kernel; a CPU
-    tensor takes the plain version (caller's branch); anything else, or a
-    mix, raises."""
+    tensor takes the plain version (caller's branch); anything else, a
+    mix, or tensors on two cards, raises."""
     dev = {t.device.type for t in tensors}
     if dev != {"cuda"}:
         raise ValueError(f"{what}: tensors on {sorted(dev)}; the kernel needs "
+                         f"them all on one CUDA device")
+    cards = {t.device.index for t in tensors}
+    if len(cards) != 1:
+        raise ValueError(f"{what}: tensors on cards {sorted(cards)}; the kernel needs "
                          f"them all on one CUDA device")
     for t in tensors:
         if not t.is_contiguous():

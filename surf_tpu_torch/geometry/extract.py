@@ -5,7 +5,12 @@ Blocks of the lattice that no stage's active voxel touches evaluate to the
 pinned empty-space SDF (+100) everywhere (ops/sparse.occupied_blocks_host),
 so they are skipped exactly.  Occupied blocks are evaluated
 ``blocks_per_call`` at a time, their lattice points generated on the
-device from the block origins; one host copy at the end.
+device from the block origins; one host copy at the end.  Who evaluates
+which blocks is the caller's: ``map_rows(fn, n)`` maps the rows [0, n) of
+the occupied-block list through ``fn`` and returns them on the host (the
+validate's ray-sharded form splits the rows across a node's ranks and
+gathers them once on its first rank; the JAX package shards each call's
+points instead: the same values, one collective in place of one a call).
 """
 
 from __future__ import annotations
@@ -18,40 +23,54 @@ from ..ops.sparse import occupied_blocks_host
 
 
 @torch.no_grad()
-def extract_geometry(sdf_fn, stages, resolution, block=64, blocks_per_call=8):
-    """sdf_fn(pts (m, 3)) -> (m,) SDF.  Returns (verts in [-1,1], tris, u)."""
+def extract_geometry(sdf_fn, stages, resolution, block=64, blocks_per_call=8,
+                     map_rows=None, mesh=True):
+    """sdf_fn(pts (m, 3)) -> (m,) SDF.  Returns (verts in [-1,1], tris, u).
+    ``map_rows(fn, n)``: ``fn`` on the rows [0, n) as a host tensor
+    (default ``fn(arange(n))``); ``mesh`` false: only evaluate (the rows'
+    values go elsewhere) and return None."""
     # a block no larger than the lattice (the skipping is exact either way)
     R, G = int(resolution), int(blocks_per_call)
     B = min(int(block), R)
     dev = stages[0][1].device
     blocks = occupied_blocks_host(stages, R, B)
-    occupied = [tuple(b) for b in np.argwhere(blocks)]
-    u = np.full((R, R, R), 100.0, np.float32)
+    occupied = np.argwhere(blocks)
+    origins_all = torch.from_numpy(occupied * B).to(dev)
     ar = torch.arange(B, device=dev)
     scale = 2.0 / (R - 1.0)
-    pending = []
-    for s in range(0, len(occupied), G):
-        group = occupied[s:s + G]
-        origins = torch.zeros((G, 3), dtype=torch.long)
-        origins[:len(group)] = torch.tensor(group, dtype=torch.long) * B
-        # lattice indices past R-1 clamp; the host copy drops those rows
-        idx = torch.minimum(origins.to(dev)[:, :, None] + ar[None, None, :],
-                            torch.tensor(R - 1, device=dev))
-        p = -1.0 + scale * idx.float()                         # (G, 3, B)
-        shp = (G, B, B, B)
-        pts = torch.stack([p[:, 0, :, None, None].expand(shp),
-                           p[:, 1, None, :, None].expand(shp),
-                           p[:, 2, None, None, :].expand(shp)], dim=-1).reshape(-1, 3)
-        pending.append((group, sdf_fn(pts)))
-    vals_all = torch.stack([v for _, v in pending]).cpu().numpy() if pending else []
-    for (group, _), vals in zip(pending, vals_all):
-        vals = vals.reshape(G, B, B, B)
-        for i, (bx, by, bz) in enumerate(group):
+
+    def eval_blocks(rows):
+        """(k,) rows of ``occupied`` -> their (k, B^3) SDF values."""
+        vals = []
+        for s in range(0, len(rows), G):
+            origins = torch.zeros((G, 3), dtype=torch.long, device=dev)
+            sel = rows[s:s + G]
+            origins[:len(sel)] = origins_all[sel]
+            # lattice indices past R-1 clamp; the host copy drops those rows
+            idx = torch.minimum(origins[:, :, None] + ar[None, None, :],
+                                torch.tensor(R - 1, device=dev))
+            p = -1.0 + scale * idx.float()                         # (G, 3, B)
+            shp = (G, B, B, B)
+            pts = torch.stack([p[:, 0, :, None, None].expand(shp),
+                               p[:, 1, None, :, None].expand(shp),
+                               p[:, 2, None, None, :].expand(shp)], dim=-1).reshape(-1, 3)
+            vals.append(sdf_fn(pts).reshape(G, -1)[:len(sel)])
+        return torch.cat(vals)
+
+    if map_rows is None:
+        def map_rows(fn, n):
+            return fn(torch.arange(n, device=dev)).cpu()
+    vals = map_rows(eval_blocks, len(occupied)) if len(occupied) else None
+    if not mesh:
+        return None
+    u = np.full((R, R, R), 100.0, np.float32)
+    if vals is not None:
+        vals = vals.numpy().reshape(-1, B, B, B)
+        for (bx, by, bz), v in zip(occupied, vals):
             sx = slice(bx * B, min((bx + 1) * B, R))
             sy = slice(by * B, min((by + 1) * B, R))
             sz = slice(bz * B, min((bz + 1) * B, R))
-            u[sx, sy, sz] = vals[i, :sx.stop - sx.start, :sy.stop - sy.start,
-                                 :sz.stop - sz.start]
+            u[sx, sy, sz] = v[:sx.stop - sx.start, :sy.stop - sy.start, :sz.stop - sz.start]
     verts, tris = marching_cubes(-u, 0.0)
     verts = verts / (R - 1.0) * 2.0 - 1.0
     return verts, tris, u

@@ -12,7 +12,16 @@ epoch after the saved one (a checkpoint of either package).
 ``--clean_mesh`` cleans each validation mesh against the item's dilated
 masks and the views' frusta before it is written (off by default).
 Finetune writes under ``<out>/<scene>/view<ref_view>``.  Runs on the card
-unless ``--device cpu``."""
+unless ``--device cpu``.
+
+Multi-device (train and val), one process a card:
+
+    torchrun --nproc_per_node N -m surf_tpu_torch.main --mode train|val ...
+
+(or under SLURM); the process group is joined (``--dist_url``, default
+``env://``) before any device use, each rank on ``cuda:<local rank %
+cards>``, and ``parallel.distribute`` prints the backend it chose.
+``--mode finetune`` runs in one process."""
 
 from __future__ import annotations
 
@@ -24,6 +33,8 @@ import torch
 from .card import set_numerics
 from .config import ConfigFactory
 from .finetune import Finetuner
+from .parallel.distribute import (detect_multiprocess_env, local_rank_and_size,
+                                  maybe_initialize, rank_device)
 from .train import Trainer
 from .utils import resume_from
 from .validate import Validator
@@ -46,6 +57,8 @@ def parse_args(argv=None):
     p.add_argument("--device", type=str, default="cuda", choices=["cuda", "cpu"])
     p.add_argument("--out", type=str, default=None,
                    help="output directory (default <base_exp_dir>/torch)")
+    p.add_argument("--dist_url", type=str, default="env://",
+                   help="rendezvous of a multi-process run (env:// or file://<path>)")
     return p.parse_args(argv)
 
 
@@ -55,6 +68,11 @@ def main(argv=None):
         raise SystemExit("no CUDA device (pass --device cpu to run on the CPU)")
     set_numerics()
     conf = ConfigFactory.parse_file(args.conf)
+    if args.mode == "finetune":
+        if (detect_multiprocess_env() or {}).get("world_size", 1) > 1:
+            raise SystemExit("--mode finetune runs in one process")
+    elif maybe_initialize(conf, device=args.device, init_method=args.dist_url):
+        args.device = rank_device(args.device)
     if args.mode == "train":
         t = Trainer(conf, device=args.device, seed=args.seed, base_exp_dir=args.out,
                     mesh_resolution=args.mesh_resolution, resume=args.resume,
@@ -75,9 +93,14 @@ def main(argv=None):
         v.params, v.state, v.vol_state = resume_from(
             args.resume, v.params, v.state, load_vol=args.load_vol, device=v.device)
     results = v.validate()
-    print(json.dumps(results))
+    if local_rank_and_size()[0] == 0:
+        print(json.dumps(results))
     return results
 
 
 if __name__ == "__main__":
     main()
+    if torch.distributed.is_initialized():
+        # leave once every rank is done
+        torch.distributed.barrier()
+        torch.distributed.destroy_process_group()

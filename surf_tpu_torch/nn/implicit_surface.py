@@ -52,18 +52,30 @@ def _band(center, half_range, near, far):
         torch.minimum(torch.maximum(hi, near), far)
 
 
-def build_z_vals(static, rays_o, rays_d, near, far, matching_volume,
-                 generator=None):
-    """near/far (nr, 1) -> sorted z_vals (nr, sum(n_samples)).  Jitter
-    (``render.perturb`` > 0) is drawn from ``generator``; None disables it."""
+def draw_jitter(static, n_rays, generator, device):
+    """The z jitter a render draws first from ``generator``: one (n_rays, 1)
+    offset in [-0.5, 0.5) a sample range, or None without
+    ``render.perturb``."""
+    if static["perturb"] <= 0:
+        return None
+    return [torch.rand((n_rays, 1), generator=generator, device=device) - 0.5
+            for _ in static["n_samples"]]
+
+
+def draw_probe(generator, device):
+    """The 1024 random SDF probe points in [-1, 1]^3 a render draws next."""
+    return torch.rand((1024, 3), generator=generator, device=device) * 2.0 - 1.0
+
+
+def build_z_vals(static, rays_o, rays_d, near, far, matching_volume, jitter=None):
+    """near/far (nr, 1) -> sorted z_vals (nr, sum(n_samples)).  ``jitter``:
+    one (nr, 1) offset in [-0.5, 0.5) a sample range (``draw_jitter``), or
+    None for none."""
     n0 = static["n_samples"][0]
-    nr = rays_o.shape[0]
     dev = rays_o.device
-    jitter = generator is not None and static["perturb"] > 0
     z_uniform = near + (far - near) * torch.linspace(0.0, 1.0, n0, device=dev)[None]
-    if jitter:
-        t = torch.rand((nr, 1), generator=generator, device=dev) - 0.5
-        z_uniform = z_uniform + t * 2.0 / n0
+    if jitter is not None:
+        z_uniform = z_uniform + jitter[0] * 2.0 / n0
     z_all = [z_uniform]
 
     base_range = far - near
@@ -74,12 +86,12 @@ def build_z_vals(static, rays_o, rays_d, near, far, matching_volume,
     density = trilinear_sample_3d(matching_volume.detach(), pts,
                                   align_corners=False)[..., 0]
     surf_z = (z_d * torch.softmax(density, dim=-1)).sum(-1, keepdim=True)
-    for ratio, ns in zip(static["sample_ranges"][1:], static["n_samples"][1:]):
+    for i, (ratio, ns) in enumerate(zip(static["sample_ranges"][1:],
+                                        static["n_samples"][1:])):
         lo, hi = _band(surf_z, base_range * ratio, near, far)
         z_s = lo + (hi - lo) * torch.linspace(0.0, 1.0, ns, device=dev)[None]
-        if jitter:
-            t = torch.rand((nr, 1), generator=generator, device=dev) - 0.5
-            z_s = z_s + t * (hi - lo) / ns
+        if jitter is not None:
+            z_s = z_s + jitter[i + 1] * (hi - lo) / ns
         z_all.append(z_s)
     return torch.sort(torch.cat(z_all, dim=-1), dim=-1).values
 
@@ -223,7 +235,7 @@ def render_core(params, static, rays_o, rays_d, z_vals, sample_dist, stages,
 
     # random sparse-SDF sample (reference lines 174-178)
     if pts_random is None:
-        pts_random = torch.rand((1024, 3), generator=generator, device=dev) * 2.0 - 1.0
+        pts_random = draw_probe(generator, dev)
     rnd_out, rnd_mask = sdf_net.apply_occ(sdf_p, sdf_s, pts_random, stages)
     sdf_random = rnd_out[:, :1] * rnd_mask[:, None].float()
 
@@ -270,11 +282,12 @@ def render_core(params, static, rays_o, rays_d, z_vals, sample_dist, stages,
 def render(params, static, rays_o, rays_d, near, far, matching_volume, stages,
            features, imgs, intrs, c2ws, cos_anneal_ratio=1.0, fused_colors=None,
            generator=None, *, match_features=None, step=None, warp_feats=None,
-           pts_random=None):
-    """Surface-centric z-vals then ``render_core``.  ``generator`` drives
-    the z jitter (``render.perturb``) and the random SDF probe; None means
-    no jitter.  Callers rendering many chunks pass ``fuse_pyramid`` once.
-    Training passes ``match_features`` and ``step`` (or ``warp_feats``):
+           pts_random=None, z_jitter=None):
+    """Surface-centric z-vals then ``render_core``.  ``generator`` draws
+    the z jitter (``render.perturb``, ``draw_jitter``) unless ``z_jitter``
+    gives it, then the random SDF probe unless ``pts_random`` gives it;
+    with neither a generator nor ``z_jitter`` there is no jitter.  Callers
+    rendering many chunks pass ``fuse_pyramid`` once.  Training passes ``match_features`` and ``step`` (or ``warp_feats``):
     the patch warp for the NCC loss runs only then."""
     params = core.materialize_weight_norm(params)
     if near.shape[0] == 1:
@@ -284,8 +297,9 @@ def render(params, static, rays_o, rays_d, near, far, matching_volume, stages,
         fused_colors = fuse_pyramid(imgs, features)
     if warp_feats is None and match_features is not None:
         warp_feats = prepare_patch_features(features, match_features, step)
-    z_vals = build_z_vals(static, rays_o, rays_d, near, far, matching_volume,
-                          generator)
+    if generator is not None and z_jitter is None:
+        z_jitter = draw_jitter(static, rays_o.shape[0], generator, rays_o.device)
+    z_vals = build_z_vals(static, rays_o, rays_d, near, far, matching_volume, z_jitter)
     return render_core(params, static, rays_o, rays_d, z_vals,
                        2.0 / static["n_samples"][0], stages, features, imgs,
                        intrs, c2ws, cos_anneal_ratio, fused_colors=fused_colors,

@@ -137,9 +137,10 @@ def _k4_launch(entry, x, idx, live, third, c_out):
         out = torch.zeros((T, Cin, c_out), dtype=torch.float32, device=x.device)
     P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     fn = _build.kernel_fn("gather_conv", entry, [P, P, P, P, L, I, I, I, P, P])
-    _build.check(fn(x.data_ptr(), idx.data_ptr(), third.data_ptr(), out.data_ptr(), R, T,
-                    Cin, c_out, _build.stream_of(x),
-                    None if live is None else live.data_ptr()), entry)
+    with _build.on_device(x):
+        _build.check(fn(x.data_ptr(), idx.data_ptr(), third.data_ptr(), out.data_ptr(), R, T,
+                        Cin, c_out, _build.stream_of(x),
+                        None if live is None else live.data_ptr()), entry)
     _build.launches[entry] += 1
     return out
 

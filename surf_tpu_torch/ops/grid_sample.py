@@ -104,9 +104,10 @@ def bilinear_sample(images, coords, *, normalized=True, align_corners=True):
     out = torch.empty((V, N, C), dtype=torch.float32, device=images.device)
     fn = _build.kernel_fn("grid_sample", "bilinear_sample_2d",
                           [_P, _P, _P, _I, _I, _I, _I, _L, _I, _I, _P])
-    _build.check(fn(images.data_ptr(), coords.data_ptr(), out.data_ptr(),
-                    V, H, W, C, N, int(normalized), int(align_corners),
-                    _build.stream_of(images)), "bilinear_sample_2d")
+    with _build.on_device(images):
+        _build.check(fn(images.data_ptr(), coords.data_ptr(), out.data_ptr(),
+                        V, H, W, C, N, int(normalized), int(align_corners),
+                        _build.stream_of(images)), "bilinear_sample_2d")
     _build.launches["bilinear_sample_2d"] += 1
     return out
 
@@ -176,11 +177,12 @@ def bilinear_sample_bwd(images, coords, ct, *, normalized=True,
     d_co = torch.empty_like(coords) if need_coords else None
     fn = _build.kernel_fn("grid_sample", "bilinear_sample_2d_bwd",
                           [_P, _P, _P, _P, _P, _I, _I, _I, _I, _L, _I, _I, _P])
-    _build.check(fn(images.data_ptr(), coords.data_ptr(), ct.data_ptr(),
-                    d_img.data_ptr() if need_images else None,
-                    d_co.data_ptr() if need_coords else None,
-                    V, H, W, C, N, int(normalized), int(align_corners),
-                    _build.stream_of(images)), "bilinear_sample_2d_bwd")
+    with _build.on_device(images):
+        _build.check(fn(images.data_ptr(), coords.data_ptr(), ct.data_ptr(),
+                        d_img.data_ptr() if need_images else None,
+                        d_co.data_ptr() if need_coords else None,
+                        V, H, W, C, N, int(normalized), int(align_corners),
+                        _build.stream_of(images)), "bilinear_sample_2d_bwd")
     _build.launches["bilinear_sample_2d_bwd"] += 1
     return d_img, d_co
 
@@ -317,10 +319,11 @@ def trilinear_sample(volume, coords, *, normalized=True, align_corners=True):
     out = torch.empty((N, C), dtype=torch.float32, device=volume.device)
     fn = _build.kernel_fn("grid_sample", "trilinear_sample_3d",
                           [_P, _I, _P, _P, _I, _I, _I, _I, _L, _I, _I, _P])
-    _build.check(fn(volume.data_ptr(), int(volume.dtype == torch.bfloat16),
-                    coords.data_ptr(), out.data_ptr(), X, Y, Z, C, N,
-                    int(normalized), int(align_corners),
-                    _build.stream_of(volume)), "trilinear_sample_3d")
+    with _build.on_device(volume):
+        _build.check(fn(volume.data_ptr(), int(volume.dtype == torch.bfloat16),
+                        coords.data_ptr(), out.data_ptr(), X, Y, Z, C, N,
+                        int(normalized), int(align_corners),
+                        _build.stream_of(volume)), "trilinear_sample_3d")
     _build.launches["trilinear_sample_3d"] += 1
     return out
 
@@ -434,15 +437,16 @@ def trilinear_sample_bwd(volume, coords, ct, *, normalized=True,
     fn = _build.kernel_fn("grid_sample", "trilinear_sample_3d_bwd",
                           [_P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _L, _I, _I, _P,
                            _P, _P, _P])
-    _build.check(fn(volume.data_ptr(), int(bf16), coords.data_ptr(), ct.data_ptr(),
-                    d_vol.data_ptr() if need_volume else None,
-                    d_co.data_ptr() if need_coords else None,
-                    X, Y, Z, C, N, int(normalized), int(align_corners),
-                    _build.stream_of(volume),
-                    d_out.data_ptr() if d_out is not None else None,
-                    bricks.data_ptr() if bricks is not None else None,
-                    counts.data_ptr() if counts is not None else None),
-                 "trilinear_sample_3d_bwd")
+    with _build.on_device(volume):
+        _build.check(fn(volume.data_ptr(), int(bf16), coords.data_ptr(), ct.data_ptr(),
+                        d_vol.data_ptr() if need_volume else None,
+                        d_co.data_ptr() if need_coords else None,
+                        X, Y, Z, C, N, int(normalized), int(align_corners),
+                        _build.stream_of(volume),
+                        d_out.data_ptr() if d_out is not None else None,
+                        bricks.data_ptr() if bricks is not None else None,
+                        counts.data_ptr() if counts is not None else None),
+                     "trilinear_sample_3d_bwd")
     _build.launches["trilinear_sample_3d_bwd"] += 1
     return (d_out if bf16 else d_vol) if need_volume else None, d_co
 

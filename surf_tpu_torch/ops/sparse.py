@@ -258,15 +258,16 @@ def sparse_trilinear_multi(stages, pts, *, derivs=False, third=False):
               ctypes.addressof(res), ctypes.addressof(cs), feats.data_ptr(),
               occ.data_ptr(), jac.data_ptr() if jac is not None else None,
               hmix.data_ptr() if hmix is not None else None]
-    if third:
-        t3 = torch.empty((n, ctot), dtype=torch.float32, device=dev)
-        fn = _build.kernel_fn("sparse_trilinear", "sparse_trilinear_multi_third",
-                              [_P, _L, _I] + [_P] * 11)
-        rc = fn(*common, t3.data_ptr(), _build.stream_of(pts))
-    else:
-        fn = _build.kernel_fn("sparse_trilinear", "sparse_trilinear_multi",
-                              [_P, _L, _I] + [_P] * 10)
-        rc = fn(*common, _build.stream_of(pts))
+    with _build.on_device(pts):
+        if third:
+            t3 = torch.empty((n, ctot), dtype=torch.float32, device=dev)
+            fn = _build.kernel_fn("sparse_trilinear", "sparse_trilinear_multi_third",
+                                  [_P, _L, _I] + [_P] * 11)
+            rc = fn(*common, t3.data_ptr(), _build.stream_of(pts))
+        else:
+            fn = _build.kernel_fn("sparse_trilinear", "sparse_trilinear_multi",
+                                  [_P, _L, _I] + [_P] * 10)
+            rc = fn(*common, _build.stream_of(pts))
     _build.check(rc, "sparse_trilinear_multi")
     _build.launches["sparse_trilinear_multi"] += 1
     if third:
@@ -351,14 +352,15 @@ def k3b_launch(stages, pts, cts, grads, counts=None):
     gptr = (ctypes.c_longlong * len(stages))(*[g.data_ptr() for g in grads])
     fn = _build.kernel_fn("sparse_trilinear", "sparse_trilinear_multi_bwd",
                           [_P, _L, _I] + [_P] * 12)
-    _build.check(fn(pts.data_ptr(), pts.shape[0], len(stages), ctypes.addressof(tables),
-                    ctypes.addressof(cvalids), ctypes.addressof(gptr),
-                    ctypes.addressof(res), ctypes.addressof(cs),
-                    *[None if c is None else c.data_ptr() for c in cts],
-                    _build.stream_of(pts),
-                    counts.data_ptr() if counts is not None else None,
-                    ctypes.addressof(strides)),
-                 "sparse_trilinear_multi_bwd")
+    with _build.on_device(pts):
+        _build.check(fn(pts.data_ptr(), pts.shape[0], len(stages), ctypes.addressof(tables),
+                        ctypes.addressof(cvalids), ctypes.addressof(gptr),
+                        ctypes.addressof(res), ctypes.addressof(cs),
+                        *[None if c is None else c.data_ptr() for c in cts],
+                        _build.stream_of(pts),
+                        counts.data_ptr() if counts is not None else None,
+                        ctypes.addressof(strides)),
+                     "sparse_trilinear_multi_bwd")
     _build.launches["sparse_trilinear_multi_bwd"] += 1
 
 

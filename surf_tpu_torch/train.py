@@ -24,6 +24,13 @@ the validation scenes go through the port's validate path (a
 ``torch.no_grad``), which writes the mesh and the ``val_*`` files.  Each
 epoch's loss terms are averaged and printed (the JAX package writes them
 to TensorBoard where ``tensorboardX`` is installed).
+
+Under ``torch.distributed`` with more than one rank the loop is the JAX
+runner's data-parallel one (surf_tpu/runner.py:316-372; there
+``train.data_parallel``, default true, must not be false): one item a
+rank a step through ``parallel.mesh.dp_train_step``, the epoch's last
+super-batch padded at weight 0, rank 0's parameters broadcast at
+start-up; rank r's generator is seeded ``rank_seed(seed, r)``.
 """
 
 from __future__ import annotations
@@ -39,10 +46,18 @@ from .data import get_dataset
 from .losses import compute_loss, make_loss_config
 from .nn import surf
 from .nn.core import tree_leaves
+from .parallel import mesh as dp
+from .parallel.distribute import is_main_process, process_count, process_index
 from .utils import load_checkpoint, save_checkpoint, to_numpy_tree, to_torch_tree, \
     warmup_cosine
 from .utils.opt_state import fingerprint, opt_state_tree, restore_opt_state
 from .validate import Validator, to_device
+
+
+def rank_seed(seed, rank):
+    """The seed of rank ``rank``'s generator: rank 0 draws what a single
+    process draws (``seed + 1``), the others their own streams."""
+    return seed + 1 + 1_000_003 * rank
 
 
 class Trainer:
@@ -50,7 +65,15 @@ class Trainer:
                  params=None, state=None, mesh_resolution=512, resume=None,
                  clean_mesh=False):
         """``resume``: a training checkpoint of either package (else
-        ``params`` / ``state``, or the seeded init)."""
+        ``params`` / ``state``, or the seeded init).  More than one rank
+        trains data-parallel; ``train.data_parallel = false`` is refused
+        there (each rank would train its own replica, and the validate's
+        ray groups would mix their parameters)."""
+        self.world, self.rank = process_count(), process_index()
+        if self.world > 1 and not conf.get_bool("train.data_parallel", default=True):
+            raise SystemExit(f"training on {self.world} ranks needs train.data_parallel = "
+                             "true (the conf sets it false)")
+        self.data_parallel = self.world > 1
         self.conf = conf
         self.device = torch.device(device)
         self.epochs = conf.get_int("train.epochs")
@@ -92,13 +115,16 @@ class Trainer:
         self.scheduler = torch.optim.lr_scheduler.LambdaLR(
             self.optimizer, lambda k: self.lr_scale(k / self.steps_per_epoch))
         self.generator = torch.Generator(device=self.device)
-        self.generator.manual_seed(seed + 1)
+        self.generator.manual_seed(rank_seed(seed, self.rank))
         self.active_voxels = None
         self.start_epoch = 0
         if ckpt is not None and "opt_state" in ckpt:
             restore_opt_state(self.params, self.optimizer, self.scheduler,
                               ckpt["opt_state"], ckpt.get("opt_struct"))
             self.start_epoch = int(ckpt["epoch"]) + 1
+        if self.data_parallel:
+            # every rank starts from rank 0's parameters and state
+            dp.broadcast_tree([self.params, self.state])
 
     def cos_anneal_ratio(self, step_f):
         return 1.0 if self.anneal_end == 0.0 else min(1.0, step_f / self.anneal_end)
@@ -139,30 +165,47 @@ class Trainer:
             return validator.validate(epoch)
 
     def train(self):
-        n = len(self.dataset)
+        """Epochs from ``start_epoch``.  Data-parallel, an epoch is
+        ceil(N / ranks) super-batches of one item a rank from the same
+        seeded order, the last padded with the last item at weight 0; the
+        schedule counts super-batches (as the JAX runner's optax count
+        does).  Rank 0 alone prints and saves; every rank validates."""
+        n_items = len(self.dataset)
+        W = self.world if self.data_parallel else 1
+        n = -(-n_items // W)
+        main = is_main_process()
         val = None
         for epoch in range(self.start_epoch, self.epochs):
             if epoch % 2 == 0:
                 self.state = surf.refresh_match_features(self.params, self.state)
-            order = np.arange(n)
+            order = np.arange(n_items)
             np.random.RandomState(self.seed + epoch).shuffle(order)
             t0 = time.time()
             sums = {}
-            for i, idx in enumerate(order):
+            for i in range(n):
                 step_f = epoch + i / n
-                batch = to_device(self.dataset[int(idx)], self.device)
-                res = self.step(batch, step_f)
+                if self.data_parallel:
+                    # this rank's item of the super-batch, and every weight
+                    picks = [i * W + r for r in range(W)]
+                    weights = [1.0 if j < n_items else 0.0 for j in picks]
+                    idx = order[min(picks[self.rank], n_items - 1)]
+                    batch = to_device(self.dataset[int(idx)], self.device)
+                    res = dp.dp_train_step(self, batch, step_f, weights)
+                else:
+                    batch = to_device(self.dataset[int(order[i])], self.device)
+                    res = self.step(batch, step_f)
                 sums = {k: sums.get(k, 0.0) + v for k, v in res.items()}
-                if (epoch * n + i) % max(int(self.log_freq * n), 1) == 0:
+                if main and (epoch * n + i) % max(int(self.log_freq * n), 1) == 0:
                     print(f"[epoch {epoch} {i}/{n}] loss {res['loss']:.4f} color "
                           f"{res['color_loss']:.4f} psnr {res['psnr']:.2f} "
                           f"({(time.time() - t0) / (i + 1):.2f}s/it)", flush=True)
                 if not math.isfinite(res["loss"]):
                     raise FloatingPointError(f"non-finite loss at epoch {epoch} step {i}")
-            print(f"[epoch {epoch} train_avg] " + " ".join(
-                f"{k} {v / n:.4f}" for k, v in sums.items()), flush=True)
-            if (epoch + 1) % self.save_freq == 0 or epoch + 1 >= self.epochs:
-                self.save(epoch)
+            if main:
+                print(f"[epoch {epoch} train_avg] " + " ".join(
+                    f"{k} {v / n:.4f}" for k, v in sums.items()), flush=True)
+                if (epoch + 1) % self.save_freq == 0 or epoch + 1 >= self.epochs:
+                    self.save(epoch)
             if (epoch + 1) % self.val_freq == 0:
                 val = val or Validator(self.conf, device=self.device,
                                        mesh_resolution=self.mesh_resolution, seed=self.seed,

@@ -11,11 +11,15 @@ Writes the mesh (``meshes/<scene>_epoch<e>.ply``) and the artifacts
 names: ``val_img`` and ``val_normal`` as 8-bit PNGs, ``val_render_depth``,
 ``val_sdf_depth`` and ``val_auxi_depth`` as magma PNGs plus ``.npy``.
 Returns PSNR, colour L1, masked depth L1 and the timings ``build_s``,
-``mesh_s`` (and ``clean_mesh_s``) and ``render_rays_per_s``.
+``mesh_s`` (and ``clean_mesh_s``) and ``render_rays_per_s``.  Under
+``torch.distributed`` the render chunks and the mesh lattice are shared
+by the ranks of a node (``parallel.ray_shard``; surf_tpu/runner.py:429-522,
+557-566).
 """
 
 from __future__ import annotations
 
+import functools
 import os
 import time
 
@@ -29,7 +33,10 @@ from .io.colormap import save_depth_png
 from .io.image import write_png
 from .nn import surf, feature_net, implicit_surface, sdf_net
 from .nn.core import materialize_weight_norm
+from .nn.implicit_surface import draw_jitter, draw_probe
 from .ops.feature_lookup import fuse_pyramid
+from .parallel.distribute import node_index_and_count, process_count, process_index
+from .parallel.ray_shard import broadcast_object, is_root, padded_chunk, ray_group, shard_rows
 
 
 def to_device(inputs, device):
@@ -61,42 +68,59 @@ def sdf_lattice_fn(isf_params, isf_static, stages_ff):
 
 
 @torch.no_grad()
-def extract_mesh(isf_params, isf_static, stages_ff, resolution, block=64):
+def extract_mesh(isf_params, isf_static, stages_ff, resolution, block=64, group=None):
     """Block-skipped SDF lattice and host marching cubes: (verts in
-    [-1, 1], tris, lattice)."""
+    [-1, 1], tris, lattice); with a ray ``group`` the lattice's blocks are
+    split across its ranks and its first rank gets the result (None on the
+    others)."""
+    dev = stages_ff[0][1].device
     return extract_geometry(sdf_lattice_fn(isf_params, isf_static, stages_ff), stages_ff,
-                            resolution, block=block)
+                            resolution, block=block,
+                            map_rows=functools.partial(shard_rows, group=group, device=dev),
+                            mesh=is_root(group))
 
 
 def render_full_image(isf_params, isf_static, ipts, stages_ff, matching, feats_ff, chunk,
-                      generator):
+                      generator, group=None):
     """The validation rays of ``ipts`` rendered in chunks of ``chunk``:
     (colour, normal in the reference camera's frame, sdf depth, render
-    depth) as (h, w, ...) numpy arrays."""
+    depth) as (h, w, ...) numpy arrays.  With a ray ``group`` the chunk is
+    rounded up to a multiple of its ranks, each renders its rows of every
+    chunk, and its first rank gets the image (None on the others)."""
     params = materialize_weight_norm(isf_params)
     fused = fuse_pyramid(ipts["imgs"], feats_ff) if isf_static.get("fused_pyramid") else None
     rays_o, rays_d = ipts["rays_o"], ipts["rays_d"]
-    n = rays_o.shape[0]
+    n, dev = rays_o.shape[0], rays_o.device
     near = ipts["near"].reshape(1, 1)
     far = ipts["far"].reshape(1, 1)
-    outs = {"color": [], "normal": [], "sdf_depth": [], "render_depth": []}
+    chunk = padded_chunk(chunk, group)
+    outs = []
     for s in range(0, n, chunk):
-        sl = slice(s, s + chunk)
-        r = implicit_surface.render(
-            params, isf_static, rays_o[sl], rays_d[sl], near, far, matching,
-            stages_ff, feats_ff, ipts["imgs"], ipts["intrs"], ipts["c2ws"],
-            1.0, fused_colors=fused, generator=generator)
-        outs["color"].append(r["color_fine"])
-        outs["normal"].append((r["gradients"] * r["weights"][..., None]
-                               * r["inside_sphere"][..., None]).sum(1))
-        outs["sdf_depth"].append(r["sdf_depth"])
-        outs["render_depth"].append(r["render_depth"])
+        m = min(chunk, n - s)
+        # the chunk's random numbers, drawn whole as the one-process render
+        # draws them; each rank keeps its rows
+        jitter = None if generator is None else draw_jitter(isf_static, m, generator, dev)
+        probe = draw_probe(generator, dev)
+
+        def chunk_rows(rows):
+            r = implicit_surface.render(
+                params, isf_static, rays_o[s + rows], rays_d[s + rows], near, far,
+                matching, stages_ff, feats_ff, ipts["imgs"], ipts["intrs"], ipts["c2ws"],
+                1.0, fused_colors=fused, pts_random=probe,
+                z_jitter=None if jitter is None else [j[rows] for j in jitter])
+            normal = (r["gradients"] * r["weights"][..., None]
+                      * r["inside_sphere"][..., None]).sum(1)
+            return torch.cat([r["color_fine"], normal, r["sdf_depth"].reshape(-1, 1),
+                              r["render_depth"].reshape(-1, 1)], dim=1)
+        outs.append(shard_rows(chunk_rows, m, group, device=dev))
+    if not is_root(group):
+        return None
     h, w = [int(x) for x in ipts["hw"].reshape(-1)]
-    cat = {k: torch.cat(v).cpu().numpy() for k, v in outs.items()}
+    cat = torch.cat(outs).numpy()
     rot = np.linalg.inv(ipts["c2ws"][0, :3, :3].cpu().numpy())
-    normal = (rot @ cat["normal"].T).T.reshape(h, w, 3)
-    return (cat["color"].reshape(h, w, 3), normal,
-            cat["sdf_depth"].reshape(h, w), cat["render_depth"].reshape(h, w))
+    normal = (rot @ cat[:, 3:6].T).T.reshape(h, w, 3)
+    return (cat[:, :3].reshape(h, w, 3), normal, cat[:, 6].reshape(h, w),
+            cat[:, 7].reshape(h, w))
 
 
 def write_artifacts(d, file_name, epoch, color, normal, sdf_depth, render_depth,
@@ -140,6 +164,8 @@ class Validator:
         self.generator = torch.Generator(device=self.device)
         self.generator.manual_seed(seed + 1)
         self.last_scene = None
+        # the node's ranks, which share each scene's render and lattice
+        self.group = ray_group(conf)
 
     # -- the three phases ---------------------------------------------------
     @torch.no_grad()
@@ -151,18 +177,32 @@ class Validator:
 
     def extract_geometry(self, stages_ff, resolution, block=64):
         return extract_mesh(self.params["implicit_surface"], self.static["implicit_surface"],
-                            stages_ff, resolution, block=block)
+                            stages_ff, resolution, block=block, group=self.group)
 
     def render_full_image(self, ipts, stages_ff, matching, feats_ff):
         return render_full_image(self.params["implicit_surface"],
                                  self.static["implicit_surface"], ipts, stages_ff, matching,
-                                 feats_ff, self.val_chunk, self.generator)
+                                 feats_ff, self.val_chunk, self.generator, self.group)
 
     # -- the whole pass -----------------------------------------------------
     def validate(self, epoch=0):
-        """Run every validation scene; returns the per-scene metric dicts."""
+        """Run every validation scene; returns the per-scene metric dicts.
+        Under ``torch.distributed`` the scenes are split across nodes
+        (scene i on node i mod nodes) and each scene's render and lattice
+        across the node's ranks; the node's first rank runs marching cubes
+        and the mesh cleaning and writes the artifacts, and every rank
+        returns the node's metrics.  Without ray sharding
+        (``train.val_ray_shard = false``) each rank takes its own
+        scenes."""
         results = []
+        if self.group is None:
+            unit, n_units = process_index(), process_count()
+        else:
+            unit, n_units = node_index_and_count()
+        root = is_root(self.group)
         for idx in range(len(self.dataset)):
+            if idx % n_units != unit:
+                continue
             inputs = self.dataset[idx]
             ipts = to_device(inputs, self.device)
             _sync(self.device)
@@ -181,31 +221,24 @@ class Validator:
 
             t0 = time.time()
             with record_function("mesh"):
-                verts, tris, _ = self.extract_geometry(stages_ff, self.mesh_resolution)
+                lattice = self.extract_geometry(stages_ff, self.mesh_resolution)
             mesh_s = time.time() - t0
-            mesh = Mesh(verts, tris)
-            clean = {}
-            if self.clean_mesh and "masks" in inputs:
-                t0 = time.time()
-                mesh = clean_mesh(mesh, np.asarray(inputs["masks"]),
-                                  np.asarray(inputs["intrs"]), np.asarray(inputs["c2ws"]))
-                clean = {"clean_mesh_s": time.time() - t0,
-                         "mesh_faces_before_clean": int(len(tris))}
-            mesh.apply_transform(np.asarray(inputs["scale_mat"]))
-            scene, file_name = inputs["scene"], inputs["file_name"]
-            d = self.base_exp_dir
-            for sub in ("meshes", "val_img", "val_normal", "val_sdf_depth",
-                        "val_render_depth", "val_auxi_depth"):
-                os.makedirs(os.path.join(d, sub), exist_ok=True)
-            mesh.export(os.path.join(d, "meshes", f"{scene}_epoch{epoch}.ply"))
+            if root:
+                mesh, clean = self.write_mesh(inputs, *lattice[:2], epoch)
 
             _sync(self.device)
             t0 = time.time()
             with record_function("render"):
-                color, normal, sdf_depth, render_depth = self.render_full_image(
-                    ipts, stages_ff, matching, feats_ff)
+                image = self.render_full_image(ipts, stages_ff, matching, feats_ff)
             render_s = time.time() - t0
+            # the last scene's device state, for inspection and kernel checks
+            self.last_scene = {"ipts": ipts, "stages": stages,
+                               "matching": matching, "features": features}
+            if not root:
+                continue
+            color, normal, sdf_depth, render_depth = image
             n_rays = int(ipts["rays_o"].shape[0])
+            scene, file_name, d = inputs["scene"], inputs["file_name"], self.base_exp_dir
 
             auxi = mf_outputs["depth_stage0"].cpu().numpy() \
                 if "depth_stage0" in mf_outputs else None
@@ -239,10 +272,28 @@ class Validator:
                                and np.isfinite(render_depth).all()),
             })
             results.append(m)
-            # the last scene's device state, for inspection and kernel checks
-            self.last_scene = {"ipts": ipts, "stages": stages,
-                               "matching": matching, "features": features}
             print(f"[val {scene}] " + " ".join(
                 f"{k}={v:.4f}" if isinstance(v, float) else f"{k}={v}"
                 for k, v in m.items() if k != "scene"), flush=True)
-        return results
+        return broadcast_object(results, self.group)
+
+    def write_mesh(self, inputs, verts, tris, epoch):
+        """The scene's mesh, cleaned with ``clean_mesh`` where the item has
+        masks, in the scene's frame, written as
+        ``meshes/<scene>_epoch<e>.ply``.  Returns (mesh, the cleaning's
+        numbers)."""
+        mesh = Mesh(verts, tris)
+        clean = {}
+        if self.clean_mesh and "masks" in inputs:
+            t0 = time.time()
+            mesh = clean_mesh(mesh, np.asarray(inputs["masks"]),
+                              np.asarray(inputs["intrs"]), np.asarray(inputs["c2ws"]))
+            clean = {"clean_mesh_s": time.time() - t0,
+                     "mesh_faces_before_clean": int(len(tris))}
+        mesh.apply_transform(np.asarray(inputs["scale_mat"]))
+        d = self.base_exp_dir
+        for sub in ("meshes", "val_img", "val_normal", "val_sdf_depth",
+                    "val_render_depth", "val_auxi_depth"):
+            os.makedirs(os.path.join(d, sub), exist_ok=True)
+        mesh.export(os.path.join(d, "meshes", f"{inputs['scene']}_epoch{epoch}.ply"))
+        return mesh, clean

@@ -80,6 +80,17 @@ def test_other_devices_raise(name):
         _calls("meta")[name]()
 
 
+def test_kernels_refuse_tensors_on_two_cards():
+    """The device rule also needs one card: a launch runs on the tensors'
+    card (``_build.on_device``), so tensors on two cards are refused."""
+    from types import SimpleNamespace
+    on = [SimpleNamespace(device=torch.device("cuda", i), is_contiguous=lambda: True)
+          for i in (0, 1, 1)]
+    _build.require_cuda("k", on[1], on[2])
+    with pytest.raises(ValueError, match="cards"):
+        _build.require_cuda("k", on[0], on[1])
+
+
 def _imports(path):
     tree = ast.parse(open(path).read(), filename=path)
     names = []
@@ -104,9 +115,10 @@ def test_port_imports_no_jax_and_no_surf_tpu():
     for d, _, fs in os.walk(os.path.join(ROOT, "surf_tpu_torch")):
         files += [os.path.join(d, f) for f in fs if f.endswith(".py")]
     assert len(files) > 20
-    # the JPEG slice's modules are walked too (the csrc-backed reader among them)
+    # the JPEG slice's and the multi-device slice's modules are walked too
     assert {os.path.join("surf_tpu_torch", *f.split("/")) for f in (
-        "io/jpeg.py", "data/mvs_generic.py", "data/mvs_scene.py")} <= {
+        "io/jpeg.py", "data/mvs_generic.py", "data/mvs_scene.py", "parallel/__init__.py",
+        "parallel/distribute.py", "parallel/mesh.py", "parallel/ray_shard.py")} <= {
         os.path.relpath(f, ROOT) for f in files}
     bad = [(os.path.relpath(f, ROOT), n) for f in files for n in _imports(f)
            if _forbidden(n)]

@@ -686,3 +686,33 @@ def test_mvs_layout_validate_on_the_card(tmp_path, monkeypatch, name):
     for sub, ext in (("val_img", "png"), ("val_normal", "png"), ("val_sdf_depth", "npy"),
                      ("val_render_depth", "png"), ("val_auxi_depth", "npy")):
         assert (tmp_path / "cuda" / sub / f"{scan}_view{views[0]}_epoch0.{ext}").exists()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["bilinear_sample_2d", "bilinear_sample_2d_bwd",
+                                  "trilinear_sample_3d", "trilinear_sample_3d_bwd",
+                                  "sparse_trilinear_multi", "sparse_trilinear_multi_bwd",
+                                  "gather_conv", "gather_conv_dw"])
+def test_kernels_launch_on_their_tensors_card(name):
+    """A rank whose current card is cuda:0 and whose tensors are on cuda:1
+    (no ``set_device``): every wrapper launches its kernel on cuda:1 and
+    matches its plain version; tensors on two cards are refused."""
+    from test_torch_contract import _calls
+    from surf_tpu_torch import _build
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two cards")
+    before = _build.launches[name]
+    with torch.cuda.device(0):
+        got = _calls("cuda:1")[name]()
+        torch.cuda.synchronize(1)
+    assert _build.launches[name] == before + 1
+    got = got if isinstance(got, tuple) else (got,)
+    ref = _calls("cpu")[name]()
+    ref = ref if isinstance(ref, tuple) else (ref,)
+    for g, r in zip(got, ref):
+        if r is not None:
+            assert g.device == torch.device("cuda", 1)
+            torch.testing.assert_close(g.cpu().float(), r.float(), rtol=1e-5, atol=1e-5)
+    with pytest.raises(ValueError, match="cards"):
+        _build.require_cuda(name, torch.zeros(1, device="cuda:0"),
+                            torch.zeros(1, device="cuda:1"))
