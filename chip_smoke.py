@@ -48,7 +48,8 @@ Phases, one line each (any failure exits non-zero, with no result line):
    neighbour-row K4 call on the same input on live rows;
 7. train: the port's training path, a ``Trainer`` on the same
    configuration at full width (5 views of 480x640, 512 rays, 4 stages
-   to 704^3), 3 steps: one cold, two warm.  Every kernel's launch count
+   to 704^3), through its loop (``Trainer.train``, one epoch cut to 3
+   items), 3 steps: one cold, two warm.  Every kernel's launch count
    is zeroed just before the steps and read just after; the backward
    kernels must each have run.  The loss must be finite and the
    parameters of both optimizer groups must move.  Prints s/step and the
@@ -72,12 +73,14 @@ Phases, one line each (any failure exits non-zero, with no result line):
 8. finetune: a ``Finetuner`` on confs/surf_synthetic_finetune.conf (5
    views of 576x800, 512 rays, 4 stages to 704^3) resumes from that
    checkpoint as ``--resume`` does, in a temporary directory the phase
-   deletes; ``init_volumes``, then 3 steps (one cold, two warm) with every
-   launch count zeroed before them: K3 and K3b must have run, the loss
+   deletes; ``init_volumes``, then its loop (``Finetuner.finetune``) cut
+   to 3 steps (one cold, two warm), each logged, with every launch count
+   zeroed before them: K3 and K3b must have run, the loss
    must be finite and the implicit surface and every stage's storage
    must move; K3b is held against its plain version at each kind of call
-   of the last step and measured as in 7.  Then one ``validate_finetune``
-   (512^3 mesh, non-empty) and a ``save_finetune`` read back as
+   of the last step and measured as in 7.  The loop's last step ends in a
+   ``save_finetune`` and a ``validate_finetune`` (512^3 mesh, non-empty);
+   the checkpoint is read back as
    ``--load_vol`` reads it, bit for bit (the bf16 matching volume
    included).  Prints s/step, peak memory,
    ``mesh_s`` and ``render_rays_per_s``;
@@ -103,6 +106,22 @@ Phases, one line each (any failure exits non-zero, with no result line):
    ``mesh_s``, ``clean_mesh_s``, s/step and peak memory, and each kernel
    row gains its launches in the three parts
    (``launches_in_dtu_validate`` / ``_train`` / ``_finetune``);
+9b. eval: the offline DTU evaluation on the port's own modules, on the
+   host (numpy and scipy; no kernel): the ``dtu`` phase's scene written
+   again in the ``DTU_TEST`` mask layout (``write_dtu_test_scan``: 3 of its
+   ring's cameras as view set 1's 43, 42, 44, RGB masks at 1200x1600) and
+   the official cleaning (``evaluation.clean_mesh.main``) of the ``dtu``
+   validate's mesh, faces before and after; the same cleaning of the
+   scene's sphere plus a cube outside every mask (the cube must go, the
+   sphere stay); ``evaluation.dtu_eval.eval_scan`` at DTU scale, a sphere
+   of radius 150 mm from marching cubes of its exact SDF on a 512^3
+   lattice against 2.5 M STL points on it (``ObsMask`` and ``Plane``
+   written with ``scipy.io.savemat``), the seconds and sizes of each step
+   and a finite Chamfer under 0.5 mm; and ``chamfer_vs_sphere`` of the
+   ``dtu`` mesh.  (The train and finetune phases run their loops, which
+   write TensorBoard scalars; each phase reads its event file back with
+   this script's own reader, lengths and masked CRC-32Cs checked, and
+   holds the tags, steps and values to what its loop logged.)
 10. mvs: the JPEG data path at full width, for each of
    confs/surf_bmvs.conf, surf_tanks.conf and surf_eth3d.conf (3 views of
    576x768, 5 of 1080x1920, 7 of 1200x2400; ``val_res_level`` 4; 4
@@ -164,9 +183,11 @@ all comparisons are in full f32.
 from __future__ import annotations
 
 import contextlib
+import gc
 import inspect
 import json
 import os
+import shutil
 import statistics
 import sys
 import time
@@ -323,6 +344,117 @@ def check_close(name, got, ref, rtol, atol):
 # ---------------------------------------------------------------------------
 # phase 3: ragged shapes
 # ---------------------------------------------------------------------------
+
+def crc32c_bitwise(data):
+    """CRC-32C (Castagnoli), bit by bit: the event file's checksum,
+    independent of the port's table-driven one."""
+    c = 0xFFFFFFFF
+    for b in data:
+        c ^= b
+        for _ in range(8):
+            c = (c >> 1) ^ 0x82F63B78 if c & 1 else c >> 1
+    return c ^ 0xFFFFFFFF
+
+
+def _masked(data):
+    c = crc32c_bitwise(data)
+    return (((c >> 15) | (c << 17)) + 0xA282EAD8) & 0xFFFFFFFF
+
+
+def _proto_fields(buf):
+    """(field number, wire type, value) of a protobuf message: varints,
+    fixed64 / fixed32 as bytes, length-delimited as bytes."""
+    pos, out = 0, []
+
+    def varint():
+        nonlocal pos
+        n = shift = 0
+        while True:
+            b = buf[pos]
+            pos += 1
+            n |= (b & 0x7F) << shift
+            shift += 7
+            if not b & 0x80:
+                return n
+    while pos < len(buf):
+        key = varint()
+        num, wire = key >> 3, key & 7
+        if wire == 0:
+            v = varint()
+        elif wire == 1:
+            v, pos = buf[pos:pos + 8], pos + 8
+        elif wire == 5:
+            v, pos = buf[pos:pos + 4], pos + 4
+        elif wire == 2:
+            n = varint()
+            v, pos = buf[pos:pos + n], pos + n
+        else:
+            raise ValueError(f"wire type {wire}")
+        out.append((num, wire, v))
+    return out
+
+
+def read_events(path):
+    """The records of a TensorBoard event file: each one's length and data
+    checked against their masked CRC-32C; returns (file_version, [(tag,
+    step, simple_value)])."""
+    import struct
+    buf = open(path, "rb").read()
+    pos, version, scalars = 0, None, []
+    while pos < len(buf):
+        head = buf[pos:pos + 8]
+        n, = struct.unpack("<Q", head)
+        if struct.unpack("<I", buf[pos + 8:pos + 12])[0] != _masked(head):
+            raise ValueError(f"{path}: bad length CRC at byte {pos}")
+        data = buf[pos + 12:pos + 12 + n]
+        if len(data) != n or struct.unpack("<I", buf[pos + 12 + n:pos + 16 + n])[0] \
+                != _masked(data):
+            raise ValueError(f"{path}: bad data CRC at byte {pos}")
+        pos += 16 + n
+        ev = {num: v for num, _, v in _proto_fields(data)}
+        if 3 in ev:
+            version = ev[3].decode()
+            continue
+        step = ev.get(2, 0)
+        step = step - (1 << 64) if step >= 1 << 63 else step
+        (value,) = [v for num, _, v in _proto_fields(ev[5]) if num == 1]
+        fields = {num: v for num, _, v in _proto_fields(value)}
+        scalars.append((fields[1].decode(), step, struct.unpack("<f", fields[2])[0]))
+    return version, scalars
+
+
+def mean_of(rows):
+    """The running means the JAX runner's ``DictAverageMeter`` keeps."""
+    sums, means = {}, {}
+    for count, row in enumerate(rows, 1):
+        for k, v in row.items():
+            sums[k] = sums.get(k, 0.0) + v
+            means[k] = sums[k] / count
+    return means
+
+
+def check_scalars(phase, log_dir, expected):
+    """The loop's TensorBoard file in ``log_dir``: one file, a
+    ``brain.Event:2`` record first, then ``expected`` (tag, step, value)
+    in order, each value as its float32.  Returns its size and count."""
+    import glob
+    import numpy as np
+    files = glob.glob(os.path.join(log_dir, "events.out.tfevents.*"))
+    if len(files) != 1:
+        fail(f"{phase}: expected one event file in {log_dir}, found {files}")
+    try:
+        version, got = read_events(files[0])
+    except ValueError as e:
+        fail(f"{phase}: {e}")
+    want = [(tag, step, float(np.float32(v))) for tag, step, v in expected]
+    if version != "brain.Event:2" or got != want:
+        fail(f"{phase}: the event file holds {version!r}, {got[:6]}..., expected "
+             f"{want[:6]}...")
+    say(phase, f"scalars: {os.path.basename(files[0])}, {len(got)} records, lengths and "
+        f"CRCs checked, tags, steps and values as the loop logged them")
+    return {"file_bytes": os.path.getsize(files[0]), "records": len(got),
+            "tags": sorted({tag for tag, _, _ in got})}
+
 
 def ragged_checks(dev):
     import torch
@@ -1438,41 +1570,43 @@ def largest_call_entries(where, fwd, k4_largest, records):
 
 
 def train_phase(conf_path, n_steps=3, dev="cuda"):
-    """A Trainer at full width: ``n_steps`` steps on the first scenes, the
-    launch counts zeroed before and read after; the last step's backward
-    calls recorded.  Returns (launches, records and calls as
-    ``record_backward_calls`` gives them, metrics, the checkpoint's path,
-    K4's largest calls).  (``dev`` "cpu" rehearses the phase without a
-    card.)"""
+    """A Trainer at full width through its loop (``Trainer.train``): one
+    epoch of ``n_steps`` of the training scenes, the launch counts zeroed
+    before and read after; the last step's backward calls recorded; the
+    loop's scalar file read back (``check_scalars``).  Returns (launches,
+    records and calls as ``record_backward_calls`` gives them, metrics,
+    the loop's checkpoint, K4's largest calls).  (``dev`` "cpu" rehearses
+    the phase without a card.)"""
     import math
+    import shutil
     import torch
     from surf_tpu_torch import _build
     from surf_tpu_torch.config import ConfigFactory
     from surf_tpu_torch.train import Trainer
-    from surf_tpu_torch.validate import to_device
     conf = ConfigFactory.parse_file(conf_path)
     cuda = dev == "cuda"
     t = Trainer(conf, device=dev, seed=0,
                 base_exp_dir=os.path.join(HERE, "exp", "chip_smoke_train"))
-    n = len(t.dataset)
-    batches = [to_device(t.dataset[i], dev) for i in range(n_steps)]
+    shutil.rmtree(os.path.join(t.base_exp_dir, "logs"), ignore_errors=True)
+    # one epoch of the first n_steps items (the schedule's epoch as long)
+    t.dataset.metas = t.dataset.metas[:n_steps]
+    t.steps_per_epoch, t.epochs, t.val_freq = n_steps, 1, 10 ** 9
     before = {g["name"]: [p.detach().clone() for p in g["params"]]
               for g in t.optimizer.param_groups}
-    if cuda:
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-    _build.reset_launches()
-    times, per_step, last = [], [], dict(_build.launches)
-    for i in range(n_steps):
+    times, per_step, results, saved, out = [], [], [], [], {}
+    step, save = t.step, t.save
+
+    def timed_step(batch, step_f):
+        i = len(times)
         last_step = i == n_steps - 1
         if last_step:
-            records, calls, restore = record_backward_calls()
+            out["records"], out["calls"], restore = record_backward_calls()
         t0 = time.time()
         try:
             with count_call_sites() if last_step else contextlib.nullcontext({}) as sites, \
                     record_k4_train_calls() if last_step else \
                     contextlib.nullcontext(({}, {})) as (k4_sites, k4_largest):
-                res = t.step(batches[i], i / n)
+                res = step(batch, step_f)
             if cuda:
                 torch.cuda.synchronize()
         finally:
@@ -1480,26 +1614,52 @@ def train_phase(conf_path, n_steps=3, dev="cuda"):
                 restore()
         times.append(time.time() - t0)
         now = dict(_build.launches)
-        per_step.append({k: now[k] - last[k] for k in now})
-        last = now
+        per_step.append({k: now[k] - out["last"][k] for k in now})
+        out["last"] = now
+        if last_step:
+            out.update(sites=sites, k4_sites=k4_sites, k4_largest=k4_largest)
+        results.append(res)
         say("train", f"step {i} ({'cold' if i == 0 else 'warm'}): {times[-1]:.3f} s, "
             f"active_voxels={t.active_voxels.tolist()} "
             + " ".join(f"{k}={v:.5g}" for k, v in res.items()))
         if not all(math.isfinite(v) for v in res.values()):
             fail(f"train: non-finite loss terms at step {i}: {res}")
+        return res
+    t.step = timed_step
+    t.save = lambda epoch: saved.append(save(epoch)) or saved[-1]
+    if cuda:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    _build.reset_launches()
+    out["last"] = dict(_build.launches)
+    try:
+        t.train()
+    finally:
+        # the wrappers hold the trainer: without them it is freed on return
+        del t.step, t.save
     launches = dict(_build.launches)
+    if len(times) != n_steps or len(saved) != 1:
+        fail(f"train: the loop took {len(times)} steps and saved {len(saved)} times")
+    records, calls, sites = out["records"], out["calls"], out["sites"]
     peak = torch.cuda.max_memory_allocated() if cuda else 0
     moved = {name: sum(int(not torch.equal(a, p.detach())) for a, p in zip(
         before[name], g["params"])) for name, g in
         ((g["name"], g) for g in t.optimizer.param_groups)}
     sizes = {g["name"]: len(g["params"]) for g in t.optimizer.param_groups}
+    every = max(int(t.log_freq * n_steps), 1)
+    expected = [(f"train/{k}", i, v) for i, r in enumerate(results) if i % every == 0
+                for k, v in r.items()]
+    expected += [(f"train_avg/{k}", 0, v) for k, v in mean_of(results).items()]
     metrics = {"cold_step_s": times[0], "warm_s_per_step": statistics.mean(times[1:]),
                "warm_steps_s": times[1:], "peak_mem_gb": peak / 2 ** 30,
                "launches_per_step": per_step[-1], "params_moved": moved,
                "params_per_group": sizes,
                "backward_calls_last_step": {k: v for k, v in calls.items() if k != "by_site"},
-               "k2_k3_call_sites_last_step": sites, "k4_call_sites_last_step": k4_sites,
-               "k2b_k3b_call_sites_last_step": bwd_site_launches(calls)}
+               "k2_k3_call_sites_last_step": sites,
+               "k4_call_sites_last_step": out["k4_sites"],
+               "k2b_k3b_call_sites_last_step": bwd_site_launches(calls),
+               "scalars": check_scalars("train", os.path.join(t.base_exp_dir, "logs"),
+                                        expected)}
     say("train", json.dumps(metrics))
     say("train", "kernels " + json.dumps(launches))
     missing = [k for k, v in launches.items() if v <= 0]
@@ -1507,7 +1667,7 @@ def train_phase(conf_path, n_steps=3, dev="cuda"):
         fail(f"train: the training path launched no {missing}")
     if any(moved[g] == 0 for g in moved):
         fail(f"train: no parameter moved in some group: {moved}")
-    return launches, records, calls, metrics, t.save(n_steps - 1), k4_largest
+    return launches, records, calls, metrics, saved[0], out["k4_largest"]
 
 
 def bwd_bound(name, a, k, got):
@@ -1864,14 +2024,16 @@ def finetune_k3b_entries(records, calls):
 
 def finetune_phase(ckpt, n_steps=3, dev="cuda", conf_path=None):
     """A Finetuner on confs/surf_synthetic_finetune.conf resumed from
-    ``ckpt`` (``--resume``): ``init_volumes``, ``n_steps`` steps on the
-    loop's first batches with the launch counts zeroed before them, one
-    ``validate_finetune`` and a ``save_finetune`` read back as
-    ``--load_vol`` reads it; the last step's K3b calls recorded.  Returns
-    (launches, metrics, and the records and calls of
-    ``record_backward_calls``).  Everything is written under a temporary
-    directory that the phase deletes.  (``dev`` "cpu" with a tiny
-    ``conf_path`` rehearses the phase without a card.)"""
+    ``ckpt`` (``--resume``), ``init_volumes``, then its loop
+    (``Finetuner.finetune``) cut to ``n_steps`` steps and logging each:
+    the launch counts zeroed before the steps and read after them, the
+    last step's K3b calls recorded, the loop's ``save_finetune`` read back
+    as ``--load_vol`` reads it and its ``validate_finetune`` checked, and
+    its scalar file read back (``check_scalars``).  Returns (launches,
+    metrics, and the records and calls of ``record_backward_calls``).
+    Everything is written under a temporary directory that the phase
+    deletes.  (``dev`` "cpu" with a tiny ``conf_path`` rehearses the phase
+    without a card.)"""
     import math
     import shutil
     import tempfile
@@ -1880,7 +2042,6 @@ def finetune_phase(ckpt, n_steps=3, dev="cuda", conf_path=None):
     from surf_tpu_torch.config import ConfigFactory
     from surf_tpu_torch.finetune import Finetuner
     from surf_tpu_torch.utils import resume_from
-    from surf_tpu_torch.validate import to_device
     cuda = dev == "cuda"
 
     def sync():
@@ -1900,32 +2061,59 @@ def finetune_phase(ckpt, n_steps=3, dev="cuda", conf_path=None):
         say("finetune", f"resumed from {os.path.basename(ckpt)}, init_volumes included: "
             f"{init_s:.3f} s, active_voxels="
             f"{[int(g.cvalid.sum()) for g in f.vol_state['grids']]}")
-        ds = f.dataset
-        perm = f.host_rng.permutation(ds.num_views)
-        batches = [to_device(ds.get_random_rays(int(perm[i % len(perm)]), rng=f.host_rng), dev)
-                   for i in range(n_steps)]
         before = {g["name"]: [p.detach().clone() for p in g["params"]]
                   for g in f.optimizer.param_groups}
-        if cuda:
-            torch.cuda.reset_peak_memory_stats()
-        _build.reset_launches()
-        times = []
-        for i in range(n_steps):
-            if i == n_steps - 1:
-                records, calls, restore = record_backward_calls(["sparse_trilinear_multi_bwd"])
+        # the loop cut to n_steps, every step logged; the phase checks the
+        # validate_finetune and save_finetune of its last step
+        f.epochs, f.log_freq, f.val_before = n_steps, 1, False
+        times, results, out = [], [], {}
+        step, validate_ft, save_ft = f.step, f.validate_finetune, f.save_finetune
+
+        def timed_step(batch, i):
+            last = i == n_steps - 1
+            if last:
+                out["records"], out["calls"], restore = record_backward_calls(
+                    ["sparse_trilinear_multi_bwd"])
             t0 = time.time()
             try:
-                res = f.step(batches[i], i)
+                res = step(batch, i)
                 sync()
             finally:
-                if i == n_steps - 1:
+                if last:
                     restore()
             times.append(time.time() - t0)
+            if last:
+                out["launches"] = dict(_build.launches)
+            results.append(res)
             say("finetune", f"step {i} ({'cold' if i == 0 else 'warm'}): {times[-1]:.3f} s "
                 + " ".join(f"{k}={v:.5g}" for k, v in res.items()))
             if not all(math.isfinite(v) for v in res.values()):
                 fail(f"finetune: non-finite loss terms at step {i}: {res}")
-        launches = dict(_build.launches)
+            return res
+
+        def timed(name, fn):
+            def call(i):
+                t0 = time.time()
+                out[name] = fn(i)
+                out[name + "_s"] = time.time() - t0
+                return out[name]
+            return call
+        f.step = timed_step
+        f.validate_finetune = timed("validate", validate_ft)
+        f.save_finetune = timed("save", save_ft)
+        if cuda:
+            torch.cuda.reset_peak_memory_stats()
+        _build.reset_launches()
+        try:
+            f.finetune()
+        finally:
+            # the wrappers hold the finetuner (its volumes): without them it
+            # is freed on return, before the later phases need the card
+            del f.step, f.validate_finetune, f.save_finetune
+        if len(times) != n_steps or "save" not in out or "validate" not in out:
+            fail(f"finetune: the loop took {len(times)} steps, saved or validated no "
+                 f"checkpoint or mesh")
+        launches, records, calls = out["launches"], out["records"], out["calls"]
         peak = torch.cuda.max_memory_allocated() if cuda else 0
         moved = {g["name"]: sum(int(not torch.equal(a, p.detach())) for a, p in zip(
             before[g["name"]], g["params"])) for g in f.optimizer.param_groups}
@@ -1944,17 +2132,16 @@ def finetune_phase(ckpt, n_steps=3, dev="cuda", conf_path=None):
         if any(v == 0 for v in moved.values()):
             fail(f"finetune: the implicit surface or a stage's storage did not move: {moved}")
 
-        t0 = time.time()
-        m = f.validate_finetune(n_steps - 1)
+        m = out["validate"]
         metrics.update({"validate_" + k: m[k] for k in
                         ("mesh_s", "render_rays_per_s", "psnr", "mesh_vertices",
                          "mesh_faces")})
         if m["mesh_faces"] <= 0 or m["mesh_vertices"] <= 0 or not m["finite"]:
             fail(f"finetune: validate_finetune gave an empty mesh or non-finite render: {m}")
-        say("finetune", f"validate_finetune: {time.time() - t0:.1f} s")
+        say("finetune", f"validate_finetune: {out['validate_s']:.1f} s")
 
         t0 = time.time()
-        path = f.save_finetune(n_steps - 1)
+        path = out["save"]
         size = os.path.getsize(path)
         _, _, vs = resume_from(path, f.params, f.state, load_vol=True, device=f.device)
         if vs["matching_volume"].dtype != f.vol_state["matching_volume"].dtype:
@@ -1967,9 +2154,13 @@ def finetune_phase(ckpt, n_steps=3, dev="cuda", conf_path=None):
         if not all(torch.equal(a, b) for a, b in pairs):
             fail("finetune: the --load_vol round trip changed the volumes")
         metrics["checkpoint_gb"] = size / 2 ** 30
-        say("finetune", f"save_finetune + --load_vol: {len(pairs)} tensors bit-equal "
-            f"(matching volume {str(vs['matching_volume'].dtype).split('.')[-1]}), "
-            f"{size / 2 ** 30:.3f} GiB, {time.time() - t0:.1f} s")
+        say("finetune", f"save_finetune ({out['save_s']:.1f} s) + --load_vol: {len(pairs)} "
+            f"tensors bit-equal (matching volume "
+            f"{str(vs['matching_volume'].dtype).split('.')[-1]}), {size / 2 ** 30:.3f} GiB, "
+            f"{time.time() - t0:.1f} s")
+        metrics["scalars"] = check_scalars(
+            "finetune", os.path.join(f.base_exp_dir, "logs"),
+            [(f"finetune/{k}", i, v) for i, r in enumerate(results) for k, v in r.items()])
         say("finetune", json.dumps(metrics))
         return launches, metrics, records, calls
     finally:
@@ -2004,7 +2195,7 @@ def dtu_confs(root, conf_path=None, ft_conf_path=None):
 
 
 def dtu_phase(dev="cuda", conf_path=None, ft_conf_path=None, image_hw=(1200, 1600),
-              mesh_resolution=512):
+              mesh_resolution=512, keep_mesh=None):
     """The DTU data path at full width, on a DTU-layout scene that the
     phase writes (the procedural scene at DTU's native 1200x1600, 5 views,
     with the port's own PNG and PFM writers) into a temporary directory
@@ -2031,6 +2222,8 @@ def dtu_phase(dev="cuda", conf_path=None, ft_conf_path=None, image_hw=(1200, 160
     the kernel's row, with its times and bound (``largest_call_entries``).
     The training's peak memory includes the recorded calls' tensors.
     Also times ``read_png`` on one of the scene's 1200x1600 RGB images.
+    With ``keep_mesh`` (a path), the validate's mesh is copied there for
+    the ``eval`` phase.
 
     Returns (the launches of each part, the phase's numbers, the
     entries of each part by kernel).  (``dev``
@@ -2103,9 +2296,16 @@ def dtu_phase(dev="cuda", conf_path=None, ft_conf_path=None, image_hw=(1200, 160
                               (color * 256).clip(0, 255).astype(np.uint8)):
             fail("dtu: val_img's PNG differs from the rendered colour's 8-bit form")
         arts = sorted(os.path.relpath(os.path.join(dp, f), d) for dp, _, fs in os.walk(d)
-                      for f in fs if not dp.endswith("meshes"))
+                      for f in fs if not dp.endswith(("meshes", "logs")))
         if len(arts) != 8:
             fail(f"dtu: expected 2 PNGs and 3 depth PNG/.npy pairs, found {arts}")
+        nums["val_scalars"] = check_scalars("dtu", os.path.join(d, "logs"), [
+            (f"val_img_avg/{tag}", epoch, m[key]) for tag, key in validate.VAL_SCALARS
+            if key in m])
+        if keep_mesh:
+            os.makedirs(os.path.dirname(keep_mesh), exist_ok=True)
+            shutil.copyfile(os.path.join(tmp, "val", "meshes", f"{m['scene']}_epoch0.ply"),
+                            keep_mesh)
         nums.update({k: m[k] for k in ("build_s", "mesh_s", "clean_mesh_s",
                                        "render_rays_per_s", "mesh_faces_before_clean",
                                        "mesh_faces", "active_voxels", "psnr")})
@@ -2231,6 +2431,208 @@ def dtu_phase(dev="cuda", conf_path=None, ft_conf_path=None, image_hw=(1200, 160
         nums["finetune_kernel_checks_s"] = time.time() - t0
         del f, fwd, k4, records
         return launches, nums, entries
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+# ---------------------------------------------------------------------------
+# phase 9b: the offline DTU evaluation, on the card machine's host
+# ---------------------------------------------------------------------------
+
+EVAL_SCAN = 24
+
+
+def sphere_mesh(radius, res, half):
+    """Marching cubes (the port's) of the exact SDF of the sphere of
+    ``radius`` at the origin, on a ``res``^3 lattice over [-half, half]^3:
+    (vertices in the sphere's units, triangles)."""
+    import numpy as np
+    from surf_tpu_torch.geometry import marching_cubes
+    ax = np.linspace(-half, half, res, dtype=np.float32)
+    sq = ax * ax
+    grid = np.sqrt(sq[:, None, None] + sq[None, :, None] + sq[None, None, :]) - radius
+    verts, tris = marching_cubes(grid)
+    return verts * np.float32(2 * half / (res - 1)) - np.float32(half), tris
+
+
+def cube_mesh(size, center):
+    import numpy as np
+    s = size / 2
+    v = np.array([[x, y, z] for x in (-s, s) for y in (-s, s) for z in (-s, s)],
+                 np.float32) + np.asarray(center, np.float32)
+    f = np.array([[0, 1, 3], [0, 3, 2], [4, 6, 7], [4, 7, 5], [0, 4, 5], [0, 5, 1],
+                  [2, 3, 7], [2, 7, 6], [0, 2, 6], [0, 6, 4], [1, 5, 7], [1, 7, 3]])
+    return v, f
+
+
+def timed_dtu_eval(dtu_eval):
+    """Wrap ``dtu_eval``'s sampling, downsampling and KD-trees so that
+    ``eval_scan`` reports the seconds and sizes of each step; returns (the
+    numbers, a function that restores the module)."""
+    nums = {"kd_builds": [], "kd_queries": []}
+    orig = {k: getattr(dtu_eval, k) for k in ("sample_mesh_points", "radius_downsample",
+                                              "cKDTree")}
+
+    def timed(name, fn):
+        def call(*args, **kwargs):
+            t0 = time.time()
+            out = fn(*args, **kwargs)
+            nums[name + "_s"], nums[name + "_points"] = time.time() - t0, len(out)
+            return out
+        return call
+
+    class Tree(orig["cKDTree"]):
+        def query(self, x, *args, **kwargs):
+            t0 = time.time()
+            out = super().query(x, *args, **kwargs)
+            nums["kd_queries"].append({"tree_points": int(self.n), "query_points": len(x),
+                                       "s": time.time() - t0})
+            return out
+
+    def tree(data, **kwargs):
+        t0 = time.time()
+        out = Tree(data, **kwargs)
+        nums["kd_builds"].append({"points": len(data), "s": time.time() - t0})
+        return out
+    dtu_eval.sample_mesh_points = timed("sample", orig["sample_mesh_points"])
+    dtu_eval.radius_downsample = timed("radius_downsample", orig["radius_downsample"])
+    dtu_eval.cKDTree = tree
+
+    def restore():
+        for k, v in orig.items():
+            setattr(dtu_eval, k, v)
+    return nums, restore
+
+
+def eval_phase(dtu_mesh, mask_hw=(1200, 1600), radius_mm=150.0, lattice=512,
+               n_stl=2_500_000, outlier_res=192):
+    """The offline evaluation on the port's own modules, on the host, in a
+    temporary directory under exp/ that the phase deletes:
+
+    1. a ``DTU_TEST``-layout scan (``write_dtu_test_scan``: the ``dtu``
+       phase's ring of 5 cameras, 3 labelled as view set 1's 43, 42, 44,
+       masks at ``mask_hw``) and the official cleaning
+       (``evaluation.clean_mesh.main``) of the ``dtu`` phase's validate
+       mesh ``dtu_mesh``: no more faces after than before;
+    2. the same cleaning of the scene's sphere (marching cubes of its exact
+       SDF) plus a cube that every view sees outside its mask: the cube
+       gone, at least 500 faces of the sphere kept;
+    3. ``evaluation.dtu_eval.eval_scan`` at DTU scale: the sphere of
+       radius ``radius_mm`` (mm) from marching cubes of its exact SDF on a
+       ``lattice``^3 lattice, against an STL cloud of ``n_stl`` points on it
+       (``ObsMask`` a shell around it, a ground plane cutting its bottom):
+       each step's seconds and sizes, and the Chamfer finite and under
+       0.5 mm;
+    4. ``evaluation.synthetic.chamfer_vs_sphere`` of ``dtu_mesh`` against
+       the scene's sphere (untrained weights: finite, no bound).
+
+    Returns the phase's numbers.  (Small arguments rehearse it on any
+    host.)"""
+    import math
+    import shutil
+    import tempfile
+    import numpy as np
+    from scipy.io import savemat
+    from surf_tpu_torch.data.dtu_scene import write_dtu_test_scan
+    from surf_tpu_torch.evaluation import clean_mesh as ev_clean, dtu_eval, synthetic
+    from surf_tpu_torch.geometry import Mesh
+    from surf_tpu_torch.io import write_ply
+    os.makedirs(os.path.join(HERE, "exp"), exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_eval_", dir=os.path.join(HERE, "exp"))
+    nums = {}
+    try:
+        t0 = time.time()
+        views = ev_clean.VIEW_LIST_SET1[:3]
+        root = write_dtu_test_scan(os.path.join(tmp, "DTU_TEST"), scan=EVAL_SCAN,
+                                   view_ids=views, n_ring=len(DTU_VIEWS), mask_hw=mask_hw)
+        nums["dtu_test_write_s"] = time.time() - t0
+
+        def official(name, mesh):
+            out = os.path.join(tmp, name, "meshes")
+            os.makedirs(out)
+            mesh.export(os.path.join(out, f"scan{EVAL_SCAN}_epoch0.ply"))
+            t0 = time.time()
+            ev_clean.main(["--root_dir", root, "--out_dir", out])
+            return Mesh.load(os.path.join(out, "final", f"scan{EVAL_SCAN}.ply")), \
+                time.time() - t0
+
+        # 1. the dtu phase's validate mesh
+        before = Mesh.load(dtu_mesh)
+        after, secs = official("dtu", before.copy())
+        nums.update(dtu_mesh_faces=len(before.faces), dtu_mesh_faces_official=len(after.faces),
+                    official_clean_dtu_s=secs)
+        say("eval", f"official cleaning of the dtu validate mesh ({mask_hw[0]}x{mask_hw[1]} "
+            f"masks, views {views}): {len(before.faces)} -> {len(after.faces)} faces, "
+            f"{secs:.2f} s")
+        if len(after.faces) > len(before.faces):
+            fail("eval: the official cleaning grew the dtu validate mesh")
+
+        # 2. the sphere and an out-of-mask cube
+        sv, sf = sphere_mesh(1.0, outlier_res, 1.25)
+        cv, cf = cube_mesh(0.2, (0.0, 0.0, -1.6))
+        both = Mesh(np.concatenate([sv, cv]), np.concatenate([sf, cf + len(sv)]))
+        kept, secs = official("outlier", both)
+        r = np.linalg.norm(kept.vertices, axis=1)
+        nums.update(outlier_faces=len(both.faces), outlier_faces_official=len(kept.faces),
+                    official_clean_outlier_s=secs,
+                    outlier_kept_radius_err=float(np.abs(r - 1.0).max()) if len(r) else None)
+        say("eval", f"sphere ({len(sf)} faces) + cube: {len(kept.faces)} faces kept, "
+            f"max | |v| - 1 | {nums['outlier_kept_radius_err']}, {secs:.2f} s")
+        if len(kept.faces) < 500 or np.abs(r - 1.0).max() > 0.02:
+            fail("eval: the official cleaning kept the cube or dropped the sphere")
+
+        # 3. eval_scan at DTU scale
+        out, data = os.path.join(tmp, "scale"), os.path.join(tmp, "evaluation")
+        for d in (os.path.join(out, "meshes", "final"), os.path.join(data, "ObsMask"),
+                  os.path.join(data, "Points", "stl")):
+            os.makedirs(d)
+        t0 = time.time()
+        v, f = sphere_mesh(radius_mm, lattice, radius_mm * 16 / 15)
+        nums.update(scale_mesh_s=time.time() - t0, scale_mesh_faces=len(f))
+        write_ply(os.path.join(out, "meshes", "final", f"scan{EVAL_SCAN}.ply"), v,
+                  f.astype(np.int32))
+        rng = np.random.default_rng(0)
+        stl = rng.normal(size=(n_stl, 3))
+        stl *= radius_mm / np.linalg.norm(stl, axis=1, keepdims=True)
+        write_ply(os.path.join(data, "Points", "stl", f"stl{EVAL_SCAN:03}_total.ply"),
+                  stl.astype(np.float32))
+        res_mm, lo = 2.0, -(radius_mm + 20.0)
+        n = int(round(-2 * lo / res_mm)) + 1
+        c = lo + res_mm * np.arange(n)
+        dist = np.sqrt(c[:, None, None] ** 2 + c[None, :, None] ** 2 + c[None, None, :] ** 2)
+        obs = (np.abs(dist - radius_mm) < 10.0).astype(np.uint8)
+        savemat(os.path.join(data, "ObsMask", f"ObsMask{EVAL_SCAN}_10.mat"),
+                {"ObsMask": obs, "BB": np.array([[lo] * 3, [-lo] * 3]),
+                 "Res": np.array([[res_mm]])})
+        # the ground plane: z > -(radius - 10 mm), the sphere's bottom cap cut
+        savemat(os.path.join(data, "ObsMask", f"Plane{EVAL_SCAN}.mat"),
+                {"P": np.array([[0.0], [0.0], [1.0], [radius_mm - 10.0]])})
+        timings, restore = timed_dtu_eval(dtu_eval)
+        t0 = time.time()
+        try:
+            d2s, s2d, overall = dtu_eval.eval_scan(EVAL_SCAN, out, data)
+        finally:
+            restore()
+        nums.update(eval_scan_s=time.time() - t0, stl_points=n_stl,
+                    chamfer_d2s_mm=d2s, chamfer_s2d_mm=s2d, chamfer_mm=overall, **timings)
+        say("eval", f"eval_scan at r = {radius_mm} mm ({lattice}^3 lattice, "
+            f"{len(f)} faces): sampled {timings['sample_points']} points in "
+            f"{timings['sample_s']:.2f} s, radius_downsample kept "
+            f"{timings['radius_downsample_points']} in {timings['radius_downsample_s']:.2f} s, "
+            f"KD queries {timings['kd_queries']}, chamfer d2s {d2s} s2d {s2d} overall "
+            f"{overall} mm, {nums['eval_scan_s']:.2f} s")
+        if not all(math.isfinite(x) and x < 0.5 for x in (d2s, s2d, overall)):
+            fail(f"eval: the DTU-scale Chamfer {d2s}, {s2d}, {overall} mm is not finite "
+                 "and under 0.5 mm")
+
+        # 4. the synthetic score of the dtu validate mesh
+        nums["dtu_mesh_chamfer_vs_sphere"] = synthetic.chamfer_vs_sphere(
+            before.vertices.astype(np.float32), np.eye(4), 1.0)
+        say("eval", f"chamfer_vs_sphere of the dtu validate mesh (untrained): "
+            f"{nums['dtu_mesh_chamfer_vs_sphere']}")
+        if not all(math.isfinite(x) for x in nums["dtu_mesh_chamfer_vs_sphere"]):
+            fail("eval: non-finite chamfer_vs_sphere")
+        return nums
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -2381,7 +2783,8 @@ def mvs_phase(dev="cuda", conf_paths=None, image_hw=None, mesh_resolution=512):
                                   (color * 256).clip(0, 255).astype(np.uint8)):
                 fail(f"mvs {key}: val_img's PNG differs from the rendered colour's 8-bit form")
             arts = sorted(os.path.relpath(os.path.join(dp, f), dd)
-                          for dp, _, fs in os.walk(dd) for f in fs if not dp.endswith("meshes"))
+                          for dp, _, fs in os.walk(dd) for f in fs
+                          if not dp.endswith(("meshes", "logs")))
             if len(arts) != 8:
                 fail(f"mvs {key}: expected 2 PNGs and 3 depth PNG/.npy pairs, found {arts}")
             k1_image, k1_co, k1_kw = sizes.pop("k1_largest_image")
@@ -3254,7 +3657,8 @@ def main():
     rows += grid_rows
 
     t0 = time.time()
-    dtu_launches, dtu_nums, dtu_entries = dtu_phase()
+    dtu_mesh = os.path.join(HERE, "exp", "chip_smoke_eval_input", "dtu_validate.ply")
+    dtu_launches, dtu_nums, dtu_entries = dtu_phase(keep_mesh=dtu_mesh)
     for r in rows:
         for part, counts in dtu_launches.items():
             r[f"launches_in_dtu_{part}"] = counts.get(r["name"], 0)
@@ -3264,6 +3668,14 @@ def main():
     dtu_nums["phase_s"] = time.time() - t0
     say("dtu", json.dumps(dtu_nums))
     torch.cuda.empty_cache()
+
+    t0 = time.time()
+    try:
+        eval_nums = eval_phase(dtu_mesh)
+    finally:
+        shutil.rmtree(os.path.dirname(dtu_mesh), ignore_errors=True)
+    eval_nums["phase_s"] = time.time() - t0
+    say("eval", json.dumps(eval_nums))
 
     t0 = time.time()
     mvs_launches, mvs_nums, mvs_entries = mvs_phase()
@@ -3277,6 +3689,10 @@ def main():
     say("mvs", json.dumps(mvs_nums))
     torch.cuda.empty_cache()
 
+    # objects of the earlier phases held in reference cycles keep card
+    # memory that the two ranks need
+    gc.collect()
+    torch.cuda.empty_cache()
     t0 = time.time()
     dp_launches, dp_nums, dp_entries = dp_phase()
     for r in rows:

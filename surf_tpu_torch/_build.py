@@ -8,7 +8,11 @@
 * ``csrc/marching_cubes.cpp``, ``csrc/raycast_bvh.cpp``,
   ``csrc/png_unfilter.cpp`` and ``csrc/jpeg_decode.cpp``: host code (the
   marching cubes, the mesh cleaning's BVH raycaster, the PNG reader's
-  unfilter, the JPEG codec), compiled by ``g++`` through ``host_lib``.
+  unfilter, the JPEG codec), compiled by ``g++`` through ``host_lib``;
+  the marching cubes and the raycaster with ``-march=native``
+  (``NATIVE_FLOAT``), as the JAX package builds its copies, so that their
+  float arithmetic contracts and rounds as the reference's does on the
+  same host (an edge-on ray then hits the same face).
 
 Nothing is compiled when a module is imported.
 """
@@ -23,6 +27,9 @@ import threading
 
 CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "_build")
+
+# the JAX package's g++ flag for its marching cubes and raycaster
+NATIVE_FLOAT = ("-march=native",)
 
 # kernel library name -> CUDA source
 CUDA_SOURCES = {
@@ -113,8 +120,9 @@ def cuda_lib(name):
     return lib
 
 
-def host_lib(name, source):
-    """The loaded host library built from ``csrc/<source>`` with g++."""
+def host_lib(name, source, flags=()):
+    """The loaded host library built from ``csrc/<source>`` with g++ and
+    the extra ``flags``."""
     lib = _LIBS.get(name)
     if lib is None:
         src = os.path.join(CSRC, source)
@@ -123,8 +131,8 @@ def host_lib(name, source):
         with _LOCK:
             if _stale(out, src):
                 tmp = f"{out}.{os.getpid()}.tmp"
-                subprocess.run(["g++", "-O3", "-shared", "-fPIC", "-std=c++17", "-pthread",
-                                src, "-o", tmp], check=True, capture_output=True)
+                subprocess.run(["g++", "-O3", *flags, "-shared", "-fPIC", "-std=c++17",
+                                "-pthread", src, "-o", tmp], check=True, capture_output=True)
                 os.replace(tmp, out)
         lib = ctypes.CDLL(out)
         _LIBS[name] = lib

@@ -20,6 +20,13 @@ Depths are the analytic ones (pseudo depths and points are the ground
 truth), written with the port's own PNG and PFM writers (the PNG rows
 filtered as libpng filters them, so that reading the scene takes the
 decode path real scans take).
+
+``write_dtu_test_scan`` writes the same scene in the layout of the
+official ``DTU_TEST`` mask set that the offline cleaning reads
+(``evaluation.clean_mesh``), in the same world frame:
+
+    scan{N}/mask/{vid:03d}.png        RGB, 0 or 255 (the sphere's silhouette)
+    scan{N}/cams/{vid:08d}_cam.txt    intrinsics at the masks' size
 """
 
 from __future__ import annotations
@@ -59,6 +66,17 @@ def write_cam_file(path, w2c, intr, near, interval):
         f.write(f"\n{near!r} {interval!r}\n")
 
 
+def _ring(n, image_hw):
+    """The procedural scene's ring of ``n`` cameras at ``image_hw``: the
+    dataset, its intrinsics and its camera-to-world poses (the poses depend
+    on ``n`` alone)."""
+    h, w = image_hw
+    syn = SyntheticDataset(ConfigFactory.parse_string(
+        f"d {{\n img_hw = [{h}, {w}]\n n_views_total = {n}\n}}")["d"], "val")
+    intr, poses = syn._cameras(0)
+    return syn, intr, poses
+
+
 def write_dtu_scene(root, view_ids=(0, 1, 2, 3, 4), image_hw=NATIVE_HW):
     """Write scan ``SCAN`` under ``root``: one view per DTU view id in
     ``view_ids`` (the ring's cameras in order), under light ``LIGHT``.
@@ -67,10 +85,8 @@ def write_dtu_scene(root, view_ids=(0, 1, 2, 3, 4), image_hw=NATIVE_HW):
     if h * 4 != w * 3:
         raise ValueError(f"image_hw {image_hw} is not 3:4, as DTU's 1200x1600 is")
     n = len(view_ids)
-    syn = SyntheticDataset(ConfigFactory.parse_string(
-        f"d {{\n img_hw = [{h}, {w}]\n n_views_total = {n}\n}}")["d"], "val")
     scene_seed = 0
-    intr, poses = syn._cameras(scene_seed)
+    syn, intr, poses = _ring(n, image_hw)
     native = intr.copy()
     native[0] *= NATIVE_HW[1] / w
     native[1] *= NATIVE_HW[0] / h
@@ -111,4 +127,31 @@ def write_dtu_scene(root, view_ids=(0, 1, 2, 3, 4), image_hw=NATIVE_HW):
     for key in ("Pseudo_points", "PseudoMVSDepth"):
         write_ply(os.path.join(dirs[key], f"mvsnet{int(SCAN[4:]):0>3}_l3.ply"),
                   pts.astype(np.float32))
+    return root
+
+
+def write_dtu_test_scan(root, scan=24, view_ids=(43, 42, 44), n_ring=5, mask_hw=NATIVE_HW):
+    """Write ``scan{scan}`` of a ``DTU_TEST``-layout mask set under
+    ``root``: ring camera i of ``n_ring`` (the ring ``write_dtu_scene``
+    writes for ``n_ring`` views, so the same world frame) labelled
+    ``view_ids[i]``, its mask the sphere's silhouette as an RGB 0/255 PNG
+    at ``mask_hw`` (DTU's 1200x1600 by default) and its cam file with the
+    intrinsics at that size (the offline cleaning reads them unscaled).
+    Returns ``root``."""
+    if len(view_ids) > n_ring:
+        raise ValueError(f"{len(view_ids)} view ids for a ring of {n_ring} cameras")
+    syn, intr, poses = _ring(n_ring, mask_hw)
+    mask_dir = os.path.join(root, f"scan{scan}", "mask")
+    cam_dir = os.path.join(root, f"scan{scan}", "cams")
+    os.makedirs(mask_dir, exist_ok=True)
+    os.makedirs(cam_dir, exist_ok=True)
+    near = syn.cam_dist - 1.5 * syn.radius_world
+    interval = 3.0 * syn.radius_world / NUM_INTERVAL
+    for i, vid in enumerate(view_ids):
+        write_cam_file(os.path.join(cam_dir, f"{vid:08d}_cam.txt"),
+                       np.linalg.inv(poses[i]), intr, near, interval)
+        _, _, hit = syn._render_view(intr, poses[i], syn.radius_world, 0)
+        mask = (hit > 0.5).astype(np.uint8) * 255
+        write_png(os.path.join(mask_dir, f"{vid:03d}.png"),
+                  np.repeat(mask[..., None], 3, axis=-1))
     return root

@@ -15,6 +15,11 @@ matching-field depth terms).  The optimizer is Adam with one group for
 the implicit surface at ``mlp_lr`` and one per stage at ``vol_lr[i]``,
 under a ``LambdaLR`` of ``warmup_cosine`` of the raw step count.
 
+Every ``log_freq`` steps the loss terms and PSNR go to TensorBoard as
+``finetune/<term>`` at the step under ``<base_exp_dir>/logs``
+(``utils.summary``), as the JAX runner writes them; ``train.debug_nans``
+checks the terms as the trainer does.
+
 Checkpoints hold the volumes and the implicit surface only
 (``model_<step>.ckpt.npz``, the JAX package's layout); ``--load_vol``
 resumes from one without rebuilding the cascade.
@@ -33,8 +38,10 @@ from .geometry import Mesh
 from .losses import compute_loss, make_loss_config
 from .nn import surf, feature_net, implicit_surface
 from .nn.core import tree_leaves
+from .train import anomaly_mode, check_finite
 from .utils import (resume_from, save_checkpoint, to_numpy_tree, vol_state_tree,
                     warmup_cosine)
+from .utils.summary import save_scalars, scalar_writer
 from .validate import _sync, extract_mesh, render_full_image, to_device
 
 DEFAULT_VOL_LR = (1e-1, 1e-2, 1e-2, 1e-3)
@@ -65,7 +72,9 @@ class Finetuner:
         self.base_exp_dir = os.path.join(
             base_exp_dir or os.path.join(conf["general.base_exp_dir"], "torch"),
             str(scene), f"view{ref_view}")
+        self.writer = scalar_writer(os.path.join(self.base_exp_dir, "logs"))
         self.epochs = conf.get_int("train.epochs")
+        self.debug_nans = conf.get_bool("train.debug_nans", default=False)
         self.log_freq = conf.get_float("train.log_freq", default=1.0)
         self.save_freq = conf.get_float("train.save_freq")
         self.val_freq = conf.get_float("train.val_freq")
@@ -148,6 +157,8 @@ class Finetuner:
         res = compute_loss(self.loss_cfg, out, batch, float(step), "finetune")
         res["psnr"] = 20.0 * torch.log10(1.0 / torch.sqrt(torch.mean(
             (out["color_fine"] - batch["color"]) ** 2)))
+        if self.debug_nans:
+            check_finite(res, f"finetune step {step}")
         return res
 
     def update(self):
@@ -166,6 +177,10 @@ class Finetuner:
                 for k, v in res.items()}
 
     def finetune(self):
+        with anomaly_mode(self.debug_nans):
+            self._finetune()
+
+    def _finetune(self):
         ds = self.dataset
         perm = self.host_rng.permutation(ds.num_views)
         if self.val_before:
@@ -176,6 +191,7 @@ class Finetuner:
             batch = to_device(ds.get_random_rays(vid, rng=self.host_rng), self.device)
             res = self.step(batch, step)
             if (step + 1) % max(int(self.log_freq), 1) == 0:
+                save_scalars(self.writer, "finetune", res, step)
                 print(f"[ft {step}] loss {res['loss']:.4f} psnr {res['psnr']:.2f} "
                       f"({(time.time() - t0) / (step + 1):.2f}s/it)", flush=True)
             if (step + 1) % len(perm) == 0:

@@ -10,11 +10,11 @@ import ctypes
 
 import numpy as np
 
-from .._build import host_lib
+from .._build import NATIVE_FLOAT, host_lib
 
 
 def _get_lib():
-    lib = host_lib("marching_cubes", "marching_cubes.cpp")
+    lib = host_lib("marching_cubes", "marching_cubes.cpp", NATIVE_FLOAT)
     if not getattr(lib, "_surf_typed", False):
         lib.mc_run.restype = ctypes.c_int
         lib.mc_run.argtypes = [

@@ -9,14 +9,14 @@ import ctypes
 
 import numpy as np
 
-from .._build import host_lib
+from .._build import NATIVE_FLOAT, host_lib
 
 _F32P = ctypes.POINTER(ctypes.c_float)
 _I64P = ctypes.POINTER(ctypes.c_int64)
 
 
 def _get_lib():
-    lib = host_lib("raycast_bvh", "raycast_bvh.cpp")
+    lib = host_lib("raycast_bvh", "raycast_bvh.cpp", NATIVE_FLOAT)
     if not getattr(lib, "_surf_typed", False):
         lib.bvh_build.restype = ctypes.c_void_p
         lib.bvh_build.argtypes = [_F32P, ctypes.c_int64, _I64P, ctypes.c_int64]

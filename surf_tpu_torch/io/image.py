@@ -14,6 +14,10 @@ on.
   (H, W, 4) array as an 8-bit L, RGB or RGBA PNG, each row under the
   filter libpng's default heuristic picks: of the five, the one whose
   filtered bytes, read as signed, have the least sum of magnitudes.
+* ``to_luma(img)`` is ``Image.open(path).convert("L")`` of what
+  ``read_png`` gives: L as it is, LA's L channel, RGB and RGBA by
+  Pillow's integer luma ``(19595 R + 38470 G + 7471 B + 0x8000) >> 16``
+  (alpha ignored).
 * ``resize_nearest(img, (w, h))`` is ``cv2.resize(img, (w, h),
   interpolation=cv2.INTER_NEAREST)``: source index ``floor(i * s)``
   with ``s = 1 / (dst / src)`` in double, clamped to the last row or
@@ -158,6 +162,24 @@ def write_png(path, array):
         fh.write(_SIGNATURE + _chunk(b"IHDR", ihdr)
                  + _chunk(b"IDAT", zlib.compress(rows.tobytes()))
                  + _chunk(b"IEND", b""))
+
+
+def to_luma(img):
+    """The uint8 (H, W) greyscale of an (H, W) L, (H, W, 2) LA, (H, W, 3)
+    RGB or (H, W, 4) RGBA uint8 image, as Pillow's ``convert("L")`` gives
+    it."""
+    a = np.asarray(img)
+    if a.dtype != np.uint8:
+        raise ValueError(f"to_luma takes uint8 pixels, not {a.dtype}")
+    if a.ndim == 2:
+        return a
+    if a.ndim != 3 or a.shape[2] not in (2, 3, 4):
+        raise ValueError(f"to_luma takes L, LA, RGB or RGBA pixels, not shape {a.shape}")
+    if a.shape[2] == 2:
+        return np.ascontiguousarray(a[..., 0])
+    c = a[..., :3].astype(np.uint32)
+    return ((c[..., 0] * 19595 + c[..., 1] * 38470 + c[..., 2] * 7471 + 0x8000)
+            >> 16).astype(np.uint8)
 
 
 def _nearest_index(src, dst):

@@ -14,6 +14,14 @@ masks and the views' frusta before it is written (off by default).
 Finetune writes under ``<out>/<scene>/view<ref_view>``.  Runs on the card
 unless ``--device cpu``.
 
+As the JAX runner does, the first rank copies the repository into
+``<out>/codes_recording`` once before the run, and the loops write
+TensorBoard scalars into ``<out>/logs``.  With ``train.profile_dir`` in
+the conf, a ``torch.profiler`` trace of the run (from the trainer's,
+finetuner's or validator's construction to the end of the run) is written
+into that directory as a Chrome trace; ``train.debug_nans`` stops training
+and finetune at the first non-finite loss term.
+
 Multi-device (train and val), one process a card:
 
     torchrun --nproc_per_node N -m surf_tpu_torch.main --mode train|val ...
@@ -33,10 +41,11 @@ import torch
 from .card import set_numerics
 from .config import ConfigFactory
 from .finetune import Finetuner
-from .parallel.distribute import (detect_multiprocess_env, local_rank_and_size,
-                                  maybe_initialize, rank_device)
+from .parallel.distribute import (detect_multiprocess_env, is_main_process,
+                                  local_rank_and_size, maybe_initialize, rank_device)
 from .train import Trainer
 from .utils import resume_from
+from .utils.experiment import codes_backup, profile_trace
 from .validate import Validator
 
 
@@ -73,22 +82,32 @@ def main(argv=None):
             raise SystemExit("--mode finetune runs in one process")
     elif maybe_initialize(conf, device=args.device, init_method=args.dist_url):
         args.device = rank_device(args.device)
+    if args.mode == "finetune" and args.resume is None:
+        raise SystemExit("--mode finetune needs --resume <checkpoint>")
+    with profile_trace(conf.get_string("train.profile_dir", default=None), args.device):
+        return run(args, conf)
+
+
+def run(args, conf):
+    """Build the mode's trainer, finetuner or validator, back the code up
+    into its directory (first rank) and run it."""
     if args.mode == "train":
         t = Trainer(conf, device=args.device, seed=args.seed, base_exp_dir=args.out,
                     mesh_resolution=args.mesh_resolution, resume=args.resume,
                     clean_mesh=args.clean_mesh)
+        backup(t.base_exp_dir)
         t.train()
         return t
     if args.mode == "finetune":
-        if args.resume is None:
-            raise SystemExit("--mode finetune needs --resume <checkpoint>")
         f = Finetuner(conf, device=args.device, seed=args.seed, base_exp_dir=args.out,
                       scene=args.scene, ref_view=args.ref_view, resume=args.resume,
                       load_vol=args.load_vol, mesh_resolution=args.mesh_resolution)
+        backup(f.base_exp_dir)
         f.finetune()
         return f
     v = Validator(conf, device=args.device, mesh_resolution=args.mesh_resolution,
                   seed=args.seed, base_exp_dir=args.out, clean_mesh=args.clean_mesh)
+    backup(v.base_exp_dir)
     if args.resume is not None:
         v.params, v.state, v.vol_state = resume_from(
             args.resume, v.params, v.state, load_vol=args.load_vol, device=v.device)
@@ -96,6 +115,11 @@ def main(argv=None):
     if local_rank_and_size()[0] == 0:
         print(json.dumps(results))
     return results
+
+
+def backup(base_exp_dir):
+    if is_main_process():
+        codes_backup(base_exp_dir)
 
 
 if __name__ == "__main__":

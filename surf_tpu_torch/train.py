@@ -22,8 +22,15 @@ epoch after the saved one.  After the save, every ``val_freq`` epochs
 the validation scenes go through the port's validate path (a
 ``Validator`` on the trained parameters and batch-norm state, under
 ``torch.no_grad``), which writes the mesh and the ``val_*`` files.  Each
-epoch's loss terms are averaged and printed (the JAX package writes them
-to TensorBoard where ``tensorboardX`` is installed).
+epoch's loss terms are averaged and printed.  As the JAX runner does, the
+first rank writes TensorBoard scalars under ``<base_exp_dir>/logs``
+(``utils.summary``): the terms as ``train/<term>`` at the global step
+every ``log_freq`` of an epoch, their epoch means as ``train_avg/<term>``
+at the epoch, and the validation's ``val_img_avg``.  With
+``train.debug_nans`` the loop runs under autograd's anomaly mode with
+its NaN check and raises ``FloatingPointError`` at the first non-finite
+loss term, before its backward (the exception ``jax_debug_nans``
+raises); without it, nothing is checked.
 
 Under ``torch.distributed`` with more than one rank the loop is the JAX
 runner's data-parallel one (surf_tpu/runner.py:316-372; there
@@ -35,6 +42,7 @@ start-up; rank r's generator is seeded ``rank_seed(seed, r)``.
 
 from __future__ import annotations
 
+import contextlib
 import math
 import os
 import time
@@ -51,7 +59,25 @@ from .parallel.distribute import is_main_process, process_count, process_index
 from .utils import load_checkpoint, save_checkpoint, to_numpy_tree, to_torch_tree, \
     warmup_cosine
 from .utils.opt_state import fingerprint, opt_state_tree, restore_opt_state
+from .utils.summary import mean_scalars, save_scalars, scalar_writer
 from .validate import Validator, to_device
+
+
+def check_finite(terms, where):
+    """``FloatingPointError`` naming the first non-finite entry of
+    ``terms`` (loss terms, tensors or floats)."""
+    for k, v in terms.items():
+        x = float(v.detach()) if torch.is_tensor(v) else float(v)
+        if not math.isfinite(x):
+            raise FloatingPointError(f"train.debug_nans: non-finite {k} ({x}) at {where}")
+
+
+def anomaly_mode(debug_nans):
+    """Autograd's anomaly mode with its NaN check when ``debug_nans``, else
+    nothing changes."""
+    if debug_nans:
+        return torch.autograd.set_detect_anomaly(True, check_nan=True)
+    return contextlib.nullcontext()
 
 
 def rank_seed(seed, rank):
@@ -83,8 +109,10 @@ class Trainer:
         self.mesh_resolution = mesh_resolution
         self.clean_mesh = clean_mesh
         self.anneal_end = conf.get_float("train.anneal_end", default=0.0)
+        self.debug_nans = conf.get_bool("train.debug_nans", default=False)
         self.base_exp_dir = base_exp_dir or os.path.join(
             conf["general.base_exp_dir"], "torch")
+        self.writer = scalar_writer(os.path.join(self.base_exp_dir, "logs"))
         self.seed = seed
         self.dataset = get_dataset(conf["train_dataset"], "train", seed=seed)
         self.params, self.state, self.static = surf.init(
@@ -140,6 +168,8 @@ class Trainer:
         res["psnr"] = 20.0 * torch.log10(1.0 / torch.sqrt(torch.mean(
             (outputs["color_fine"] - batch["color"]) ** 2)))
         self.active_voxels = outputs["active_voxels"]
+        if self.debug_nans:
+            check_finite(res, f"step {step_f}")
         return res, new_state
 
     def update(self):
@@ -170,6 +200,10 @@ class Trainer:
         seeded order, the last padded with the last item at weight 0; the
         schedule counts super-batches (as the JAX runner's optax count
         does).  Rank 0 alone prints and saves; every rank validates."""
+        with anomaly_mode(self.debug_nans):
+            self._train()
+
+    def _train(self):
         n_items = len(self.dataset)
         W = self.world if self.data_parallel else 1
         n = -(-n_items // W)
@@ -181,7 +215,7 @@ class Trainer:
             order = np.arange(n_items)
             np.random.RandomState(self.seed + epoch).shuffle(order)
             t0 = time.time()
-            sums = {}
+            rows = []
             for i in range(n):
                 step_f = epoch + i / n
                 if self.data_parallel:
@@ -194,23 +228,25 @@ class Trainer:
                 else:
                     batch = to_device(self.dataset[int(order[i])], self.device)
                     res = self.step(batch, step_f)
-                sums = {k: sums.get(k, 0.0) + v for k, v in res.items()}
-                if main and (epoch * n + i) % max(int(self.log_freq * n), 1) == 0:
+                rows.append(res)
+                global_step = epoch * n + i
+                if main and global_step % max(int(self.log_freq * n), 1) == 0:
+                    save_scalars(self.writer, "train", res, global_step)
                     print(f"[epoch {epoch} {i}/{n}] loss {res['loss']:.4f} color "
                           f"{res['color_loss']:.4f} psnr {res['psnr']:.2f} "
                           f"({(time.time() - t0) / (i + 1):.2f}s/it)", flush=True)
-                if not math.isfinite(res["loss"]):
-                    raise FloatingPointError(f"non-finite loss at epoch {epoch} step {i}")
             if main:
+                avg = mean_scalars(rows)
+                save_scalars(self.writer, "train_avg", avg, epoch)
                 print(f"[epoch {epoch} train_avg] " + " ".join(
-                    f"{k} {v / n:.4f}" for k, v in sums.items()), flush=True)
+                    f"{k} {v:.4f}" for k, v in avg.items()), flush=True)
                 if (epoch + 1) % self.save_freq == 0 or epoch + 1 >= self.epochs:
                     self.save(epoch)
             if (epoch + 1) % self.val_freq == 0:
                 val = val or Validator(self.conf, device=self.device,
                                        mesh_resolution=self.mesh_resolution, seed=self.seed,
                                        base_exp_dir=self.base_exp_dir,
-                                       clean_mesh=self.clean_mesh)
+                                       clean_mesh=self.clean_mesh, writer=self.writer)
                 self.validate(val, epoch)
 
     def save(self, epoch):

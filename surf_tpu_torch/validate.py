@@ -11,7 +11,10 @@ Writes the mesh (``meshes/<scene>_epoch<e>.ply``) and the artifacts
 names: ``val_img`` and ``val_normal`` as 8-bit PNGs, ``val_render_depth``,
 ``val_sdf_depth`` and ``val_auxi_depth`` as magma PNGs plus ``.npy``.
 Returns PSNR, colour L1, masked depth L1 and the timings ``build_s``,
-``mesh_s`` (and ``clean_mesh_s``) and ``render_rays_per_s``.  Under
+``mesh_s`` (and ``clean_mesh_s``) and ``render_rays_per_s``; the first
+rank writes the scenes' mean PSNR, colour and depth L1, ``mesh_s`` and
+``render_rays_per_s`` as the JAX runner's ``val_img_avg`` scalars (as
+``mesh_seconds`` and ``rays_per_sec``) under ``<base_exp_dir>/logs``.  Under
 ``torch.distributed`` the render chunks and the mesh lattice are shared
 by the ranks of a node (``parallel.ray_shard``; surf_tpu/runner.py:429-522,
 557-566).
@@ -37,6 +40,14 @@ from .nn.implicit_surface import draw_jitter, draw_probe
 from .ops.feature_lookup import fuse_pyramid
 from .parallel.distribute import node_index_and_count, process_count, process_index
 from .parallel.ray_shard import broadcast_object, is_root, padded_chunk, ray_group, shard_rows
+from .utils.summary import mean_scalars, save_scalars, scalar_writer
+
+# the JAX runner's val_img_avg tags (surf_tpu/runner.py:680-700) and the
+# metric each is read from
+VAL_SCALARS = (("psnr", "psnr"), ("color_loss", "color_loss"),
+               ("render_depth_loss", "render_depth_loss"),
+               ("sdf_depth_loss", "sdf_depth_loss"), ("mesh_seconds", "mesh_s"),
+               ("rays_per_sec", "render_rays_per_s"))
 
 
 def to_device(inputs, device):
@@ -145,7 +156,9 @@ def write_artifacts(d, file_name, epoch, color, normal, sdf_depth, render_depth,
 class Validator:
     def __init__(self, conf, *, device="cuda", mesh_resolution=512, seed=0,
                  base_exp_dir=None, params=None, state=None, vol_state=None,
-                 clean_mesh=False):
+                 clean_mesh=False, writer=None):
+        """``writer``: the scalar writer (a trainer's own), else one into
+        ``<base_exp_dir>/logs``."""
         self.conf = conf
         self.device = torch.device(device)
         self.mesh_resolution = mesh_resolution
@@ -153,6 +166,7 @@ class Validator:
         self.val_chunk = conf.get_int("train.val_ray_chunk", default=4096)
         self.base_exp_dir = base_exp_dir or os.path.join(
             conf["general.base_exp_dir"], "torch")
+        self.writer = writer or scalar_writer(os.path.join(self.base_exp_dir, "logs"))
         self.dataset = get_dataset(conf["val_dataset"], "val", seed=seed)
         self.params, self.state, self.static = surf.init(
             conf["model"], seed=seed, device=self.device)
@@ -275,7 +289,10 @@ class Validator:
             print(f"[val {scene}] " + " ".join(
                 f"{k}={v:.4f}" if isinstance(v, float) else f"{k}={v}"
                 for k, v in m.items() if k != "scene"), flush=True)
-        return broadcast_object(results, self.group)
+        results = broadcast_object(results, self.group)
+        save_scalars(self.writer, "val_img_avg", mean_scalars(
+            [{tag: m[key] for tag, key in VAL_SCALARS if key in m} for m in results]), epoch)
+        return results
 
     def write_mesh(self, inputs, verts, tris, epoch):
         """The scene's mesh, cleaned with ``clean_mesh`` where the item has

@@ -3,10 +3,13 @@
 * a kernel wrapper given CPU tensors takes its plain version and counts
   no launch; given tensors on another device it raises (no fallback);
 * no module of surf_tpu_torch, nor chip_smoke.py, imports jax or
-  anything of surf_tpu, nor ``cv2``, ``PIL``, ``matplotlib`` or
-  ``skimage``, none of which the card's machine has (checked on the
-  import statements with ``ast``: ``surf_tpu_torch`` itself starts with
-  ``surf_tpu``);
+  anything of surf_tpu, nor ``cv2``, ``PIL``, ``matplotlib``,
+  ``skimage``, ``tensorboardX``, ``sklearn``, ``open3d`` or ``trimesh``,
+  none of which the card's machine has (checked on the import statements
+  with ``ast``: ``surf_tpu_torch`` itself starts with ``surf_tpu``); the
+  walk covers every subpackage, the offline evaluation
+  (``surf_tpu_torch/evaluation/``) and the scalar writer
+  (``utils/summary.py``) among them;
 * the entry point refuses to run without a card unless asked for the CPU.
 
 The kernels themselves only run on the card: ``test_kernels_match_plain``
@@ -107,7 +110,8 @@ def _imports(path):
 
 def _forbidden(name):
     top = name.split(".")[0]
-    return top in ("jax", "jaxlib", "surf_tpu", "cv2", "PIL", "matplotlib", "skimage")
+    return top in ("jax", "jaxlib", "surf_tpu", "cv2", "PIL", "matplotlib", "skimage",
+                   "tensorboardX", "sklearn", "open3d", "trimesh")
 
 
 def test_port_imports_no_jax_and_no_surf_tpu():
@@ -115,17 +119,22 @@ def test_port_imports_no_jax_and_no_surf_tpu():
     for d, _, fs in os.walk(os.path.join(ROOT, "surf_tpu_torch")):
         files += [os.path.join(d, f) for f in fs if f.endswith(".py")]
     assert len(files) > 20
-    # the JPEG slice's and the multi-device slice's modules are walked too
+    # the JPEG slice's, the multi-device slice's and the evaluation slice's
+    # modules are walked too
     assert {os.path.join("surf_tpu_torch", *f.split("/")) for f in (
         "io/jpeg.py", "data/mvs_generic.py", "data/mvs_scene.py", "parallel/__init__.py",
-        "parallel/distribute.py", "parallel/mesh.py", "parallel/ray_shard.py")} <= {
+        "parallel/distribute.py", "parallel/mesh.py", "parallel/ray_shard.py",
+        "evaluation/__init__.py", "evaluation/clean_mesh.py", "evaluation/dtu_eval.py",
+        "evaluation/synthetic.py", "utils/summary.py", "utils/experiment.py")} <= {
         os.path.relpath(f, ROOT) for f in files}
     bad = [(os.path.relpath(f, ROOT), n) for f in files for n in _imports(f)
            if _forbidden(n)]
     assert not bad, bad
     assert _forbidden("surf_tpu.ops") and not _forbidden("surf_tpu_torch.ops")
     assert all(_forbidden(n) for n in ("cv2", "PIL.Image", "matplotlib.cm",
-                                       "skimage.morphology"))
+                                       "skimage.morphology", "tensorboardX",
+                                       "tensorboardX.proto.event_pb2",
+                                       "sklearn.neighbors", "open3d", "trimesh"))
     assert not _forbidden("zlib") and not _forbidden("scipy.ndimage")
 
 
