@@ -6,9 +6,9 @@
 Phases, one line each (any failure exits non-zero, with no result line):
 
 1. device: the card's name and power limit (nvidia-smi), torch and CUDA;
-2. build: the eight hand-written kernels (surf_tpu_torch/csrc/*.cu: K1-K4
-   and the backward kernels K1b-K3b and K4w) with nvcc for sm_90a, one
-   process per source, in parallel;
+2. build: the twelve hand-written kernels (surf_tpu_torch/csrc/*.cu: K1-K4,
+   the backward kernels K1b-K3b and K4w, and the second-order K1g, K1s,
+   K2g, K2s) with nvcc for sm_90a, one process per source, in parallel;
 3. ragged: every kernel against its plain PyTorch version on odd shapes
    with out-of-range points; K1 and K1b also at every channel count their
    kernels specialise and two they do not, with all-zero cotangent rows
@@ -46,6 +46,32 @@ Phases, one line each (any failure exits non-zero, with no result line):
    and 704^3 grids and recorded inputs: forward, dX and dW by K4/K4w
    against their plain versions, each op's value equal to the
    neighbour-row K4 call on the same input on live rows;
+6c. variants: the functions the JAX package keeps beside its main path
+   and the second order of K1 and K2, at full width on the warm
+   validate's tensors, every launch count zeroed first (``variants_phase``):
+   ``lookup_volume`` in its three modes on the 704^3 bf16 matching volume
+   at ``build_z_vals``' 1,048,576 points; a double backward (the gradient
+   in x and in the volume of |df/dx|^2 + <df/dV, R>, f = sum y^2, R
+   random) at a training step's 69,632 points on that volume and on a
+   random f32 (176, 176, 176, 16) one; ``lookup_sphe_volume`` on the 704^3
+   volume and ``lookup_triplane`` on two levels of random f32 (512, 512,
+   16) and (256, 256, 16) planes at 1,048,576 points, forward, first and
+   second order; ``geocheck_depths`` on the depths the last stage's filter
+   reads (3 views of 576x800) and ``depth_consistency_geocheck`` on its
+   candidate children; ``compute_consistency_loss`` and its gradients in
+   both depths at 480x640; the legacy and MNASNet FPNs at
+   confs/surf_synthetic_full.conf's widths (forward on the validate's 3
+   views, forward and backward on 5 views of 480x640); the IDR rendering
+   net (NeuS's published ``rendering_network`` widths, d_feature 128) at
+   a render chunk's 557,056 points; ``sample_pdf`` over 4096 rays x 136
+   bins to 64 samples in both modes.  K1, K1b, K2, K2b and the four
+   second-order kernels K1g, K1s, K2g, K2s must each have launched; the
+   largest call of each (of each second-order kernel on each operand) is
+   held against its plain version and timed with its bound and library
+   call (none for the new four: F.grid_sample has no double backward on
+   the card); one
+   ``[variants]`` line gives the parts' seconds, the phase's and its peak
+   memory;
 7. train: the port's training path, a ``Trainer`` on the same
    configuration at full width (5 views of 480x640, 512 rays, 4 stages
    to 704^3), through its loop (``Trainer.train``, one epoch cut to 3
@@ -1662,7 +1688,7 @@ def train_phase(conf_path, n_steps=3, dev="cuda"):
                                         expected)}
     say("train", json.dumps(metrics))
     say("train", "kernels " + json.dumps(launches))
-    missing = [k for k, v in launches.items() if v <= 0]
+    missing = [k for k in FWD_KERNELS + BWD_KERNELS if launches[k] <= 0]
     if missing:
         fail(f"train: the training path launched no {missing}")
     if any(moved[g] == 0 for g in moved):
@@ -3387,6 +3413,356 @@ def dp_phase(dev="cuda", conf_path=None, mesh_resolution=512):
 # phase 12: tiny model, card against CPU
 # ---------------------------------------------------------------------------
 
+# ---------------------------------------------------------------------------
+# phase 6c: the variants beside the main path, and the second order of K1/K2
+# ---------------------------------------------------------------------------
+
+SECOND_ORDER = {
+    # counter: (wrapper, plain version, K-name, replaces)
+    "bilinear_sample_2d_bwd2_gather": ("bilinear_sample_bwd2_gather", "K1g",
+                                       "surf_tpu/ops/grid_sample.py:102"),
+    "bilinear_sample_2d_bwd2_scatter": ("bilinear_sample_bwd2_scatter", "K1s",
+                                        "surf_tpu/ops/grid_sample.py:102"),
+    "trilinear_sample_3d_bwd2_gather": ("trilinear_sample_bwd2_gather", "K2g",
+                                        "surf_tpu/ops/grid_sample.py:278"),
+    "trilinear_sample_3d_bwd2_scatter": ("trilinear_sample_bwd2_scatter", "K2s",
+                                         "surf_tpu/ops/grid_sample.py:278"),
+}
+# (``torch.autograd.grad`` of F.grid_sample's backward taken with
+# create_graph raises for CUDA tensors in torch 2.11 with CUDA 12.8)
+SECOND_ORDER_LIBRARY = ("none: F.grid_sample's double backward is not implemented on "
+                        "the card (derivative for aten::grid_sampler_2d_backward / "
+                        "grid_sampler_3d_backward)")
+VARIANT_KERNELS = ("bilinear_sample_2d", "bilinear_sample_2d_bwd", "trilinear_sample_3d",
+                   "trilinear_sample_3d_bwd", *SECOND_ORDER)
+
+
+@contextlib.contextmanager
+def record_second_order_calls():
+    """Inside the block, the largest call (by points x channels) of each
+    second-order kernel on each image / volume shape and dtype, with its
+    arguments.  Yields the dict (kernel, operand) -> (size, args, kwargs)."""
+    from surf_tpu_torch.ops import grid_sample as gs
+    largest, orig = {}, {}
+
+    def wrap(name, fn):
+        def rec(*a, **k):
+            n = a[2].shape[:-1].numel() * a[0].shape[-1]
+            key = (name, f"{tuple(a[0].shape)} {str(a[0].dtype).split('.')[-1]}")
+            if n > largest.get(key, (-1,))[0]:
+                largest[key] = (n, tuple(t.detach() if t is not None else None for t in a), k)
+            return fn(*a, **k)
+        return rec
+
+    for name, (attr, _, _) in SECOND_ORDER.items():
+        orig[name] = getattr(gs, attr)
+        setattr(gs, attr, wrap(name, orig[name]))
+    try:
+        yield largest
+    finally:
+        for name, (attr, _, _) in SECOND_ORDER.items():
+            setattr(gs, attr, orig[name])
+
+
+def second_order_entry(name, rec):
+    """One second-order kernel's recorded call against its plain version
+    (the gathers' directional term bit for bit, their Hessian term bit for
+    bit at one channel and at 1e-5 otherwise; the scatters at 1e-5, one
+    bf16 step for a bf16 volume's gradient), timed with its bound.  No
+    PyTorch call computes the same terms on the card: this torch's CUDA
+    grid_sample has no double backward (``SECOND_ORDER_LIBRARY``)."""
+    import torch
+    from surf_tpu_torch.ops import grid_sample as gs
+    attr, kname, _ = SECOND_ORDER[name]
+    fn, plain = getattr(gs, attr), getattr(gs, attr + "_plain")
+    _, a, k = rec
+    vol, co, h, ct = a[:4]
+    got, ref = fn(*a, **k), plain(*a, **k)
+    gather = name.endswith("gather")
+    got = got if gather else (got,)
+    ref = ref if gather else (ref,)
+    C = vol.shape[-1]
+    err = 0.0
+    for i, (x, y) in enumerate(zip(got, ref)):
+        if y is None:
+            continue
+        if gather and (i == 0 or C == 1):
+            err = max(err, check_close(f"{kname} {'directional' if i == 0 else 'Hessian'}",
+                                       x, y, 0.0, 0.0))
+        else:
+            rtol = 2.0 ** -7 if y.dtype == torch.bfloat16 else 1e-5
+            err = max(err, check_close(kname, x, y, rtol, 1e-5 * scale(y)))
+    del got, ref
+    pts = co.shape[:-1].numel()
+    corners = 2 ** co.shape[-1]
+    d2 = co.dim() == 3
+    align = k.get("align_corners", True)
+    if not k.get("normalized", True):
+        fail(f"variants: a {kname} call with pixel coordinates, which the entry "
+             "does not count")
+    taps = distinct_taps(vol.shape[:3], co, align)
+    moved = nbytes(co) + nbytes(h)
+    if gather:
+        moved += taps * C * vol.element_size() + \
+            (pts * C * 4 if k.get("need_dir", True) else 0)
+        if k.get("need_hess", True):
+            moved += nbytes(ct) + nbytes(co)
+        flops = pts * corners * (4 * C + 16)
+    else:
+        moved += nbytes(ct) + (vol.numel() * 4 if d2 else nbytes(vol))
+        flops = pts * corners * (2 * C + 10)
+    b_ms, b_by = bound(moved, flops)
+    return {"shape": f"{'image' if d2 else 'volume'} {tuple(vol.shape)} "
+                     f"{str(vol.dtype).split('.')[-1]}, {pts} points"
+                     + (f" x {vol.shape[0]} views" if d2 else "")
+                     + f", align_corners={align}, {taps} distinct "
+                     + ("texels" if d2 else "voxels")
+                     + (f", directional={k.get('need_dir', True)}, "
+                        f"Hessian={k.get('need_hess', True)}" if gather else ""),
+            "max_abs_err": err,
+            "ms": time_ms(lambda: fn(*a, **k)),
+            "plain_ms": time_ms(lambda: plain(*a, **k), 3),
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
+
+
+def variants_phase(v, dev="cuda", vol_side=176, plane_res=(512, 256), train_hw=(480, 640)):
+    """The variants the JAX package keeps beside its main path, at full
+    width on the warm validate's tensors, with every launch count zeroed
+    first: ``lookup_volume`` in its three modes on the 704^3 bf16 matching
+    volume at ``build_z_vals``' points; the gradient in x and in the volume
+    of |df/dx|^2 + <df/dV, R> (f = sum y^2, R random) at a training step's
+    69,632 points, on that volume and on a random f32 (176, 176, 176, 16)
+    one; ``lookup_sphe_volume`` on the 704^3 volume and ``lookup_triplane``
+    on two levels of random (512, 512, 16) and (256, 256, 16) planes at
+    ``build_z_vals``' points, forward, first and second order; the
+    geometric-consistency filter on the depths and candidates the last
+    stage's filter read; the consistency loss, forward and backward, at
+    480x640; the legacy and MNASNet FPNs (forward on the validate's 3
+    views, forward + backward on 5 random views of 480x640); the IDR
+    rendering net at a render chunk's 557,056 points; ``sample_pdf`` in
+    both modes.  Returns (launches, entries: kernel -> [entries], new rows,
+    numbers).  (``dev`` "cpu" with smaller ``vol_side``, ``plane_res`` and
+    ``train_hw`` rehearses the phase without a card.)"""
+    import torch
+    import torch.nn.functional as F
+    from surf_tpu_torch import _build
+    from surf_tpu_torch.config import ConfigFactory
+    from surf_tpu_torch.losses import compute_consistency_loss
+    from surf_tpu_torch.nn import (feature_net, feature_net_mnasnet, rendering_net,
+                                   volume)
+    from surf_tpu_torch.nn.core import tree_leaves
+    from surf_tpu_torch.ops import sparse as sp
+    from surf_tpu_torch.ops.alt_grids import (equirect2sphere, lookup_sphe_volume,
+                                              lookup_triplane)
+    from surf_tpu_torch.ops.grid_sample import lookup_volume
+    from surf_tpu_torch.ops.sampling import sample_pdf
+
+    scene = v.last_scene
+    ipts = scene["ipts"]
+    intrs, c2ws = ipts["intrs"], ipts["c2ws"]
+    mv = scene["matching"]
+    static = v.static["implicit_surface"]
+    pts, ro, rd, near, far = render_chunk_points(scene, static, v.val_chunk)
+    z_d = near + (far - near) * torch.linspace(0.0, 1.0, static["n_depth"],
+                                               device=near.device)[None]
+    p2 = (ro[:, None] + rd[:, None] * z_d[..., None]).reshape(-1, 3).contiguous()
+    # the depths and candidates the last stage's filter reads
+    filt, orig = {}, volume.upsample_filter_geometry
+
+    def rec_filter(prev_grid, depths, intrs_, c2ws_, stage_range, parent_cap):
+        filt.update(grid=prev_grid, depths=depths, stage_range=stage_range)
+        return orig(prev_grid, depths, intrs_, c2ws_, stage_range, parent_cap)
+    volume.upsample_filter_geometry = rec_filter
+    try:
+        with torch.no_grad():
+            v.build(ipts)
+    finally:
+        volume.upsample_filter_geometry = orig
+    g2 = filt["grid"]
+    cand = g2.child_coords()
+    cand = (cand[:, None, :] * 2 + sp.child_offsets(cand.device)[None]).reshape(-1, 3)
+    cand_world = sp.voxel_centers_world(cand, g2.res * 2)
+    cand_valid = g2.cvalid.repeat_interleave(8)
+    gen = torch.Generator(device=dev).manual_seed(12)
+    nums, checks = {}, []
+
+    def ok(what, *ts):
+        for t in ts:
+            if not torch.isfinite(t.float()).all():
+                fail(f"variants: non-finite {what}")
+        checks.append(what)
+
+    cuda = dev != "cpu"
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize()
+
+    def timed(part, fn):
+        sync()
+        t0 = time.time()
+        out = fn()
+        sync()
+        nums[part + "_s"] = time.time() - t0
+        return out
+
+    def second_order(sample, grids, x):
+        """Gradient in x and in the grids of |df/dx|^2 + sum <df/dG, R>."""
+        x = x.detach().requires_grad_()
+        gs_ = [g.detach().requires_grad_() for g in grids]
+        y = sample(x, gs_)
+        f = (y.float() ** 2).sum()
+        d = torch.autograd.grad(f, [x] + gs_, create_graph=True)
+        loss = (d[0] ** 2).sum()
+        for dg in d[1:]:
+            r = torch.randn(dg.shape, device=dev, generator=gen).to(dg.dtype)
+            loss = loss + (dg * r).float().sum()
+        grads = torch.autograd.grad(loss, [x] + gs_)
+        ok("second order", y, *grads)
+        return grads
+
+    sync()
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    t_phase = time.time()
+    _build.reset_launches()
+    records, _, restore = record_backward_calls(["bilinear_sample_2d_bwd",
+                                                 "trilinear_sample_3d_bwd"])
+    try:
+        with record_forward_calls() as fwd, record_second_order_calls() as second:
+            with torch.no_grad():
+                for mode in ("bilinear", "nearest", "grad"):
+                    out = timed(f"lookup_volume_{mode}", lambda: lookup_volume(p2, mv, mode=mode))
+                    if tuple(out.shape) != (p2.shape[0], 1):
+                        fail(f"variants: lookup_volume {mode} gave {tuple(out.shape)}")
+                    ok(f"lookup_volume {mode}", out)
+            n_train = 512 * 136
+            x = pts[:n_train]
+            vol16 = torch.randn((vol_side,) * 3 + (16,), device=dev, generator=gen)
+
+            def grad_lookup(x_, g):
+                return lookup_volume(x_, g[0], mode="grad")
+            for what, vol in (("matching", mv), ("random", vol16)):
+                timed(f"double_backward_{what}", lambda: second_order(grad_lookup, [vol], x))
+            del vol16
+            planes = [{k: torch.randn((r, r, 16), device=dev, generator=gen)
+                       for k in ("xy", "xz", "yz")} for r in plane_res]
+            with torch.no_grad():
+                ok("sphere lookup", timed("sphe_forward", lambda: lookup_sphe_volume(
+                    equirect2sphere(p2), mv)))
+                ok("triplane lookup", timed("triplane_forward", lambda: lookup_triplane(
+                    p2, planes)))
+            timed("sphe_second_order", lambda: second_order(
+                lambda x_, g: lookup_sphe_volume(equirect2sphere(x_), g[0]), [mv], p2))
+            flat = [planes[i][k] for i in range(2) for k in ("xy", "xz", "yz")]
+            timed("triplane_second_order", lambda: second_order(
+                lambda x_, g: lookup_triplane(x_, [dict(zip(("xy", "xz", "yz"), g[:3])),
+                                                   dict(zip(("xy", "xz", "yz"), g[3:]))]),
+                flat, p2))
+            del planes, flat
+            depths = filt["depths"]
+            masked = timed("geocheck_depths", lambda: volume.geocheck_depths(
+                depths, intrs, c2ws))
+            counts, keep = timed("depth_consistency_geocheck",
+                                 lambda: volume.depth_consistency_geocheck(
+                                     cand_world, cand_valid, depths, intrs, c2ws,
+                                     filt["stage_range"]))
+            ok("geocheck", masked, counts)
+            nums.update(geocheck_kept_share=(masked != 0).float().mean().item(),
+                        geocheck_candidates=int(cand_world.shape[0]),
+                        geocheck_kept_candidates=int(keep.sum()))
+            # the consistency loss at the training size: views 0 and 1 of
+            # those depths resized, the intrinsics scaled to match
+            th, tw = train_hw
+            d01 = F.interpolate(depths[:2, None], size=(th, tw), mode="bilinear",
+                                align_corners=False)[:, 0]
+            sc = torch.tensor([tw / depths.shape[2], th / depths.shape[1], 1.0, 1.0],
+                              device=dev)[:, None]
+            ref_d, src_d = (d01[i].clone().requires_grad_() for i in range(2))
+            mask = torch.ones((th, tw), device=dev)
+            loss = timed("consistency_loss", lambda: compute_consistency_loss(
+                ref_d, src_d, intrs[:2] * sc, c2ws[:2], 1, mask, mask))
+            g_ref, g_src = timed("consistency_backward",
+                                 lambda: torch.autograd.grad(loss, (ref_d, src_d)))
+            ok("consistency loss", loss, g_ref, g_src)
+            nums["consistency_loss"] = loss.item()
+            # the FPN variants at confs/surf_synthetic_full.conf's widths
+            fc = ConfigFactory.parse_string("fn { d_base = 8, d_out = 4 }\n"
+                                            "mn { d_out = [4, 4, 4, 4, 4] }")
+            nets = {"legacy": (feature_net.init_legacy(gen, fc["fn"], dev),
+                               feature_net.apply_legacy),
+                    "mnasnet": (feature_net_mnasnet.init(gen, fc["mn"], dev),
+                                feature_net_mnasnet.apply)}
+            imgs5 = torch.rand((5, th, tw, 3), device=dev, generator=gen)
+            for key, (params, apply) in nets.items():
+                with torch.no_grad():
+                    outs = timed(f"{key}_fpn_forward", lambda: apply(params, ipts["imgs"]))
+                ok(f"{key} FPN", *outs)
+                leaves = [t.requires_grad_() for t in tree_leaves(params)]
+
+                def step():
+                    outs = apply(params, imgs5)
+                    return torch.autograd.grad(sum((o ** 2).mean() for o in outs), leaves)
+                ok(f"{key} FPN backward", *timed(f"{key}_fpn_forward_backward", step))
+            del nets, imgs5
+            rc = ConfigFactory.parse_string(
+                "net { d_feature = 128, mode = idr, d_in = 9, d_out = 3, d_hidden = 256, "
+                "n_layers = 4, weight_norm = True, multires_view = 4, squeeze_out = True }")
+            rp, rs = rendering_net.init(gen, rc["net"], dev)
+            n = pts.shape[0]
+            nrm = F.normalize(torch.randn((n, 3), device=dev, generator=gen), dim=-1)
+            feat = torch.randn((n, 128), device=dev, generator=gen)
+            with torch.no_grad():
+                rgb = timed("rendering_net", lambda: rendering_net.apply(
+                    rp, rs, pts, nrm, rd.repeat_interleave(n // rd.shape[0], 0), feat))
+            ok("rendering net", rgb)
+            if tuple(rgb.shape) != (n, 3) or rgb.min() < 0 or rgb.max() > 1:
+                fail("variants: the rendering net's colours are not (n, 3) in [0, 1]")
+            z = torch.sort(near + (far - near) * torch.rand((ro.shape[0], 136), device=dev,
+                                                            generator=gen), -1)[0]
+            w = torch.rand((ro.shape[0], 136), device=dev, generator=gen)
+            for det in (True, False):
+                s_ = timed(f"sample_pdf_{'det' if det else 'random'}",
+                           lambda: sample_pdf(z, w, 64, det=det, generator=gen))
+                ok("sample_pdf", s_)
+                if ((s_ < z[:, :1]) | (s_ > z[:, -1:])).any():
+                    fail("variants: sample_pdf left the rays' bins")
+    finally:
+        restore()
+    sync()
+    launches = dict(_build.launches)
+    nums.update(phase_s=time.time() - t_phase, checks=len(checks),
+                peak_mem_gb=torch.cuda.max_memory_allocated() / 2 ** 30 if cuda else None)
+    missing = [k for k in VARIANT_KERNELS if launches[k] <= 0]
+    if missing:
+        fail(f"variants: launched no {missing}")
+    t0 = time.time()
+    entries = largest_call_entries("variants", fwd, {}, records)
+    rows = []
+    for name, (_, _, replaces) in SECOND_ORDER.items():
+        recs = sorted(((key[1], r) for key, r in second.items() if key[0] == name),
+                      key=lambda kr: -kr[1][0])
+        es = []
+        for operand, r in recs:
+            e = second_order_entry(name, r)
+            e["call_site"] = f"variants, {operand}"
+            es.append(e)
+        row = {"name": name, "route": "cuda", "source": "surf_tpu_torch/csrc/grid_sample.cu",
+               "replaces": replaces, "launches": launches[name], **es[0],
+               "tolerance": ("directional term exact, Hessian term exact at C = 1 else "
+                             "|err| <= 1e-5 max(max|plain|, 1) + 1e-5 |plain|"
+                             if name.endswith("gather") else
+                             "|err| <= 1e-5 max(max|plain|, 1) + 1e-5 |plain| (bf16: "
+                             "one bf16 step)"),
+               "library": SECOND_ORDER_LIBRARY}
+        if len(es) > 1:
+            row["also_checked"] = es[1:]
+        say("kernel", json.dumps(row))
+        rows.append(row)
+    nums["kernel_checks_s"] = time.time() - t0
+    return launches, entries, rows, nums
+
+
 def reference_check():
     import numpy as np
     import torch
@@ -3456,6 +3832,7 @@ def plain_versions():
              (sp, "sparse_trilinear_multi_bwd", sp.sparse_trilinear_multi_bwd_plain),
              (reg_net, "gather_conv", reg_net.gather_conv_plain),
              (reg_net, "gather_conv_dw", reg_net.gather_conv_dw_plain)]
+    swaps += [(gs, attr, getattr(gs, attr + "_plain")) for attr, _, _ in SECOND_ORDER.values()]
     orig = [getattr(m, n) for m, n, _ in swaps]
     for m, n, f in swaps:
         setattr(m, n, f)
@@ -3616,7 +3993,13 @@ def main():
     # a dense stage
     dense_conv0 = next((c[2], c[3].to(torch.int32), c[5]) for c in k4_calls
                        if c[0].res == 704 and c[1] == 0)
-    v.last_scene = k4_calls = None
+    k4_calls = None
+    torch.cuda.empty_cache()
+
+    var_launches, var_entries, second_rows, var_nums = variants_phase(v)
+    var_nums["launches"] = {k: var_launches[k] for k in VARIANT_KERNELS}
+    say("variants", json.dumps(var_nums))
+    v.last_scene = None
     del v
     torch.cuda.empty_cache()
 
@@ -3712,6 +4095,12 @@ def main():
         f"the CPU plain path, max abs err {err:.3e} ({time.time() - t0:.1f} s)")
     say("total", f"{time.time() - t_start:.1f} s")
 
+    # the variants phase's launches and largest calls, and its kernels' rows
+    for r in rows:
+        r["launches_in_variants"] = var_launches.get(r["name"], 0)
+        if var_entries.get(r["name"]):
+            r.setdefault("also_checked", []).extend(var_entries[r["name"]])
+    rows += second_rows
     print(json.dumps({"kernels": rows}))
     print(smi_line)
     print(json.dumps({"ok": True, "device": {

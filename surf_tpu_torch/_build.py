@@ -173,7 +173,9 @@ def on_device(t):
 launches = {"bilinear_sample_2d": 0, "trilinear_sample_3d": 0,
             "sparse_trilinear_multi": 0, "gather_conv": 0,
             "bilinear_sample_2d_bwd": 0, "trilinear_sample_3d_bwd": 0,
-            "sparse_trilinear_multi_bwd": 0, "gather_conv_dw": 0}
+            "sparse_trilinear_multi_bwd": 0, "gather_conv_dw": 0,
+            "bilinear_sample_2d_bwd2_gather": 0, "bilinear_sample_2d_bwd2_scatter": 0,
+            "trilinear_sample_3d_bwd2_gather": 0, "trilinear_sample_3d_bwd2_scatter": 0}
 
 
 def reset_launches():

@@ -114,6 +114,18 @@ def convert_feature_network(sd, prefix, num_stage):
     return out
 
 
+def convert_feature_network_old(sd, prefix):
+    """The reference's unused 3-scale FeatureNetworkOld
+    (feature_network.py:78-123) in ``nn.feature_net.init_legacy``'s
+    layout."""
+    def conv(name):
+        return _conv2d(sd, f"{prefix}.{name}")
+    return {"conv0": [conv(f"conv0.{i}.conv") for i in range(2)],
+            "conv1": [conv(f"conv1.{i}.conv") for i in range(3)],
+            "conv2": [conv(f"conv2.{i}.conv") for i in range(3)],
+            **{k: conv(k) for k in ("out2", "out1", "out0", "inner1", "inner0")}}
+
+
 REG_CONVS = ("conv0", "conv1", "conv2", "conv3", "conv4", "conv5", "conv6", "conv7",
              "conv9", "conv11")
 

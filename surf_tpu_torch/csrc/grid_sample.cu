@@ -77,6 +77,12 @@ __device__ __forceinline__ float unnormalize(float c, int size, int align) {
     return ((c + 1.0f) * (float)size - 1.0f) * 0.5f;
 }
 
+// d(unnormalized coordinate) / d(coordinate) along an axis of ``size``.
+__device__ __forceinline__ float coord_scale(int size, int normalized, int align) {
+    if (!normalized) return 1.0f;
+    return align ? 0.5f * (float)(size - 1) : 0.5f * (float)size;
+}
+
 // ---------------------------------------------------------------------------
 // K1 / K1b: one sample's bilinear geometry
 // ---------------------------------------------------------------------------
@@ -556,12 +562,8 @@ bilinear_bwd_kernel(const float* __restrict__ img, const float2* __restrict__ co
                 dy += sk * ((k >> 1) ? 1.0f : -1.0f) * corner_wx(t, k);
             }
         }
-        float sx = 1.0f, sy = 1.0f;
-        if (normalized) {
-            sx = align ? 0.5f * (float)(W - 1) : 0.5f * (float)W;
-            sy = align ? 0.5f * (float)(H - 1) : 0.5f * (float)H;
-        }
-        d_coords[vn] = make_float2(dx * sx, dy * sy);
+        d_coords[vn] = make_float2(dx * coord_scale(W, normalized, align),
+                                   dy * coord_scale(H, normalized, align));
     }
 }
 
@@ -612,6 +614,21 @@ __device__ __forceinline__ float cell_weight(const Cell3& c, int k) {
     const float wy = ((k >> 1) & 1) ? c.fy : 1.0f - c.fy;
     const float wz = (k & 1) ? c.fz : 1.0f - c.fz;
     return wx * wy * wz;
+}
+
+// Corner k's weight in K2b's scatter: the trilinear weight (``dirs``
+// null) or, for K2s, its derivative along the sample's direction scaled
+// to voxel units (hx, hy, hz): d_x w_k hx + d_y w_k hy + d_z w_k hz.
+__device__ __forceinline__ float scatter_weight(const Cell3& c, int k, bool dirs, float hx,
+                                                float hy, float hz) {
+    if (!dirs) return cell_weight(c, k);
+    const float wx = ((k >> 2) & 1) ? c.fx : 1.0f - c.fx;
+    const float wy = ((k >> 1) & 1) ? c.fy : 1.0f - c.fy;
+    const float wz = (k & 1) ? c.fz : 1.0f - c.fz;
+    const float dx = ((k >> 2) & 1) ? wy * wz : -(wy * wz);
+    const float dy = ((k >> 1) & 1) ? wx * wz : -(wx * wz);
+    const float dz = (k & 1) ? wx * wy : -(wx * wy);
+    return dx * hx + dy * hy + dz * hz;
 }
 
 constexpr int kBwdRun = 4;                        // 32-sample chunks a warp
@@ -731,8 +748,9 @@ __device__ __forceinline__ int spread_chunk(int w, int chunks) {
 }
 
 // d_volume's scatter into ``dst`` (f32 (X, Y, Z, C), zero where it is
-// added to).  A warp takes kBwdRun chunks of 32 consecutive samples
-// (``spread_chunk`` picks which).  CT =
+// added to), with the trilinear weights or, given ``dirs`` (N, 3), K2s's
+// directional ones (``scatter_weight``).  A warp takes kBwdRun chunks of
+// 32 consecutive samples (``spread_chunk`` picks which).  CT =
 // 1: the lanes in a row in one cell sum their 8 corner values into the
 // run's first lane (``run_sum``), which adds each nonzero one with one
 // global atomic.  Run-time C: an atomic a (corner, channel).  ``counts``
@@ -741,17 +759,27 @@ __device__ __forceinline__ int spread_chunk(int w, int chunks) {
 template <int CT>
 __global__ void __launch_bounds__(kThreads)
 trilinear_bwd_scatter_kernel(const float* __restrict__ coords, const float* __restrict__ ct,
-                             float* __restrict__ dst, int X, int Y, int Z, int C_rt, int N,
-                             int normalized, int align, unsigned long long* __restrict__ counts) {
+                             const float* __restrict__ dirs, float* __restrict__ dst, int X,
+                             int Y, int Z, int C_rt, int N, int normalized, int align,
+                             unsigned long long* __restrict__ counts) {
     __shared__ unsigned s_counts[2];
     if (counts != nullptr && threadIdx.x < 2) s_counts[threadIdx.x] = 0u;
     const int C = CT ? CT : C_rt;
     const int lane = threadIdx.x & 31;
+    const bool dir = dirs != nullptr;
+    const float sx = coord_scale(X, normalized, align), sy = coord_scale(Y, normalized, align),
+                sz = coord_scale(Z, normalized, align);
     unsigned scatters = 0, atomics = 0;
     const int chunk = spread_chunk(blockIdx.x * kBwdWarps + (threadIdx.x >> 5),
                                    (N + 32 * kBwdRun - 1) / (32 * kBwdRun));
     for (int it = 0; it < kBwdRun && chunk >= 0; ++it) {
         const int p = (chunk * kBwdRun + it) * 32 + lane;
+        float hx = 0.0f, hy = 0.0f, hz = 0.0f;
+        if (dir && p < N) {
+            hx = __ldg(dirs + 3 * p) * sx;
+            hy = __ldg(dirs + 3 * p + 1) * sy;
+            hz = __ldg(dirs + 3 * p + 2) * sz;
+        }
         if constexpr (CT == 1) {
             Cell3 c;
             c.mask = 0;
@@ -766,7 +794,8 @@ trilinear_bwd_scatter_kernel(const float* __restrict__ coords, const float* __re
             const bool head = lane == 0 || prev != key;
             float x[8];
 #pragma unroll
-            for (int k = 0; k < 8; ++k) x[k] = c.mask ? g * cell_weight(c, k) : 0.0f;
+            for (int k = 0; k < 8; ++k)
+                x[k] = c.mask ? g * scatter_weight(c, k, dir, hx, hy, hz) : 0.0f;
             run_sum<8>(x, lane, run_end(head, lane));
             if (!head) continue;
 #pragma unroll
@@ -781,7 +810,7 @@ trilinear_bwd_scatter_kernel(const float* __restrict__ coords, const float* __re
             for (int k = 0; k < 8; ++k) {
                 if (!((c.mask >> k) & 1)) continue;
                 const int v = cell_voxel(c, k, Y, Z);
-                const float wk = cell_weight(c, k);
+                const float wk = scatter_weight(c, k, dir, hx, hy, hz);
                 for (int ch = 0; ch < C; ++ch) {
                     const float gc = __ldg(ct + (long long)p * C + ch);
                     if (gc == 0.0f) continue;
@@ -857,12 +886,6 @@ trilinear_bwd_coords_kernel(const T* __restrict__ vol, const float* __restrict__
                             int X, int Y, int Z, int C, int N, int normalized, int align) {
     const int n = blockIdx.x * kThreads + threadIdx.x;
     if (n >= N) return;
-    float sx = 1.0f, sy = 1.0f, sz = 1.0f;
-    if (normalized) {
-        sx = align ? 0.5f * (float)(X - 1) : 0.5f * (float)X;
-        sy = align ? 0.5f * (float)(Y - 1) : 0.5f * (float)Y;
-        sz = align ? 0.5f * (float)(Z - 1) : 0.5f * (float)Z;
-    }
     const Cell3 c = tri_cell(coords + 3 * n, X, Y, Z, normalized, align);
     const float* g = ct + (long long)n * C;
     float dx = 0.0f, dy = 0.0f, dz = 0.0f;
@@ -880,9 +903,208 @@ trilinear_bwd_coords_kernel(const T* __restrict__ vol, const float* __restrict__
         dy += s * wx * (oy ? 1.0f : -1.0f) * wz;
         dz += s * wx * wy * (oz ? 1.0f : -1.0f);
     }
-    d_coords[3 * n] = dx * sx;
-    d_coords[3 * n + 1] = dy * sy;
-    d_coords[3 * n + 2] = dz * sz;
+    d_coords[3 * n] = dx * coord_scale(X, normalized, align);
+    d_coords[3 * n + 1] = dy * coord_scale(Y, normalized, align);
+    d_coords[3 * n + 2] = dz * coord_scale(Z, normalized, align);
+}
+
+// ---------------------------------------------------------------------------
+// K1g / K1s / K2g / K2s: the second order of K1 and K2, the backward of
+// K1b's and K2b's d_coords for its cotangent h (the d_image / d_volume
+// cotangent's terms are K1 / K2 and K1b's / K2b's d_coords).
+//
+// Replaces: the second derivatives that XLA's autodiff takes of
+// surf_tpu/ops/grid_sample.py's trilinear_sample_3d (:278, plain gathers)
+// and of _bilinear_core's VJP (:102, JAX code), which
+// lookup_volume(mode="grad") (:678) and the alt grids
+// (surf_tpu/ops/alt_grids.py) need for an eikonal loss through a volume
+// lookup (the reference's gridsample_grad2 CUDA extension).
+//
+// With the corner weights w_k at the unnormalized position u = s x + c,
+// h'_a = s_a h_a, the directional weight dw_k = sum_a d_a w_k h'_a and
+// S_k = sum_c V[i_k, c] ct[c]:
+//   * K1g / K2g, a gather, one thread a sample, one pass over its 4 (8)
+//     corner rows: the directional term sum_k dw_k V[i_k] (N, C), d ct,
+//     and the Hessian term s_b sum_{a != b} h'_a sum_k d_a d_b w_k S_k
+//     (N, 2 or 3), d coords (the unmixed d_a^2 w_k are 0);
+//   * K1s / K2s, a scatter: dw_k ct into the corners, d image / d volume.
+//     K2s is K2b's scatter with the directional weights (the weight mode
+//     of ``trilinear_bwd_scatter_kernel``): its run merging, its f32 sum
+//     and, for a bf16 volume, its bricked form and bf16 cast.  K1s is one
+//     thread a sample, an atomic add a (corner, channel) of a nonzero
+//     product.
+// Bound on the card: bytes, as K1 / K2 and K1b / K2b (a few FLOPs a byte
+// read).  A term whose cotangent or output is not wanted is skipped (a
+// null pointer).  The gathers use the plain versions' operation order
+// (-fmad=false): the directional term equals the plain version bit for
+// bit, as K1 / K2 do; the Hessian term sums channels in order where the
+// plain version takes PyTorch's sum (equal at C = 1).  The scatters' sums
+// run in an order that changes from run to run (float atomics).
+// ---------------------------------------------------------------------------
+
+// K1g: directional term (dir, or null) and Hessian term (hess, or null; it
+// reads ct) of a (view, sample); coordinates and h as plain floats.
+__global__ void __launch_bounds__(kThreads)
+bilinear_bwd2_gather_kernel(const float* __restrict__ img, const float* __restrict__ coords,
+                            const float* __restrict__ h, const float* __restrict__ ct,
+                            float* __restrict__ dir, float* __restrict__ hess, int H, int W,
+                            int C, int N, int normalized, int align) {
+    const int p = blockIdx.x * kThreads + threadIdx.x;
+    if (p >= N) return;
+    const int v = blockIdx.y;
+    const long long vn = (long long)v * N + p;
+    float x = coords[2 * vn], y = coords[2 * vn + 1];
+    if (normalized) {
+        x = unnormalize(x, W, align);
+        y = unnormalize(y, H, align);
+    }
+    const float sx = coord_scale(W, normalized, align), sy = coord_scale(H, normalized, align);
+    const float hx = h[2 * vn] * sx, hy = h[2 * vn + 1] * sy;
+    const Axis ax = tri_axis(x, W), ay = tri_axis(y, H);
+    // corner k = (ox, oy) = (k & 1, k >> 1), the reference's order
+    const float* row[4];
+    float dw[4], in[4];
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+        const int ox = k & 1, oy = k >> 1;
+        const float wx = ox ? ax.f : ax.g, wy = oy ? ay.f : ay.g;
+        in[k] = (ox ? ax.in1 : ax.in0) * (oy ? ay.in1 : ay.in0);
+        dw[k] = ((ox ? wy : -wy) * hx + (oy ? wx : -wx) * hy) * in[k];
+        row[k] =
+            img + ((long long)(v * H + (oy ? ay.i1 : ay.i0)) * W + (ox ? ax.i1 : ax.i0)) * C;
+    }
+    if (dir != nullptr) {
+        float* o = dir + vn * C;
+        for (int c = 0; c < C; ++c) {
+            float acc = row[0][c] * dw[0];
+#pragma unroll
+            for (int k = 1; k < 4; ++k) acc = acc + row[k][c] * dw[k];
+            o[c] = acc;
+        }
+    }
+    if (hess != nullptr) {
+        const float* g = ct + vn * C;
+        float m = 0.0f;
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+            float sk = row[k][0] * g[0];
+            for (int c = 1; c < C; ++c) sk = sk + row[k][c] * g[c];
+            const float t = sk * in[k];
+            const float tk = (k == 0 || k == 3) ? t : -t;     // d_x d_y w_k = +-1
+            m = k == 0 ? tk : m + tk;
+        }
+        hess[2 * vn] = (m * hy) * sx;
+        hess[2 * vn + 1] = (m * hx) * sy;
+    }
+}
+
+// K1s: dw_k ct of a (view, sample) added into its inside corners' rows of
+// d_img (f32 (V, H, W, C), zero-filled by the caller).
+__global__ void __launch_bounds__(kThreads)
+bilinear_bwd2_scatter_kernel(const float* __restrict__ coords, const float* __restrict__ h,
+                             const float* __restrict__ ct, float* __restrict__ d_img, int H,
+                             int W, int C, int N, int normalized, int align) {
+    const int p = blockIdx.x * kThreads + threadIdx.x;
+    if (p >= N) return;
+    const int v = blockIdx.y;
+    const long long vn = (long long)v * N + p;
+    float x = coords[2 * vn], y = coords[2 * vn + 1];
+    if (normalized) {
+        x = unnormalize(x, W, align);
+        y = unnormalize(y, H, align);
+    }
+    const float hx = h[2 * vn] * coord_scale(W, normalized, align);
+    const float hy = h[2 * vn + 1] * coord_scale(H, normalized, align);
+    const Axis ax = tri_axis(x, W), ay = tri_axis(y, H);
+    const float* g = ct + vn * C;
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+        const int ox = k & 1, oy = k >> 1;
+        if ((ox ? ax.in1 : ax.in0) == 0.0f || (oy ? ay.in1 : ay.in0) == 0.0f) continue;
+        const float wx = ox ? ax.f : ax.g, wy = oy ? ay.f : ay.g;
+        const float dwk = (ox ? wy : -wy) * hx + (oy ? wx : -wx) * hy;
+        if (dwk == 0.0f) continue;
+        float* dst =
+            d_img + ((long long)(v * H + (oy ? ay.i1 : ay.i0)) * W + (ox ? ax.i1 : ax.i0)) * C;
+        for (int c = 0; c < C; ++c) {
+            const float gc = g[c];
+            if (gc != 0.0f) atomicAdd(dst + c, gc * dwk);
+        }
+    }
+}
+
+// K2g: directional term (dir, or null) and Hessian term (hess, or null; it
+// reads ct) of a sample, its 8 corners clamped to the volume as K2 reads
+// them (an outside corner is weighted 0).
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+trilinear_bwd2_gather_kernel(const T* __restrict__ vol, const float* __restrict__ coords,
+                             const float* __restrict__ h, const float* __restrict__ ct,
+                             float* __restrict__ dir, float* __restrict__ hess, int X, int Y,
+                             int Z, int C, int N, int normalized, int align) {
+    const int p = blockIdx.x * kThreads + threadIdx.x;
+    if (p >= N) return;
+    const float* co = coords + 3 * (long long)p;
+    float x = co[0], y = co[1], z = co[2];
+    if (normalized) {
+        x = unnormalize(x, X, align);
+        y = unnormalize(y, Y, align);
+        z = unnormalize(z, Z, align);
+    }
+    const float sx = coord_scale(X, normalized, align), sy = coord_scale(Y, normalized, align),
+                sz = coord_scale(Z, normalized, align);
+    const float* hp = h + 3 * (long long)p;
+    const float hx = hp[0] * sx, hy = hp[1] * sy, hz = hp[2] * sz;
+    const Axis ax = tri_axis(x, X), ay = tri_axis(y, Y), az = tri_axis(z, Z);
+    // corner k = 4 ox + 2 oy + oz
+    const T* row[8];
+    float dw[8], in[8], wxs[8], wys[8], wzs[8];
+#pragma unroll
+    for (int k = 0; k < 8; ++k) {
+        const int ox = (k >> 2) & 1, oy = (k >> 1) & 1, oz = k & 1;
+        const float wx = ox ? ax.f : ax.g, wy = oy ? ay.f : ay.g, wz = oz ? az.f : az.g;
+        in[k] = ((ox ? ax.in1 : ax.in0) * (oy ? ay.in1 : ay.in0)) * (oz ? az.in1 : az.in0);
+        const float pyz = wy * wz, pxz = wx * wz, pxy = wx * wy;
+        dw[k] = ((ox ? pyz : -pyz) * hx + (oy ? pxz : -pxz) * hy + (oz ? pxy : -pxy) * hz) *
+                in[k];
+        wxs[k] = wx;
+        wys[k] = wy;
+        wzs[k] = wz;
+        const int vox =
+            ((ox ? ax.i1 : ax.i0) * Y + (oy ? ay.i1 : ay.i0)) * Z + (oz ? az.i1 : az.i0);
+        row[k] = vol + (long long)vox * C;
+    }
+    if (dir != nullptr) {
+        float* o = dir + (long long)p * C;
+        for (int c = 0; c < C; ++c) {
+            float acc = to_float(row[0][c]) * dw[0];
+#pragma unroll
+            for (int k = 1; k < 8; ++k) acc = acc + to_float(row[k][c]) * dw[k];
+            o[c] = acc;
+        }
+    }
+    if (hess != nullptr) {
+        const float* g = ct + (long long)p * C;
+        float mxy = 0.0f, mxz = 0.0f, myz = 0.0f;
+#pragma unroll
+        for (int k = 0; k < 8; ++k) {
+            const int ox = (k >> 2) & 1, oy = (k >> 1) & 1, oz = k & 1;
+            float sk = to_float(row[k][0]) * g[0];
+            for (int c = 1; c < C; ++c) sk = sk + to_float(row[k][c]) * g[c];
+            sk = sk * in[k];
+            // the mixed second derivatives of w_k: +-wz, +-wy, +-wx
+            const float txy = sk * ((ox == oy) ? wzs[k] : -wzs[k]);
+            const float txz = sk * ((ox == oz) ? wys[k] : -wys[k]);
+            const float tyz = sk * ((oy == oz) ? wxs[k] : -wxs[k]);
+            mxy = k == 0 ? txy : mxy + txy;
+            mxz = k == 0 ? txz : mxz + txz;
+            myz = k == 0 ? tyz : myz + tyz;
+        }
+        float* o = hess + 3 * (long long)p;
+        o[0] = (mxy * hy + mxz * hz) * sx;
+        o[1] = (mxy * hx + myz * hz) * sy;
+        o[2] = (mxz * hx + myz * hy) * sz;
+    }
 }
 
 inline unsigned blocks_for(long long total) {
@@ -902,6 +1124,55 @@ inline int bilinear_args_ok(int V, int H, int W, int C, long long N, const void*
         return (int)cudaErrorInvalidValue;
     if (!aligned(coords, 8)) return (int)cudaErrorMisalignedAddress;
     return 0;
+}
+
+// K2b's and K2s's size rule: the volume below 2^31 elements, each side
+// below 2^21 - 1 (``cell_key``'s fields), the bricked form with both
+// gradient buffers.
+inline int tri_bwd_args_ok(int X, int Y, int Z, int C, long long N, const float* d_vol,
+                           const void* d_vol_out, const int* bricks) {
+    constexpr int kSide = (1 << 21) - 1;
+    if (N < 0 || C <= 0 || X <= 0 || Y <= 0 || Z <= 0 || X >= kSide || Y >= kSide ||
+        Z >= kSide || (long long)X * Y * Z * C >= (long long)INT_MAX ||
+        N > (long long)INT_MAX - kBwdTile ||
+        (bricks != nullptr && (d_vol == nullptr || d_vol_out == nullptr)))
+        return (int)cudaErrorInvalidValue;
+    return 0;
+}
+
+// The d_volume passes of K2b (dirs null) and K2s: the bricked form's mark
+// and zero passes, the scatter into the f32 sum d_vol, and the cast into
+// d_vol_out (bf16) where given.
+inline void tri_scatter(const float* coords, const float* ct, const float* dirs, float* d_vol,
+                        int X, int Y, int Z, int C, int n, int normalized, int align,
+                        void* d_vol_out, int* bricks, unsigned long long* counts,
+                        cudaStream_t s) {
+    if (bricks != nullptr && n > 0) {
+        const int n_bricks = ((X + kBrick - 1) / kBrick) * ((Y + kBrick - 1) / kBrick) *
+                             ((Z + kBrick - 1) / kBrick);
+        trilinear_bwd_mark_kernel<<<blocks_for(n), kThreads, 0, s>>>(
+            coords, ct, bricks, X, Y, Z, C, n, normalized, align);
+        trilinear_bwd_zero_kernel<<<blocks_for(n_bricks), kThreads, 0, s>>>(
+            bricks, d_vol, X, Y, Z, C, n_bricks);
+    }
+    if (n > 0) {
+        // warps for every chunk of every stream (``spread_chunk``)
+        const int chunks = (n + 32 * kBwdRun - 1) / (32 * kBwdRun);
+        const int warps = kSpread * ((chunks + kSpread - 1) / kSpread);
+        const unsigned grid = (unsigned)((warps + kBwdWarps - 1) / kBwdWarps);
+        if (C == 1)
+            trilinear_bwd_scatter_kernel<1><<<grid, kThreads, 0, s>>>(
+                coords, ct, dirs, d_vol, X, Y, Z, C, n, normalized, align, counts);
+        else
+            trilinear_bwd_scatter_kernel<0><<<grid, kThreads, 0, s>>>(
+                coords, ct, dirs, d_vol, X, Y, Z, C, n, normalized, align, counts);
+    }
+    if (d_vol_out != nullptr) {
+        const int fast = C == 1 && Z % kBrick == 0 && aligned(d_vol, 16) &&
+                         aligned(d_vol_out, 16);
+        trilinear_bwd_finish_kernel<<<blocks_for((long long)X * Y * 32), kThreads, 0, s>>>(
+            d_vol, bricks, (__nv_bfloat16*)d_vol_out, X, Y, Z, C, fast);
+    }
 }
 
 }  // namespace
@@ -1029,42 +1300,13 @@ int trilinear_sample_3d_bwd(const void* vol, int is_bf16, const float* coords,
                             int X, int Y, int Z, int C, long long N,
                             int normalized, int align, void* stream,
                             void* d_vol_out, int* bricks, unsigned long long* counts) {
-    constexpr int kSide = (1 << 21) - 1;                // ``cell_key``'s fields
-    if (N < 0 || C <= 0 || X <= 0 || Y <= 0 || Z <= 0 || X >= kSide || Y >= kSide ||
-        Z >= kSide || (long long)X * Y * Z * C >= (long long)INT_MAX ||
-        N > (long long)INT_MAX - kBwdTile ||
-        (bricks != nullptr && (d_vol == nullptr || d_vol_out == nullptr)))
-        return (int)cudaErrorInvalidValue;
+    const int bad = tri_bwd_args_ok(X, Y, Z, C, N, d_vol, d_vol_out, bricks);
+    if (bad) return bad;
     cudaStream_t s = (cudaStream_t)stream;
     const int n = (int)N;
-    if (d_vol != nullptr) {
-        if (bricks != nullptr && n > 0) {
-            const int n_bricks = ((X + kBrick - 1) / kBrick) * ((Y + kBrick - 1) / kBrick) *
-                                 ((Z + kBrick - 1) / kBrick);
-            trilinear_bwd_mark_kernel<<<blocks_for(n), kThreads, 0, s>>>(
-                coords, ct, bricks, X, Y, Z, C, n, normalized, align);
-            trilinear_bwd_zero_kernel<<<blocks_for(n_bricks), kThreads, 0, s>>>(
-                bricks, d_vol, X, Y, Z, C, n_bricks);
-        }
-        if (n > 0) {
-            // warps for every chunk of every stream (``spread_chunk``)
-            const int chunks = (n + 32 * kBwdRun - 1) / (32 * kBwdRun);
-            const int warps = kSpread * ((chunks + kSpread - 1) / kSpread);
-            const unsigned grid = (unsigned)((warps + kBwdWarps - 1) / kBwdWarps);
-            if (C == 1)
-                trilinear_bwd_scatter_kernel<1><<<grid, kThreads, 0, s>>>(
-                    coords, ct, d_vol, X, Y, Z, C, n, normalized, align, counts);
-            else
-                trilinear_bwd_scatter_kernel<0><<<grid, kThreads, 0, s>>>(
-                    coords, ct, d_vol, X, Y, Z, C, n, normalized, align, counts);
-        }
-        if (d_vol_out != nullptr) {
-            const int fast = C == 1 && Z % kBrick == 0 && aligned(d_vol, 16) &&
-                             aligned(d_vol_out, 16);
-            trilinear_bwd_finish_kernel<<<blocks_for((long long)X * Y * 32), kThreads, 0, s>>>(
-                d_vol, bricks, (__nv_bfloat16*)d_vol_out, X, Y, Z, C, fast);
-        }
-    }
+    if (d_vol != nullptr)
+        tri_scatter(coords, ct, nullptr, d_vol, X, Y, Z, C, n, normalized, align, d_vol_out,
+                    bricks, counts, s);
     if (d_coords != nullptr && n > 0) {
         if (is_bf16)
             trilinear_bwd_coords_kernel<__nv_bfloat16><<<blocks_for(n), kThreads, 0, s>>>(
@@ -1074,6 +1316,73 @@ int trilinear_sample_3d_bwd(const void* vol, int is_bf16, const float* coords,
             trilinear_bwd_coords_kernel<float><<<blocks_for(n), kThreads, 0, s>>>(
                 (const float*)vol, coords, ct, d_coords, X, Y, Z, C, n, normalized, align);
     }
+    return (int)cudaGetLastError();
+}
+
+// K1g.  img (V, H, W, C) f32, coords and h (V, N, 2) f32, ct (V, N, C) f32
+// (read for hess only, else NULL); dir (V, N, C) f32 or NULL; hess (V, N, 2)
+// f32 or NULL.
+int bilinear_sample_2d_bwd2_gather(const float* img, const float* coords, const float* h,
+                                   const float* ct, float* dir, float* hess, int V, int H,
+                                   int W, int C, long long N, int normalized, int align,
+                                   void* stream) {
+    if (V <= 0 || N <= 0 || C <= 0 || (dir == nullptr && hess == nullptr)) return 0;
+    if ((long long)V * H * W * C >= (long long)INT_MAX || V > 65535 ||
+        N > (long long)INT_MAX - kThreads || (hess != nullptr && ct == nullptr))
+        return (int)cudaErrorInvalidValue;
+    bilinear_bwd2_gather_kernel<<<dim3(blocks_for(N), V), kThreads, 0, (cudaStream_t)stream>>>(
+        img, coords, h, ct, dir, hess, H, W, C, (int)N, normalized, align);
+    return (int)cudaGetLastError();
+}
+
+// K1s.  coords and h (V, N, 2) f32, ct (V, N, C) f32; d_img (V, H, W, C) f32
+// zero-filled by the caller.
+int bilinear_sample_2d_bwd2_scatter(const float* coords, const float* h, const float* ct,
+                                    float* d_img, int V, int H, int W, int C, long long N,
+                                    int normalized, int align, void* stream) {
+    if (V <= 0 || N <= 0 || C <= 0) return 0;
+    if ((long long)V * H * W * C >= (long long)INT_MAX || V > 65535 ||
+        N > (long long)INT_MAX - kThreads)
+        return (int)cudaErrorInvalidValue;
+    bilinear_bwd2_scatter_kernel<<<dim3(blocks_for(N), V), kThreads, 0, (cudaStream_t)stream>>>(
+        coords, h, ct, d_img, H, W, C, (int)N, normalized, align);
+    return (int)cudaGetLastError();
+}
+
+// K2g.  vol (X, Y, Z, C) f32 or bf16, coords and h (N, 3) f32, ct (N, C)
+// f32 (read for hess only, else NULL); dir (N, C) f32 or NULL; hess (N, 3)
+// f32 or NULL.  The volume below 2^31 elements.
+int trilinear_sample_3d_bwd2_gather(const void* vol, int is_bf16, const float* coords,
+                                    const float* h, const float* ct, float* dir, float* hess,
+                                    int X, int Y, int Z, int C, long long N, int normalized,
+                                    int align, void* stream) {
+    if (N <= 0 || C <= 0 || (dir == nullptr && hess == nullptr)) return 0;
+    if (X <= 0 || Y <= 0 || Z <= 0 || (long long)X * Y * Z * C >= (long long)INT_MAX ||
+        N > (long long)INT_MAX - kThreads || (hess != nullptr && ct == nullptr))
+        return (int)cudaErrorInvalidValue;
+    cudaStream_t s = (cudaStream_t)stream;
+    const unsigned grid = blocks_for(N);
+    if (is_bf16)
+        trilinear_bwd2_gather_kernel<__nv_bfloat16><<<grid, kThreads, 0, s>>>(
+            (const __nv_bfloat16*)vol, coords, h, ct, dir, hess, X, Y, Z, C, (int)N,
+            normalized, align);
+    else
+        trilinear_bwd2_gather_kernel<float><<<grid, kThreads, 0, s>>>(
+            (const float*)vol, coords, h, ct, dir, hess, X, Y, Z, C, (int)N, normalized, align);
+    return (int)cudaGetLastError();
+}
+
+// K2s.  coords and h (N, 3) f32, ct (N, C) f32; d_vol, d_vol_out and
+// bricks as K2b's (d_vol required).
+int trilinear_sample_3d_bwd2_scatter(const float* coords, const float* h, const float* ct,
+                                     float* d_vol, int X, int Y, int Z, int C, long long N,
+                                     int normalized, int align, void* stream, void* d_vol_out,
+                                     int* bricks) {
+    int bad = tri_bwd_args_ok(X, Y, Z, C, N, d_vol, d_vol_out, bricks);
+    if (!bad && d_vol == nullptr) bad = (int)cudaErrorInvalidValue;
+    if (bad) return bad;
+    tri_scatter(coords, ct, h, d_vol, X, Y, Z, C, (int)N, normalized, align, d_vol_out, bricks,
+                nullptr, (cudaStream_t)stream);
     return (int)cudaGetLastError();
 }
 

@@ -133,11 +133,12 @@ def _w3d(w):           # (k, k, k, ci, co) -> (co, ci, k, k, k)
     return w.permute(4, 3, 0, 1, 2)
 
 
-def conv2d_apply(p, x, *, stride=1):
-    """x (N, H, W, C); 'same' padding (k-1)//2."""
+def conv2d_apply(p, x, *, stride=1, groups=1):
+    """x (N, H, W, C); 'same' padding (k-1)//2; ``groups`` as
+    ``F.conv2d``'s (a depthwise conv: groups = C, kernel (k, k, 1, C))."""
     k = p["w"].shape[0]
     y = F.conv2d(x.permute(0, 3, 1, 2), _w2d(p["w"]), stride=stride,
-                 padding=(k - 1) // 2)
+                 padding=(k - 1) // 2, groups=groups)
     if "b" in p:
         y = y + p["b"][:, None, None]
     return y.permute(0, 2, 3, 1)

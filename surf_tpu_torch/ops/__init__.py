@@ -4,9 +4,10 @@ nn/reg_net.py)."""
 
 from .grid_sample import (bilinear_sample, bilinear_sample_2d,
                           trilinear_sample, trilinear_sample_3d,
-                          nearest_sample_2d, nearest_sample_3d,
+                          nearest_sample_2d, nearest_sample_3d, lookup_volume,
                           resize_bilinear_2d, upsample_trilinear_x2)
-from .projection import (project_points_all, pixel_to_normalized,
+from .projection import (to_homo, world_to_cam, cam_to_pixel, project_points,
+                         project_points_all, pixel_to_normalized,
                          in_frustum_mask, pixels_to_rays, ray_z_cos,
                          compute_ray_diff, make_pixel_grid)
 from .embedder import embedder
@@ -14,7 +15,8 @@ from .embedder import embedder
 __all__ = [
     "bilinear_sample", "bilinear_sample_2d", "trilinear_sample",
     "trilinear_sample_3d", "nearest_sample_2d", "nearest_sample_3d",
-    "resize_bilinear_2d", "upsample_trilinear_x2", "project_points_all",
+    "lookup_volume", "resize_bilinear_2d", "upsample_trilinear_x2", "to_homo",
+    "world_to_cam", "cam_to_pixel", "project_points", "project_points_all",
     "pixel_to_normalized", "in_frustum_mask", "pixels_to_rays", "ray_z_cos",
     "compute_ray_diff", "make_pixel_grid", "embedder",
 ]

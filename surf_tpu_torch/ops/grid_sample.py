@@ -16,8 +16,13 @@ Two hand-written kernels live here (csrc/grid_sample.cu):
 
 Their backward kernels (training) are K1b ``bilinear_sample_bwd`` and
 K2b ``trilinear_sample_bwd``.  ``bilinear_sample_2d`` and
-``trilinear_sample_3d`` are differentiable: they run through
-``torch.autograd.Function``s whose backward is K1b / K2b.
+``trilinear_sample_3d`` are differentiable twice: they run through
+``torch.autograd.Function``s whose backward is K1b / K2b, itself a
+``Function`` whose backward (the second order) is K1 / K1b (K2 / K2b) on
+the d_image (d_volume) cotangent and, on the d_coords one, the gather K1g
+``bilinear_sample_bwd2_gather`` (K2g ``trilinear_sample_bwd2_gather``) and
+the scatter K1s ``bilinear_sample_bwd2_scatter`` (K2s
+``trilinear_sample_bwd2_scatter``).  A third order raises.
 
 Each wrapper launches its kernel for CUDA tensors and takes the plain
 PyTorch version beside it only for CPU tensors.
@@ -47,11 +52,11 @@ def _unnormalize(c, size, align_corners):
 # K1: bilinear sampling, batched over views
 # ---------------------------------------------------------------------------
 
-def bilinear_sample_plain(images, coords, *, normalized=True,
-                          align_corners=True):
-    """Plain version of K1.  images (V, H, W, C) f32; coords (V, N, 2) ->
-    (V, N, C).  Corners summed in the reference's order."""
-    V, H, W, C = images.shape
+def _cell_2d(images, coords, normalized, align_corners):
+    """The plain versions' bilinear geometry: per corner in the reference's
+    order ((0,0), (1,0), (0,1), (1,1)): (flat texel index clamped to the
+    image, 0/1 inside mask, wx, wy, sign of d_x wx, sign of d_y wy)."""
+    V, H, W, _ = images.shape
     x, y = coords[..., 0], coords[..., 1]
     if normalized:
         x = _unnormalize(x, W, align_corners)
@@ -59,16 +64,26 @@ def bilinear_sample_plain(images, coords, *, normalized=True,
     x0f, y0f = torch.floor(x), torch.floor(y)
     fx, fy = x - x0f, y - y0f
     x0, y0 = x0f.long(), y0f.long()
-    flat = images.reshape(V * H * W, C)
     vbase = (torch.arange(V, device=images.device) * (H * W))[:, None]
-    out = None
+    corners = []
     for ox, oy in ((0, 0), (1, 0), (0, 1), (1, 1)):
         cx, cy = x0 + ox, y0 + oy
-        valid = (cx >= 0) & (cx < W) & (cy >= 0) & (cy < H)
-        idx = vbase + cy.clamp(0, H - 1) * W + cx.clamp(0, W - 1)
-        w = (fx if ox else 1.0 - fx) * (fy if oy else 1.0 - fy)
-        w = w * valid.to(images.dtype)
-        term = flat[idx.reshape(-1)].reshape(*idx.shape, C) * w[..., None]
+        valid = ((cx >= 0) & (cx < W) & (cy >= 0) & (cy < H)).to(images.dtype)
+        idx = (vbase + cy.clamp(0, H - 1) * W + cx.clamp(0, W - 1)).reshape(-1)
+        corners.append((idx, valid, fx if ox else 1.0 - fx, fy if oy else 1.0 - fy,
+                        1.0 if ox else -1.0, 1.0 if oy else -1.0))
+    return corners
+
+
+def bilinear_sample_plain(images, coords, *, normalized=True,
+                          align_corners=True):
+    """Plain version of K1.  images (V, H, W, C) f32; coords (V, N, 2) ->
+    (V, N, C).  Corners summed in the reference's order."""
+    V, H, W, C = images.shape
+    flat = images.reshape(V * H * W, C)
+    out = None
+    for idx, valid, wx, wy, _, _ in _cell_2d(images, coords, normalized, align_corners):
+        term = flat[idx].reshape(*coords.shape[:-1], C) * (wx * wy * valid)[..., None]
         out = term if out is None else out + term
     return out
 
@@ -126,29 +141,16 @@ def bilinear_sample_bwd_plain(images, coords, ct, *, normalized=True,
     cotangent ct (V, N, C).  Returns (d_images (V, H, W, C) | None,
     d_coords (V, N, 2) | None); corner indices carry no gradient."""
     V, H, W, C = images.shape
-    x, y = coords[..., 0], coords[..., 1]
-    if normalized:
-        x = _unnormalize(x, W, align_corners)
-        y = _unnormalize(y, H, align_corners)
-    x0f, y0f = torch.floor(x), torch.floor(y)
-    fx, fy = x - x0f, y - y0f
-    x0, y0 = x0f.long(), y0f.long()
     flat = images.reshape(V * H * W, C)
-    vbase = (torch.arange(V, device=images.device) * (H * W))[:, None]
     d_flat = torch.zeros_like(flat) if need_images else None
     dx = dy = 0.0
-    for ox, oy in ((0, 0), (1, 0), (0, 1), (1, 1)):
-        cx, cy = x0 + ox, y0 + oy
-        valid = ((cx >= 0) & (cx < W) & (cy >= 0) & (cy < H)).to(images.dtype)
-        idx = (vbase + cy.clamp(0, H - 1) * W + cx.clamp(0, W - 1)).reshape(-1)
-        wx = fx if ox else 1.0 - fx
-        wy = fy if oy else 1.0 - fy
+    for idx, valid, wx, wy, ex, ey in _cell_2d(images, coords, normalized, align_corners):
         if need_images:
             d_flat.index_add_(0, idx, (ct * (wx * wy * valid)[..., None]).reshape(-1, C))
         if need_coords:
             s = (flat[idx].reshape(V, -1, C) * ct).sum(-1) * valid
-            dx = dx + s * (1.0 if ox else -1.0) * wy
-            dy = dy + s * (1.0 if oy else -1.0) * wx
+            dx = dx + s * ex * wy
+            dy = dy + s * ey * wx
     d_coords = None
     if need_coords:
         d_coords = torch.stack([dx * _coord_scale(W, normalized, align_corners),
@@ -187,8 +189,167 @@ def bilinear_sample_bwd(images, coords, ct, *, normalized=True,
     return d_img, d_co
 
 
+# ---------------------------------------------------------------------------
+# K1g / K1s: the second order of K1 (the backward of K1b's d_coords)
+#
+# With corner weights w_k(u) = wx_k wy_k (0 outside) at the unnormalized
+# position u = s x + c, K1b's d_coords is s_a sum_k d_a w_k S_k, where
+# S_k = sum_c image[i_k, c] ct[c].  Its cotangent h (V, N, 2) gives, with
+# h'_a = s_a h_a and the directional weight dw_k = sum_a d_a w_k h'_a:
+#   * d ct (K1g, directional): sum_k dw_k image[i_k]           (V, N, C)
+#   * d coords (K1g, Hessian): s_x h'_y M, s_y h'_x M with
+#     M = sum_k d_x d_y w_k S_k (the unmixed d_a^2 w_k are 0)   (V, N, 2)
+#   * d image (K1s): the scatter of dw_k ct into the corners
+# The d_image cotangent's terms are K1 (d ct) and K1b's d_coords (d coords).
+# ---------------------------------------------------------------------------
+
+def bilinear_sample_bwd2_gather_plain(images, coords, h, ct=None, *, normalized=True,
+                                      align_corners=True, need_dir=True, need_hess=True):
+    """Plain version of K1g.  images (V, H, W, C), coords and h (V, N, 2),
+    ct (V, N, C) (read for the Hessian term only).  Returns (directional
+    term (V, N, C) | None, Hessian term (V, N, 2) | None), each summed over
+    the corners in the reference's order as the kernel sums them."""
+    V, H, W, C = images.shape
+    sx = _coord_scale(W, normalized, align_corners)
+    sy = _coord_scale(H, normalized, align_corners)
+    hx, hy = h[..., 0] * sx, h[..., 1] * sy
+    flat = images.reshape(V * H * W, C)
+    out = m = None
+    for idx, valid, wx, wy, ex, ey in _cell_2d(images, coords, normalized, align_corners):
+        vals = flat[idx].reshape(V, -1, C)
+        if need_dir:
+            dw = ((wy * ex) * hx + (wx * ey) * hy) * valid
+            term = vals * dw[..., None]
+            out = term if out is None else out + term
+        if need_hess:
+            t = (vals * ct).sum(-1) * valid * (ex * ey)
+            m = t if m is None else m + t
+    hess = torch.stack([(m * hy) * sx, (m * hx) * sy], -1) if need_hess else None
+    return out, hess
+
+
+def bilinear_sample_bwd2_scatter_plain(images, coords, h, ct, *, normalized=True,
+                                       align_corners=True):
+    """Plain version of K1s: the scatter of dw_k ct into the corners, a
+    (V, H, W, C) gradient image."""
+    V, H, W, C = images.shape
+    sx = _coord_scale(W, normalized, align_corners)
+    sy = _coord_scale(H, normalized, align_corners)
+    hx, hy = h[..., 0] * sx, h[..., 1] * sy
+    d_flat = images.new_zeros((V * H * W, C))
+    for idx, valid, wx, wy, ex, ey in _cell_2d(images, coords, normalized, align_corners):
+        dw = ((wy * ex) * hx + (wx * ey) * hy) * valid
+        d_flat.index_add_(0, idx, (ct * dw[..., None]).reshape(-1, C))
+    return d_flat.reshape(V, H, W, C)
+
+
+def _k1_second_args(what, images, coords, h, ct):
+    _build.require_cuda(what, images, coords, h, *([] if ct is None else [ct]))
+    V, H, W, C = images.shape
+    N = coords.shape[1]
+    if images.dtype != torch.float32 or coords.dtype != torch.float32 \
+            or h.dtype != torch.float32 or tuple(coords.shape) != (V, N, 2) \
+            or tuple(h.shape) != (V, N, 2) or (ct is not None and (
+                ct.dtype != torch.float32 or tuple(ct.shape) != (V, N, C))):
+        raise ValueError(f"{what}: needs f32 images (V,H,W,C), coords and h (V,N,2) "
+                         "and ct (V,N,C)")
+    _k1_layout(what, images, coords)
+    return V, H, W, C, N
+
+
+def bilinear_sample_bwd2_gather(images, coords, h, ct=None, *, normalized=True,
+                                align_corners=True, need_dir=True, need_hess=True):
+    """K1g wrapper.  Same contract as ``bilinear_sample_bwd2_gather_plain``;
+    ``ct`` is needed for the Hessian term only."""
+    if images.device.type == "cpu" and coords.device.type == "cpu":
+        return bilinear_sample_bwd2_gather_plain(
+            images, coords, h, ct, normalized=normalized, align_corners=align_corners,
+            need_dir=need_dir, need_hess=need_hess)
+    V, H, W, C, N = _k1_second_args("bilinear_sample_bwd2_gather", images, coords, h,
+                                    ct if need_hess else None)
+    dir_ = torch.empty((V, N, C), dtype=torch.float32, device=images.device) \
+        if need_dir else None
+    hess = torch.empty_like(coords) if need_hess else None
+    fn = _build.kernel_fn("grid_sample", "bilinear_sample_2d_bwd2_gather",
+                          [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _L, _I, _I, _P])
+    with _build.on_device(images):
+        _build.check(fn(images.data_ptr(), coords.data_ptr(), h.data_ptr(),
+                        ct.data_ptr() if need_hess else None,
+                        dir_.data_ptr() if need_dir else None,
+                        hess.data_ptr() if need_hess else None,
+                        V, H, W, C, N, int(normalized), int(align_corners),
+                        _build.stream_of(images)), "bilinear_sample_2d_bwd2_gather")
+    _build.launches["bilinear_sample_2d_bwd2_gather"] += 1
+    return dir_, hess
+
+
+def bilinear_sample_bwd2_scatter(images, coords, h, ct, *, normalized=True,
+                                 align_corners=True):
+    """K1s wrapper.  Same contract as ``bilinear_sample_bwd2_scatter_plain``
+    (``images`` gives the shape; its values are not read)."""
+    if images.device.type == "cpu" and coords.device.type == "cpu":
+        return bilinear_sample_bwd2_scatter_plain(
+            images, coords, h, ct, normalized=normalized, align_corners=align_corners)
+    V, H, W, C, N = _k1_second_args("bilinear_sample_bwd2_scatter", images, coords, h, ct)
+    d_img = torch.zeros((V, H, W, C), dtype=torch.float32, device=images.device)
+    fn = _build.kernel_fn("grid_sample", "bilinear_sample_2d_bwd2_scatter",
+                          [_P, _P, _P, _P, _I, _I, _I, _I, _L, _I, _I, _P])
+    with _build.on_device(images):
+        _build.check(fn(coords.data_ptr(), h.data_ptr(), ct.data_ptr(), d_img.data_ptr(),
+                        V, H, W, C, N, int(normalized), int(align_corners),
+                        _build.stream_of(images)), "bilinear_sample_2d_bwd2_scatter")
+    _build.launches["bilinear_sample_2d_bwd2_scatter"] += 1
+    return d_img
+
+
+def _add(a, b):
+    return b if a is None else (a if b is None else a + b)
+
+
+class _BilinearSampleBwd(torch.autograd.Function):
+    """K1b as a function of (images, coords, ct), so that a backward that
+    builds a graph can be differentiated once more: its backward is K1 and
+    K1b on the d_image cotangent, K1g and K1s on the d_coords one; a
+    third order raises."""
+
+    @staticmethod
+    def forward(ctx, images, coords, ct, normalized, align_corners, need_images,
+                need_coords):
+        # a cotangent that no gradient reaches comes as None: its terms are
+        # skipped
+        ctx.set_materialize_grads(False)
+        ctx.save_for_backward(images, coords, ct)
+        ctx.flags = (normalized, align_corners)
+        return bilinear_sample_bwd(images, coords, ct, normalized=normalized,
+                                   align_corners=align_corners, need_images=need_images,
+                                   need_coords=need_coords)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g_img, g_co):
+        images, coords, ct = ctx.saved_tensors
+        kw = dict(zip(("normalized", "align_corners"), ctx.flags))
+        need_img, need_co, need_ct = ctx.needs_input_grad[:3]
+        d_img = d_co = d_ct = None
+        if g_img is not None:
+            g_img = g_img.float().contiguous()
+            if need_ct:
+                d_ct = bilinear_sample(g_img, coords, **kw)
+            if need_co:
+                d_co = bilinear_sample_bwd(g_img, coords, ct, need_images=False, **kw)[1]
+        if g_co is not None and (need_ct or need_co):
+            dir_, hess = bilinear_sample_bwd2_gather(
+                images, coords, g_co.float().contiguous(), ct, need_dir=need_ct,
+                need_hess=need_co, **kw)
+            d_ct, d_co = _add(d_ct, dir_), _add(d_co, hess)
+        if g_co is not None and need_img:
+            d_img = bilinear_sample_bwd2_scatter(images, coords, g_co.float().contiguous(),
+                                                 ct, **kw)
+        return d_img, d_co, d_ct, None, None, None, None
+
+
 class _BilinearSample(torch.autograd.Function):
-    """K1 with K1b as its backward (first order only)."""
+    """K1 with K1b as its backward, differentiable once more (K1g, K1s)."""
 
     @staticmethod
     def forward(ctx, images, coords, normalized, align_corners):
@@ -198,14 +359,11 @@ class _BilinearSample(torch.autograd.Function):
                                align_corners=align_corners)
 
     @staticmethod
-    @once_differentiable
     def backward(ctx, ct):
         images, coords = ctx.saved_tensors
-        normalized, align_corners = ctx.flags
-        d_img, d_co = bilinear_sample_bwd(
-            images, coords, ct.float().contiguous(), normalized=normalized,
-            align_corners=align_corners, need_images=ctx.needs_input_grad[0],
-            need_coords=ctx.needs_input_grad[1])
+        args = (images, coords, ct.float().contiguous(), *ctx.flags,
+                ctx.needs_input_grad[0], ctx.needs_input_grad[1])
+        d_img, d_co = _BilinearSampleBwd.apply(*args)
         return d_img, d_co, None, None
 
 
@@ -262,11 +420,11 @@ def nearest_sample_2d(image, coords, *, normalized=True, align_corners=True):
 # K2: trilinear sampling of a dense volume
 # ---------------------------------------------------------------------------
 
-def trilinear_sample_plain(volume, coords, *, normalized=True,
-                           align_corners=True):
-    """Plain version of K2.  volume (X, Y, Z, C) f32/bf16; coords (N, 3) ->
-    (N, C) f32 (values widened to f32 before the weighted sum)."""
-    X, Y, Z, C = volume.shape
+def _cell_3d(volume, coords, normalized, align_corners):
+    """The plain versions' trilinear geometry: per corner k = 4 ox + 2 oy +
+    oz: (voxel index clamped to the volume, 0/1 inside mask, wx, wy, wz,
+    signs of d_x wx, d_y wy, d_z wz)."""
+    X, Y, Z, _ = volume.shape
     x, y, z = coords[..., 0], coords[..., 1], coords[..., 2]
     if normalized:
         x = _unnormalize(x, X, align_corners)
@@ -274,21 +432,32 @@ def trilinear_sample_plain(volume, coords, *, normalized=True,
         z = _unnormalize(z, Z, align_corners)
     x0f, y0f, z0f = torch.floor(x), torch.floor(y), torch.floor(z)
     fx, fy, fz = x - x0f, y - y0f, z - z0f
-    gx, gy, gz = 1.0 - fx, 1.0 - fy, 1.0 - fz
     x0, y0, z0 = x0f.long(), y0f.long(), z0f.long()
-    flat = volume.reshape(X * Y * Z, C)
-    out = None
+    corners = []
     for k in range(8):
         ox, oy, oz = (k >> 2) & 1, (k >> 1) & 1, k & 1
         cx, cy, cz = x0 + ox, y0 + oy, z0 + oz
-        valid = (cx >= 0) & (cx < X) & (cy >= 0) & (cy < Y) & \
-            (cz >= 0) & (cz < Z)
-        idx = (cx.clamp(0, X - 1) * Y + cy.clamp(0, Y - 1)) * Z + \
-            cz.clamp(0, Z - 1)
-        w = (fx if ox else gx) * (fy if oy else gy) * (fz if oz else gz)
-        w = w * valid.to(w.dtype)
-        vals = flat[idx.reshape(-1)].reshape(*idx.shape, C).float()
-        term = vals * w[..., None]
+        valid = ((cx >= 0) & (cx < X) & (cy >= 0) & (cy < Y) & (cz >= 0)
+                 & (cz < Z)).float()
+        idx = ((cx.clamp(0, X - 1) * Y + cy.clamp(0, Y - 1)) * Z
+               + cz.clamp(0, Z - 1)).reshape(-1)
+        corners.append((idx, valid, fx if ox else 1.0 - fx, fy if oy else 1.0 - fy,
+                        fz if oz else 1.0 - fz, 1.0 if ox else -1.0,
+                        1.0 if oy else -1.0, 1.0 if oz else -1.0))
+    return corners
+
+
+def trilinear_sample_plain(volume, coords, *, normalized=True,
+                           align_corners=True):
+    """Plain version of K2.  volume (X, Y, Z, C) f32/bf16; coords (N, 3) ->
+    (N, C) f32 (values widened to f32 before the weighted sum)."""
+    C = volume.shape[-1]
+    flat = volume.reshape(-1, C)
+    out = None
+    for idx, valid, wx, wy, wz, _, _, _ in _cell_3d(volume, coords, normalized,
+                                                    align_corners):
+        vals = flat[idx].reshape(*coords.shape[:-1], C).float()
+        term = vals * (wx * wy * wz * valid)[..., None]
         out = term if out is None else out + term
     return out
 
@@ -335,34 +504,19 @@ def trilinear_sample_bwd_plain(volume, coords, ct, *, normalized=True,
     cotangent ct (N, C).  Returns (d_volume in the volume's dtype, summed
     in f32 | None, d_coords (N, 3) | None)."""
     X, Y, Z, C = volume.shape
-    x, y, z = coords[..., 0], coords[..., 1], coords[..., 2]
-    if normalized:
-        x = _unnormalize(x, X, align_corners)
-        y = _unnormalize(y, Y, align_corners)
-        z = _unnormalize(z, Z, align_corners)
-    x0f, y0f, z0f = torch.floor(x), torch.floor(y), torch.floor(z)
-    fx, fy, fz = x - x0f, y - y0f, z - z0f
-    gx, gy, gz = 1.0 - fx, 1.0 - fy, 1.0 - fz
-    x0, y0, z0 = x0f.long(), y0f.long(), z0f.long()
     flat = volume.reshape(X * Y * Z, C)
     d_flat = torch.zeros((X * Y * Z, C), dtype=torch.float32,
                          device=volume.device) if need_volume else None
     dx = dy = dz = 0.0
-    for k in range(8):
-        ox, oy, oz = (k >> 2) & 1, (k >> 1) & 1, k & 1
-        cx, cy, cz = x0 + ox, y0 + oy, z0 + oz
-        valid = ((cx >= 0) & (cx < X) & (cy >= 0) & (cy < Y) & (cz >= 0)
-                 & (cz < Z)).float()
-        idx = ((cx.clamp(0, X - 1) * Y + cy.clamp(0, Y - 1)) * Z
-               + cz.clamp(0, Z - 1)).reshape(-1)
-        wx, wy, wz = (fx if ox else gx), (fy if oy else gy), (fz if oz else gz)
+    for idx, valid, wx, wy, wz, ex, ey, ez in _cell_3d(volume, coords, normalized,
+                                                       align_corners):
         if need_volume:
             d_flat.index_add_(0, idx, ct * (wx * wy * wz * valid)[..., None])
         if need_coords:
             s = (flat[idx].float() * ct).sum(-1) * valid
-            dx = dx + s * (1.0 if ox else -1.0) * wy * wz
-            dy = dy + s * wx * (1.0 if oy else -1.0) * wz
-            dz = dz + s * wx * wy * (1.0 if oz else -1.0)
+            dx = dx + s * ex * wy * wz
+            dy = dy + s * wx * ey * wz
+            dz = dz + s * wx * wy * ez
     d_coords = None
     if need_coords:
         d_coords = torch.stack([dx * _coord_scale(X, normalized, align_corners),
@@ -451,8 +605,186 @@ def trilinear_sample_bwd(volume, coords, ct, *, normalized=True,
     return (d_out if bf16 else d_vol) if need_volume else None, d_co
 
 
+# ---------------------------------------------------------------------------
+# K2g / K2s: the second order of K2 (the backward of K2b's d_coords), as
+# for K1 with 8 corners w_k = wx_k wy_k wz_k and three mixed second
+# derivatives: with h'_a = s_a h_a and M_ab = sum_k d_a d_b w_k S_k,
+#   * d ct (K2g, directional): sum_k dw_k volume[i_k]                 (N, C)
+#   * d coords (K2g, Hessian): s_x (h'_y M_xy + h'_z M_xz), s_y (h'_x M_xy
+#     + h'_z M_yz), s_z (h'_x M_xz + h'_y M_yz)                       (N, 3)
+#   * d volume (K2s): the scatter of dw_k ct into the corners, summed in
+#     f32 and given in the volume's dtype (K2b's rule and forms)
+# ---------------------------------------------------------------------------
+
+def _dir_scales(shape, h, normalized, align_corners):
+    s = [_coord_scale(n, normalized, align_corners) for n in shape]
+    return s, [h[..., a] * s[a] for a in range(len(s))]
+
+
+def _tri_dweight(wx, wy, wz, ex, ey, ez, hx, hy, hz, valid):
+    return (((wy * wz) * ex) * hx + ((wx * wz) * ey) * hy + ((wx * wy) * ez) * hz) * valid
+
+
+def trilinear_sample_bwd2_gather_plain(volume, coords, h, ct=None, *, normalized=True,
+                                       align_corners=True, need_dir=True, need_hess=True):
+    """Plain version of K2g.  volume (X, Y, Z, C) f32/bf16, coords and h
+    (N, 3), ct (N, C) (read for the Hessian term only).  Returns
+    (directional term (N, C) f32 | None, Hessian term (N, 3) | None), each
+    summed over the corners in order as the kernel sums them (values
+    widened to f32)."""
+    X, Y, Z, C = volume.shape
+    (sx, sy, sz), (hx, hy, hz) = _dir_scales((X, Y, Z), h, normalized, align_corners)
+    flat = volume.reshape(X * Y * Z, C)
+    out = mxy = mxz = myz = None
+    for idx, valid, wx, wy, wz, ex, ey, ez in _cell_3d(volume, coords, normalized,
+                                                       align_corners):
+        vals = flat[idx].reshape(-1, C).float()
+        if need_dir:
+            term = vals * _tri_dweight(wx, wy, wz, ex, ey, ez, hx, hy, hz, valid)[..., None]
+            out = term if out is None else out + term
+        if need_hess:
+            s = (vals * ct).sum(-1) * valid
+            txy, txz, tyz = s * (wz * (ex * ey)), s * (wy * (ex * ez)), s * (wx * (ey * ez))
+            mxy, mxz, myz = ((txy, txz, tyz) if mxy is None
+                             else (mxy + txy, mxz + txz, myz + tyz))
+    hess = None
+    if need_hess:
+        hess = torch.stack([(mxy * hy + mxz * hz) * sx, (mxy * hx + myz * hz) * sy,
+                            (mxz * hx + myz * hy) * sz], -1)
+    return out, hess
+
+
+def trilinear_sample_bwd2_scatter_plain(volume, coords, h, ct, *, normalized=True,
+                                        align_corners=True):
+    """Plain version of K2s: the scatter of dw_k ct into the corners,
+    summed in f32, in the volume's dtype."""
+    X, Y, Z, C = volume.shape
+    _, (hx, hy, hz) = _dir_scales((X, Y, Z), h, normalized, align_corners)
+    d_flat = torch.zeros((X * Y * Z, C), dtype=torch.float32, device=volume.device)
+    for idx, valid, wx, wy, wz, ex, ey, ez in _cell_3d(volume, coords, normalized,
+                                                       align_corners):
+        dw = _tri_dweight(wx, wy, wz, ex, ey, ez, hx, hy, hz, valid)
+        d_flat.index_add_(0, idx, ct * dw[..., None])
+    return d_flat.reshape(X, Y, Z, C).to(volume.dtype)
+
+
+def _k2_second_args(what, volume, coords, h, ct):
+    _build.require_cuda(what, volume, coords, h, *([] if ct is None else [ct]))
+    X, Y, Z, C = volume.shape
+    N = coords.shape[0]
+    if volume.dtype not in (torch.float32, torch.bfloat16) \
+            or coords.dtype != torch.float32 or h.dtype != torch.float32 \
+            or tuple(coords.shape) != (N, 3) or tuple(h.shape) != (N, 3) \
+            or (ct is not None and (ct.dtype != torch.float32
+                                    or tuple(ct.shape) != (N, C))):
+        raise ValueError(f"{what}: needs an f32/bf16 volume (X,Y,Z,C), f32 coords "
+                         "and h (N,3) and ct (N,C)")
+    _k2_size_rule(volume, coords)
+    return X, Y, Z, C, N
+
+
+def trilinear_sample_bwd2_gather(volume, coords, h, ct=None, *, normalized=True,
+                                 align_corners=True, need_dir=True, need_hess=True):
+    """K2g wrapper.  Same contract as ``trilinear_sample_bwd2_gather_plain``;
+    ``ct`` is needed for the Hessian term only."""
+    if volume.device.type == "cpu" and coords.device.type == "cpu":
+        return trilinear_sample_bwd2_gather_plain(
+            volume, coords, h, ct, normalized=normalized, align_corners=align_corners,
+            need_dir=need_dir, need_hess=need_hess)
+    X, Y, Z, C, N = _k2_second_args("trilinear_sample_bwd2_gather", volume, coords, h,
+                                    ct if need_hess else None)
+    dir_ = torch.empty((N, C), dtype=torch.float32, device=volume.device) \
+        if need_dir else None
+    hess = torch.empty_like(coords) if need_hess else None
+    fn = _build.kernel_fn("grid_sample", "trilinear_sample_3d_bwd2_gather",
+                          [_P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _L, _I, _I, _P])
+    with _build.on_device(volume):
+        _build.check(fn(volume.data_ptr(), int(volume.dtype == torch.bfloat16),
+                        coords.data_ptr(), h.data_ptr(),
+                        ct.data_ptr() if need_hess else None,
+                        dir_.data_ptr() if need_dir else None,
+                        hess.data_ptr() if need_hess else None,
+                        X, Y, Z, C, N, int(normalized), int(align_corners),
+                        _build.stream_of(volume)), "trilinear_sample_3d_bwd2_gather")
+    _build.launches["trilinear_sample_3d_bwd2_gather"] += 1
+    return dir_, hess
+
+
+def trilinear_sample_bwd2_scatter(volume, coords, h, ct, *, normalized=True,
+                                  align_corners=True, bricked=None):
+    """K2s wrapper.  Same contract as ``trilinear_sample_bwd2_scatter_plain``
+    (``volume`` gives the shape and dtype; its values are not read): K2b's
+    scatter kernels with the directional weights, in K2b's forms
+    (``bricked``: None for ``k2b_bricked``'s rule)."""
+    if volume.device.type == "cpu" and coords.device.type == "cpu":
+        return trilinear_sample_bwd2_scatter_plain(
+            volume, coords, h, ct, normalized=normalized, align_corners=align_corners)
+    X, Y, Z, C, N = _k2_second_args("trilinear_sample_bwd2_scatter", volume, coords, h, ct)
+    bf16 = volume.dtype == torch.bfloat16
+    if bricked is None:
+        bricked = k2b_bricked(volume, N)
+    if bricked and not bf16:
+        raise ValueError("trilinear_sample_bwd2_scatter: the bricked form is for a "
+                         "bf16 volume")
+    d_vol = (torch.empty if bricked else torch.zeros)(
+        volume.shape, dtype=torch.float32, device=volume.device)
+    d_out = torch.empty_like(volume) if bf16 else None
+    bricks = torch.zeros(k2b_bricks(volume.shape), dtype=torch.int32,
+                         device=volume.device) if bricked else None
+    fn = _build.kernel_fn("grid_sample", "trilinear_sample_3d_bwd2_scatter",
+                          [_P, _P, _P, _P, _I, _I, _I, _I, _L, _I, _I, _P, _P, _P])
+    with _build.on_device(volume):
+        _build.check(fn(coords.data_ptr(), h.data_ptr(), ct.data_ptr(), d_vol.data_ptr(),
+                        X, Y, Z, C, N, int(normalized), int(align_corners),
+                        _build.stream_of(volume),
+                        d_out.data_ptr() if bf16 else None,
+                        bricks.data_ptr() if bricked else None),
+                     "trilinear_sample_3d_bwd2_scatter")
+    _build.launches["trilinear_sample_3d_bwd2_scatter"] += 1
+    return d_out if bf16 else d_vol
+
+
+class _TrilinearSampleBwd(torch.autograd.Function):
+    """K2b as a function of (volume, coords, ct), differentiable once more:
+    its backward is K2 and K2b on the d_volume cotangent, K2g and K2s on
+    the d_coords one; a third order raises."""
+
+    @staticmethod
+    def forward(ctx, volume, coords, ct, normalized, align_corners, need_volume,
+                need_coords):
+        ctx.set_materialize_grads(False)
+        ctx.save_for_backward(volume, coords, ct)
+        ctx.flags = (normalized, align_corners)
+        return trilinear_sample_bwd(volume, coords, ct, normalized=normalized,
+                                    align_corners=align_corners, need_volume=need_volume,
+                                    need_coords=need_coords)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g_vol, g_co):
+        volume, coords, ct = ctx.saved_tensors
+        kw = dict(zip(("normalized", "align_corners"), ctx.flags))
+        need_vol, need_co, need_ct = ctx.needs_input_grad[:3]
+        d_vol = d_co = d_ct = None
+        if g_vol is not None:
+            g_vol = g_vol.contiguous()
+            if need_ct:
+                d_ct = trilinear_sample(g_vol, coords, **kw)
+            if need_co:
+                d_co = trilinear_sample_bwd(g_vol, coords, ct, need_volume=False, **kw)[1]
+        if g_co is not None and (need_ct or need_co):
+            dir_, hess = trilinear_sample_bwd2_gather(
+                volume, coords, g_co.float().contiguous(), ct, need_dir=need_ct,
+                need_hess=need_co, **kw)
+            d_ct, d_co = _add(d_ct, dir_), _add(d_co, hess)
+        if g_co is not None and need_vol:
+            d_vol = trilinear_sample_bwd2_scatter(volume, coords, g_co.float().contiguous(),
+                                                  ct, **kw)
+        return d_vol, d_co, d_ct, None, None, None, None
+
+
 class _TrilinearSample(torch.autograd.Function):
-    """K2 with K2b as its backward (first order only)."""
+    """K2 with K2b as its backward, differentiable once more (K2g, K2s)."""
 
     @staticmethod
     def forward(ctx, volume, coords, normalized, align_corners):
@@ -462,14 +794,11 @@ class _TrilinearSample(torch.autograd.Function):
                                 align_corners=align_corners)
 
     @staticmethod
-    @once_differentiable
     def backward(ctx, ct):
         volume, coords = ctx.saved_tensors
-        normalized, align_corners = ctx.flags
-        d_vol, d_co = trilinear_sample_bwd(
-            volume, coords, ct.float().contiguous(), normalized=normalized,
-            align_corners=align_corners, need_volume=ctx.needs_input_grad[0],
-            need_coords=ctx.needs_input_grad[1])
+        args = (volume, coords, ct.float().contiguous(), *ctx.flags,
+                ctx.needs_input_grad[0], ctx.needs_input_grad[1])
+        d_vol, d_co = _TrilinearSampleBwd.apply(*args)
         return d_vol, d_co, None, None
 
 
@@ -517,3 +846,18 @@ def upsample_trilinear_x2(volume):
         out = torch.stack([even, odd], dim=ax + 1).reshape(shape)
         del even, odd
     return out
+
+
+def lookup_volume(pts, volume, *, mode="bilinear", align_corners=None):
+    """A dense volume (X, Y, Z, C), or a list of them concatenated on
+    channels, sampled at world points (..., 3) in [-1, 1]^3: 'bilinear'
+    (trilinear, K2), 'nearest', or 'grad' (trilinear too: it is twice
+    differentiable, K2g / K2s, as the reference's ``gridsample_grad2``
+    extension).  ``align_corners`` defaults to True for 'grad' and False
+    otherwise, as the reference calls them (projector.py:392-420)."""
+    if align_corners is None:
+        align_corners = mode == "grad"
+    vols = volume if isinstance(volume, (list, tuple)) else [volume]
+    sample = nearest_sample_3d if mode == "nearest" else trilinear_sample_3d
+    feats = [sample(v, pts, align_corners=align_corners) for v in vols]
+    return feats[0] if len(feats) == 1 else torch.cat(feats, dim=-1)

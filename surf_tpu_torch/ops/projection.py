@@ -42,6 +42,24 @@ def invert_intrinsics(intr):
     ], dim=-2)
 
 
+def world_to_cam(pts, c2w):
+    """pts (..., 3), c2w (4, 4) -> camera-frame points (..., 3)."""
+    return torch.einsum("ij,...j->...i", invert_pose(c2w)[:3, :4], to_homo(pts))
+
+
+def cam_to_pixel(cam_pts, intr):
+    """cam_pts (..., 3) -> (xy (..., 2), depth (...,))."""
+    proj = torch.einsum("ij,...j->...i", intr[:3, :3], cam_pts)
+    depth = proj[..., 2]
+    return proj[..., :2] / (depth[..., None] + 1e-10), depth
+
+
+def project_points(pts, intr, c2w):
+    """World points -> (pixel xy (..., 2), camera depth (...,)), the
+    projection of volume.py:68-79 and projector.py:529-536."""
+    return cam_to_pixel(world_to_cam(pts, c2w), intr)
+
+
 def project_points_all(pts, intrs, c2ws):
     """pts (N, 3); intrs/c2ws (V, 4, 4) -> (xy (V, N, 2), depth (V, N))."""
     w2cs = invert_pose(c2ws)

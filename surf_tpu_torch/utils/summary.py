@@ -170,15 +170,28 @@ def save_scalars(writer, mode, scalars, step):
             writer.add_scalar(f"{mode}/{k}", v, step)
 
 
-def mean_scalars(rows):
-    """The running means the JAX runner's ``DictAverageMeter`` keeps over
-    ``rows`` (dicts): each ``int`` / ``float`` key's sum over the number of
-    rows up to the last one that holds it, keys in order of first
-    appearance."""
-    sums, means = {}, {}
-    for count, row in enumerate(rows, 1):
-        for k, v in row.items():
+class DictAverageMeter:
+    """The JAX runner's running means (utils/tools.py's): each ``int`` /
+    ``float`` key of the dicts passed to ``update``, its sum over the
+    number of updates so far, in ``avg_data`` (keys in order of first
+    appearance)."""
+
+    def __init__(self):
+        self.sum_data = {}
+        self.avg_data = {}
+        self.count = 0
+
+    def update(self, new_input):
+        self.count += 1
+        for k, v in new_input.items():
             if isinstance(v, (int, float)):
-                sums[k] = sums.get(k, 0.0) + v
-                means[k] = sums[k] / count
-    return means
+                self.sum_data[k] = self.sum_data.get(k, 0.0) + v
+                self.avg_data[k] = self.sum_data[k] / self.count
+
+
+def mean_scalars(rows):
+    """``DictAverageMeter``'s means after an update with each of ``rows``."""
+    meter = DictAverageMeter()
+    for row in rows:
+        meter.update(row)
+    return meter.avg_data

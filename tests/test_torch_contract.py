@@ -65,6 +65,18 @@ def _calls(device):
             t(RNG.randn(9, 3, 3)), t(RNG.randn(9, 3, 3)), t(RNG.randn(9, 3)))),
         "gather_conv_dw": lambda: reg_net.gather_conv_dw(
             t(RNG.randn(10, 4)), idx, t(RNG.randn(7, 5))),
+        "bilinear_sample_2d_bwd2_gather": lambda: gs.bilinear_sample_bwd2_gather(
+            t(RNG.randn(2, 5, 6, 3)), t(RNG.uniform(-1.2, 1.2, (2, 9, 2))),
+            t(RNG.randn(2, 9, 2)), t(RNG.randn(2, 9, 3))),
+        "bilinear_sample_2d_bwd2_scatter": lambda: gs.bilinear_sample_bwd2_scatter(
+            t(RNG.randn(2, 5, 6, 3)), t(RNG.uniform(-1.2, 1.2, (2, 9, 2))),
+            t(RNG.randn(2, 9, 2)), t(RNG.randn(2, 9, 3))),
+        "trilinear_sample_3d_bwd2_gather": lambda: gs.trilinear_sample_bwd2_gather(
+            t(RNG.randn(4, 5, 3, 2)), t(RNG.uniform(-1.2, 1.2, (9, 3))),
+            t(RNG.randn(9, 3)), t(RNG.randn(9, 2))),
+        "trilinear_sample_3d_bwd2_scatter": lambda: gs.trilinear_sample_bwd2_scatter(
+            t(RNG.randn(4, 5, 3, 2)), t(RNG.uniform(-1.2, 1.2, (9, 3))),
+            t(RNG.randn(9, 3)), t(RNG.randn(9, 2))),
     }
 
 

@@ -28,6 +28,12 @@ they run on the card's machine: ``python -m pytest tests/test_torch_cuda.py
   and 32, R no multiple of the row group, Cin % 4 == 0 off its 16-byte
   alignment); an all -1 table, one input row read by every row and tap,
   every tap present on every row; K4 twice, equal bit for bit;
+* K1g / K1s and K2g / K2s (the second order of K1 and K2) against their
+  plain versions: the gathers' directional term bit for bit, their
+  Hessian term bit for bit at one channel, the scatters at 1e-5 (bf16: one
+  step), at K1's and K2's channel counts, off alignment, each gather term
+  alone; the double backward of ``bilinear_sample_2d`` /
+  ``trilinear_sample_3d`` on the card against the CPU;
 * ``loss.backward()`` of the tiny model on the card against the same step
   on the CPU (whose plain versions tests/test_torch_train.py holds against
   the JAX package);
@@ -315,6 +321,170 @@ def test_k2b_forms_match_plain(C, dtype):
                                    rtol=rtol)
     torch.cuda.synchronize()
     assert _build.launches["trilinear_sample_3d_bwd"] == n_calls
+
+
+def _second_order_check(got, ref, exact_dir, exact_hess, rtol=RTOL):
+    """(directional, Hessian) of K1g / K2g against their plain versions:
+    the directional term equal bit for bit (the plain version's operation
+    order), the Hessian term too where ``exact_hess`` (one channel: no
+    channel sum), else rtol 1e-5 (the plain version's channel sum is
+    PyTorch's)."""
+    for a, b, exact in zip(got, ref, (exact_dir, exact_hess)):
+        assert (a is None) == (b is None)
+        if a is None:
+            continue
+        if exact:
+            assert torch.equal(a, b)
+        else:
+            _close(a.cpu().numpy(), b.cpu().numpy(), rtol=rtol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("V", [1, 5])
+@pytest.mark.parametrize("C", [1, 3, 4, 5, 19, 32])
+def test_k1g_k1s_match_plain(C, V):
+    """K1g and K1s (the second order of K1) against their plain versions on
+    the card at every channel count K1's kernels specialise and two they do
+    not: K1g's directional term bit for bit, its Hessian term bit for bit
+    at C = 1 and at rtol 1e-5 otherwise, K1s (atomics) at rtol 1e-5 and
+    atol 1e-5 times max(1, the largest entry); normalized (both
+    conventions), pixel and pile-up coordinates, one point and 1000, a
+    cotangent zero on one row in three, each term alone (the other's
+    cotangent None), and an image and coordinates off their alignment."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    from surf_tpu_torch import _build
+    g = torch.Generator().manual_seed(300 + 10 * C + V)
+    dev = torch.device("cuda")
+    H, W = 23, 31
+    numel = V * H * W * C
+    imgs = [torch.randn(V, H, W, C, generator=g).to(dev),
+            torch.randn(numel + 1, generator=g).to(dev)[1:].view(V, H, W, C)]
+    _build.reset_launches()
+    n_g = n_s = 0
+    for img in imgs:
+        for N in (1, 1000):
+            for what, co, kw in _k1_cases(g, V, N, H, W):
+                co = torch.cat([torch.zeros(1), co.reshape(-1)]).to(dev)[1:].view(V, N, 2) \
+                    if img is imgs[1] else co.to(dev)
+                h = torch.randn(V, N, 2, generator=g).to(dev)
+                ct = torch.randn(V, N, C, generator=g)
+                ct[:, ::3] = 0.0
+                ct = ct.to(dev)
+                for need in ((True, True), (True, False), (False, True)):
+                    flags = dict(kw, need_dir=need[0], need_hess=need[1])
+                    _second_order_check(
+                        tgs.bilinear_sample_bwd2_gather(img, co, h, ct, **flags),
+                        tgs.bilinear_sample_bwd2_gather_plain(img, co, h, ct, **flags),
+                        True, C == 1)
+                    n_g += 1
+                _close(tgs.bilinear_sample_bwd2_scatter(img, co, h, ct, **kw).cpu().numpy(),
+                       tgs.bilinear_sample_bwd2_scatter_plain(img, co, h, ct, **kw)
+                       .cpu().numpy())
+                n_s += 1
+    torch.cuda.synchronize()
+    assert _build.launches["bilinear_sample_2d_bwd2_gather"] == n_g
+    assert _build.launches["bilinear_sample_2d_bwd2_scatter"] == n_s
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("C", [1, 3, 5])
+def test_k2g_k2s_match_plain(C, dtype):
+    """K2g and K2s (the second order of K2) against their plain versions on
+    the card: K2g's directional term bit for bit, its Hessian term bit for
+    bit at C = 1 and at rtol 1e-5 otherwise; K2s (K2b's scatter with the
+    directional weights) at rtol 1e-5 and atol 1e-5 times max(1, the
+    largest entry), one bf16 step for a bf16 volume's gradient, in both of
+    its forms; K2's points (corners, faces, outside, a z run) and K2b's
+    cases (a band, the whole volume, a pile-up, a zero cotangent), both
+    ``align_corners`` and pixel coordinates, each K2g term alone, a volume
+    off its allocation's alignment."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    from surf_tpu_torch import _build
+    dt = getattr(torch, dtype)
+    g = torch.Generator().manual_seed(400 + C)
+    dev = torch.device("cuda")
+    _build.reset_launches()
+    n_g = n_s = 0
+    forms = (False, True) if dt == torch.bfloat16 else (False,)
+    for shape in ((16, 24, 32), (13, 9, 11)):
+        numel = shape[0] * shape[1] * shape[2] * C
+        vols = [torch.randn(*shape, C, generator=g).to(dev, dt),
+                torch.randn(numel + 1, generator=g).to(dev, dt)[1:].view(*shape, C)]
+        cases = [("points", _k2_points(g, 1001), 1.0)] + _k2b_cases(g)
+        for vol in vols:
+            for what, co, on in cases:
+                h = torch.randn(co.shape[0], 3, generator=g).to(dev)
+                ct = (torch.randn(co.shape[0], C, generator=g) * on).to(dev)
+                for kw in (dict(align_corners=True), dict(align_corners=False),
+                           dict(normalized=False)):
+                    c = ((co + 1.3) * 5.0 if "normalized" in kw else co).to(dev)
+                    for need in ((True, True), (True, False), (False, True)):
+                        flags = dict(kw, need_dir=need[0], need_hess=need[1])
+                        _second_order_check(
+                            tgs.trilinear_sample_bwd2_gather(vol, c, h, ct, **flags),
+                            tgs.trilinear_sample_bwd2_gather_plain(vol, c, h, ct, **flags),
+                            True, C == 1)
+                        n_g += 1
+                    ref = tgs.trilinear_sample_bwd2_scatter_plain(vol, c, h, ct, **kw)
+                    for bricked in forms:
+                        got = tgs.trilinear_sample_bwd2_scatter(vol, c, h, ct,
+                                                                bricked=bricked, **kw)
+                        n_s += 1
+                        assert got.dtype == ref.dtype == dt
+                        rtol = 2.0 ** -7 if dt == torch.bfloat16 else RTOL
+                        _close(got.float().cpu().numpy(), ref.float().cpu().numpy(),
+                               rtol=rtol)
+    torch.cuda.synchronize()
+    assert _build.launches["trilinear_sample_3d_bwd2_gather"] == n_g
+    assert _build.launches["trilinear_sample_3d_bwd2_scatter"] == n_s
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["2d", "3d f32", "3d bf16"])
+def test_second_order_on_the_card_matches_the_cpu(case):
+    """The double backward of ``bilinear_sample_2d`` / ``trilinear_sample_3d``
+    (d/d volume, d/d coords and d/d cotangent of <dV, G> + <dx, h>) on the
+    card, through K1/K2, K1b/K2b and K1g/K1s/K2g/K2s, against the same on
+    the CPU (plain versions) at rtol 1e-4 and atol 1e-4 times max(1, the
+    largest entry); the eikonal case (the d_volume cotangent None) too."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    from surf_tpu_torch import _build
+    g = torch.Generator().manual_seed(7)
+    if case == "2d":
+        vol = torch.randn(3, 29, 37, 4, generator=g)
+        co = torch.rand(3, 2001, 2, generator=g) * 2.4 - 1.2
+        fn = tgs.bilinear_sample_2d
+    else:
+        vol = torch.randn(13, 17, 11, 3, generator=g)
+        if case.endswith("bf16"):
+            vol = vol.bfloat16()
+        co = torch.rand(2001, 3, generator=g) * 2.4 - 1.2
+        fn = tgs.trilinear_sample_3d
+    ct = torch.randn(*co.shape[:-1], vol.shape[-1], generator=g)
+    G = torch.randn(vol.shape, generator=g).to(vol.dtype).float()
+    h = torch.randn(co.shape, generator=g)
+    _build.reset_launches()
+    for with_vol in (True, False):
+        res = {}
+        for dev in ("cpu", "cuda"):
+            v = vol.to(dev).requires_grad_()
+            c = co.to(dev).requires_grad_()
+            t = ct.to(dev).requires_grad_()
+            dv, dc = torch.autograd.grad(fn(v, c, align_corners=True), (v, c), t,
+                                         create_graph=True)
+            L = (dc * h.to(dev)).sum() + ((dv.float() * G.to(dev)).sum() if with_vol else 0)
+            res[dev] = torch.autograd.grad(L, (v, c, t))
+        for a, b in zip(res["cuda"], res["cpu"]):
+            rtol = 2.0 ** -7 if b.dtype == torch.bfloat16 else 1e-4
+            _close(a.float().cpu().numpy(), b.float().numpy(), rtol=rtol, atol=1e-4)
+    torch.cuda.synchronize()
+    base = "bilinear_sample_2d" if case == "2d" else "trilinear_sample_3d"
+    names = [base + sfx for sfx in ("", "_bwd", "_bwd2_gather", "_bwd2_scatter")]
+    assert all(_build.launches[n] > 0 for n in names), dict(_build.launches)
 
 
 K3_SPECS = {"4 stages C=7": ((32, 0.3, 7), (16, 0.5, 7), (8, 0.7, 7), (4, 0.9, 7)),
@@ -692,7 +862,11 @@ def test_mvs_layout_validate_on_the_card(tmp_path, monkeypatch, name):
 @pytest.mark.parametrize("name", ["bilinear_sample_2d", "bilinear_sample_2d_bwd",
                                   "trilinear_sample_3d", "trilinear_sample_3d_bwd",
                                   "sparse_trilinear_multi", "sparse_trilinear_multi_bwd",
-                                  "gather_conv", "gather_conv_dw"])
+                                  "gather_conv", "gather_conv_dw",
+                                  "bilinear_sample_2d_bwd2_gather",
+                                  "bilinear_sample_2d_bwd2_scatter",
+                                  "trilinear_sample_3d_bwd2_gather",
+                                  "trilinear_sample_3d_bwd2_scatter"])
 def test_kernels_launch_on_their_tensors_card(name):
     """A rank whose current card is cuda:0 and whose tensors are on cuda:1
     (no ``set_device``): every wrapper launches its kernel on cuda:1 and
