@@ -3464,6 +3464,35 @@ def record_second_order_calls():
             setattr(gs, attr, orig[name])
 
 
+def k1s_rows(img, co, h, ct, align):
+    """K1s's scatter as its kernel issues it: the (sample, corner) rows it
+    adds (a nonzero cotangent row, the corner inside, its directional
+    weight nonzero), the rows left after the lanes of each warp (32
+    consecutive samples of a view) on one texel are merged into one
+    atomic, the most rows on one texel and the 16-byte atomics issued
+    (C / 4 a row where C is a multiple of 4)."""
+    import torch
+    from surf_tpu_torch.ops import grid_sample as gs
+    V, H, W, C = img.shape
+    N = co.shape[1]
+    hx = h[..., 0] * gs._coord_scale(W, True, align)
+    hy = h[..., 1] * gs._coord_scale(H, True, align)
+    nz = (ct != 0).any(-1)
+    keys = []
+    for idx, valid, wx, wy, ex, ey in gs._cell_2d(img, co, True, align):
+        dw = ((wy * ex) * hx + (wx * ey) * hy) * valid
+        on = nz & (valid != 0) & (dw != 0)
+        keys.append(torch.where(on, idx.reshape(V, N), -1))
+    k = torch.nn.functional.pad(torch.stack(keys), (0, -N % 32), value=-1)
+    srt = k.reshape(4, V, -1, 32).sort(-1).values
+    merged = int((srt[..., 0] >= 0).sum() + ((srt[..., 1:] != srt[..., :-1])
+                                            & (srt[..., 1:] >= 0)).sum())
+    _, per_texel = torch.unique(k[k >= 0], return_counts=True)
+    return {"corner_rows": int((k >= 0).sum()), "rows_after_warp_merge": merged,
+            "max_rows_per_texel": int(per_texel.max()) if per_texel.numel() else 0,
+            "vector_atomics": merged * C // 4 if C % 4 == 0 else None}
+
+
 def second_order_entry(name, rec):
     """One second-order kernel's recorded call against its plain version
     (the gathers' directional term bit for bit, their Hessian term bit for
@@ -3512,6 +3541,7 @@ def second_order_entry(name, rec):
         moved += nbytes(ct) + (vol.numel() * 4 if d2 else nbytes(vol))
         flops = pts * corners * (2 * C + 10)
     b_ms, b_by = bound(moved, flops)
+    data = {"data": k1s_rows(vol, co, h, ct, align)} if d2 and not gather else {}
     return {"shape": f"{'image' if d2 else 'volume'} {tuple(vol.shape)} "
                      f"{str(vol.dtype).split('.')[-1]}, {pts} points"
                      + (f" x {vol.shape[0]} views" if d2 else "")
@@ -3519,7 +3549,7 @@ def second_order_entry(name, rec):
                      + ("texels" if d2 else "voxels")
                      + (f", directional={k.get('need_dir', True)}, "
                         f"Hessian={k.get('need_hess', True)}" if gather else ""),
-            "max_abs_err": err,
+            **data, "max_abs_err": err,
             "ms": time_ms(lambda: fn(*a, **k)),
             "plain_ms": time_ms(lambda: plain(*a, **k), 3),
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
@@ -3540,9 +3570,12 @@ def variants_phase(v, dev="cuda", vol_side=176, plane_res=(512, 256), train_hw=(
     480x640; the legacy and MNASNet FPNs (forward on the validate's 3
     views, forward + backward on 5 random views of 480x640); the IDR
     rendering net at a render chunk's 557,056 points; ``sample_pdf`` in
-    both modes.  Returns (launches, entries: kernel -> [entries], new rows,
-    numbers).  (``dev`` "cpu" with smaller ``vol_side``, ``plane_res`` and
-    ``train_hw`` rehearses the phase without a card.)"""
+    both modes.  Each second-order kernel's largest call on each operand is
+    held against its plain version and timed, K1g's and K1s's on the
+    largest plane once more at as many uniformly random points.  Returns
+    (launches, entries: kernel -> [entries], new rows, numbers).  (``dev``
+    "cpu" with smaller ``vol_side``, ``plane_res`` and ``train_hw``
+    rehearses the phase without a card.)"""
     import torch
     import torch.nn.functional as F
     from surf_tpu_torch import _build
@@ -3739,6 +3772,7 @@ def variants_phase(v, dev="cuda", vol_side=176, plane_res=(512, 256), train_hw=(
     t0 = time.time()
     entries = largest_call_entries("variants", fwd, {}, records)
     rows = []
+    uniform = {}
     for name, (_, _, replaces) in SECOND_ORDER.items():
         recs = sorted(((key[1], r) for key, r in second.items() if key[0] == name),
                       key=lambda kr: -kr[1][0])
@@ -3747,6 +3781,18 @@ def variants_phase(v, dev="cuda", vol_side=176, plane_res=(512, 256), train_hw=(
             e = second_order_entry(name, r)
             e["call_site"] = f"variants, {operand}"
             es.append(e)
+        if name.startswith("bilinear"):
+            # K1g / K1s again on the largest plane at as many uniformly
+            # random points (the same for both), beside build_z_vals' ray-
+            # ordered ones
+            operand, (n, a, k) = max(recs, key=lambda kr: kr[1][1][0].numel())
+            if operand not in uniform:
+                uniform[operand] = torch.rand(
+                    a[1].shape, device=a[1].device,
+                    generator=torch.Generator(device=dev).manual_seed(13)) * 2.0 - 1.0
+            e = second_order_entry(name, (n, (a[0], uniform[operand], *a[2:]), k))
+            e["call_site"] = f"variants, {operand}, uniformly random points"
+            es.insert(1, e)
         row = {"name": name, "route": "cuda", "source": "surf_tpu_torch/csrc/grid_sample.cu",
                "replaces": replaces, "launches": launches[name], **es[0],
                "tolerance": ("directional term exact, Hessian term exact at C = 1 else "

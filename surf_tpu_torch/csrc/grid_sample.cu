@@ -468,15 +468,29 @@ __device__ __forceinline__ void atomic_add_row(float* p, const float (&x)[K]) {
     }
 }
 
-// CT in {1, 3, 4}: the whole row in registers (16-byte vectors at 4).
-// CT = 0: C at run time, in chunks of VEC channels (4: 16-byte vectors,
-// C a multiple of 4 and the rows aligned; else 1).
-template <int CT, int VEC>
+// Corner k's weight in K1b's scatter: the bilinear weight wx wy or, with
+// DIR (K1s), its derivative along the sample's direction scaled to pixel
+// units (hx, hy): d_x w_k hx + d_y w_k hy, as the plain version forms it
+// (an inside corner's 0/1 flag is 1).
+template <bool DIR>
+__device__ __forceinline__ float bilinear_scatter_weight(const Taps& t, int k, float hx,
+                                                         float hy) {
+    const float wx = corner_wx(t, k), wy = corner_wy(t, k);
+    if constexpr (!DIR) return wx * wy;
+    return ((k & 1) ? wy : -wy) * hx + ((k >> 1) ? wx : -wx) * hy;
+}
+
+// CT in {1, 3, 4} (and 16 for K1s): the whole row in registers (16-byte
+// vectors where CT is a multiple of 4).  CT = 0: C at run time, in chunks
+// of VEC channels (4: 16-byte vectors, C a multiple of 4 and the rows
+// aligned; else 1).  DIR: K1s, the directional weights of ``h`` (V, N);
+// a corner whose weight is 0 scatters nothing, and d_coords is not written.
+template <int CT, int VEC, bool DIR>
 __global__ void __launch_bounds__(kThreads)
 bilinear_bwd_kernel(const float* __restrict__ img, const float2* __restrict__ coords,
-                    const float* __restrict__ ct, float* __restrict__ d_img,
-                    float2* __restrict__ d_coords, int H, int W, int C_rt, int N,
-                    int normalized, int align) {
+                    const float2* __restrict__ h, const float* __restrict__ ct,
+                    float* __restrict__ d_img, float2* __restrict__ d_coords, int H, int W,
+                    int C_rt, int N, int normalized, int align) {
     constexpr int K = CT ? CT : VEC;             // channels a chunk
     const int C = CT ? CT : C_rt;
     const int p = blockIdx.x * kThreads + threadIdx.x;
@@ -486,6 +500,12 @@ bilinear_bwd_kernel(const float* __restrict__ img, const float2* __restrict__ co
     const bool live = p < N;
     const long long vn = (long long)v * N + (live ? p : N - 1);
     const Taps t = bilinear_taps(coords[vn], v, H, W, normalized, align);
+    float hx = 0.0f, hy = 0.0f;
+    if constexpr (DIR) {
+        const float2 hv = h[vn];
+        hx = hv.x * coord_scale(W, normalized, align);
+        hy = hv.y * coord_scale(H, normalized, align);
+    }
     const float* g = ct + vn * C;
     float row[K];                                // the whole row when CT != 0
     bool nz = false;
@@ -501,12 +521,12 @@ bilinear_bwd_kernel(const float* __restrict__ img, const float2* __restrict__ co
     if (d_img != nullptr && __any_sync(kFull, scatter != 0)) {
 #pragma unroll
         for (int k = 0; k < 4; ++k) {
-            const bool on = (scatter >> k) & 1;
+            const float w = bilinear_scatter_weight<DIR>(t, k, hx, hy);
+            const bool on = ((scatter >> k) & 1) && (!DIR || w != 0.0f);
             const int texel = on ? corner_texel(t, k, W) : -1;
             const unsigned peers = __match_any_sync(kFull, texel);
             const bool leader = (peers & ((1u << lane) - 1u)) == 0u;
             const PeerTree tree = peer_tree(peers, lane);
-            const float w = corner_wx(t, k) * corner_wy(t, k);
             float* dst = d_img + (long long)texel * C;
             for (int c = 0; c < C; c += K) {
                 float x[K];
@@ -524,7 +544,7 @@ bilinear_bwd_kernel(const float* __restrict__ img, const float2* __restrict__ co
         }
     }
 
-    if (d_coords != nullptr && live) {
+    if (!DIR && d_coords != nullptr && live) {
         float dx = 0.0f, dy = 0.0f;
         if (nz) {
             // the four corner rows loaded before any is used; a corner
@@ -923,112 +943,167 @@ trilinear_bwd_coords_kernel(const T* __restrict__ vol, const float* __restrict__
 // With the corner weights w_k at the unnormalized position u = s x + c,
 // h'_a = s_a h_a, the directional weight dw_k = sum_a d_a w_k h'_a and
 // S_k = sum_c V[i_k, c] ct[c]:
-//   * K1g / K2g, a gather, one thread a sample, one pass over its 4 (8)
-//     corner rows: the directional term sum_k dw_k V[i_k] (N, C), d ct,
-//     and the Hessian term s_b sum_{a != b} h'_a sum_k d_a d_b w_k S_k
-//     (N, 2 or 3), d coords (the unmixed d_a^2 w_k are 0);
+//   * K1g / K2g, a gather, one pass over a sample's 4 (8) corner rows: the
+//     directional term sum_k dw_k V[i_k] (N, C), d ct, and the Hessian
+//     term s_b sum_{a != b} h'_a sum_k d_a d_b w_k S_k (N, 2 or 3), d
+//     coords (the unmixed d_a^2 w_k are 0).  The directional term is K1
+//     with the weights w_k replaced by dw_k, and K1g is K1's spread form:
+//     the geometry staged once in shared memory, the (256, C) span walked
+//     in 16-byte chunks on neighbouring lanes, the Hessian's channel sums
+//     reduced across a sample's lanes (``bilinear_bwd2_gather_kernel``).
+//     K2g is one thread a sample;
 //   * K1s / K2s, a scatter: dw_k ct into the corners, d image / d volume.
-//     K2s is K2b's scatter with the directional weights (the weight mode
-//     of ``trilinear_bwd_scatter_kernel``): its run merging, its f32 sum
-//     and, for a bf16 volume, its bricked form and bf16 cast.  K1s is one
-//     thread a sample, an atomic add a (corner, channel) of a nonzero
-//     product.
+//     Each is its first-order scatter in a weight mode, with every way it
+//     has of merging atomics.  K1s is ``bilinear_bwd_kernel`` with DIR:
+//     all-zero cotangent rows and zero weights scatter nothing, the lanes
+//     on one texel are summed into one (__match_any_sync and the peer
+//     tree), a row is added with 16-byte vector atomics.  K2s is
+//     ``trilinear_bwd_scatter_kernel`` with ``dirs``: its run merging, its
+//     f32 sum and, for a bf16 volume, its bricked form and bf16 cast.
 // Bound on the card: bytes, as K1 / K2 and K1b / K2b (a few FLOPs a byte
 // read).  A term whose cotangent or output is not wanted is skipped (a
 // null pointer).  The gathers use the plain versions' operation order
 // (-fmad=false): the directional term equals the plain version bit for
-// bit, as K1 / K2 do; the Hessian term sums channels in order where the
-// plain version takes PyTorch's sum (equal at C = 1).  The scatters' sums
-// run in an order that changes from run to run (float atomics).
+// bit, as K1 / K2 do; the Hessian term sums channels in another order
+// than PyTorch's sum in the plain version (equal at C = 1).  The
+// scatters' sums, and K1g's Hessian where a sample's chunks do not divide
+// a warp (shared-memory atomics), run in an order that changes from run
+// to run.
 // ---------------------------------------------------------------------------
 
-// K1g: directional term (dir, or null) and Hessian term (hess, or null; it
-// reads ct) of a (view, sample); coordinates and h as plain floats.
-__global__ void __launch_bounds__(kThreads)
-bilinear_bwd2_gather_kernel(const float* __restrict__ img, const float* __restrict__ coords,
-                            const float* __restrict__ h, const float* __restrict__ ct,
-                            float* __restrict__ dir, float* __restrict__ hess, int H, int W,
-                            int C, int N, int normalized, int align) {
-    const int p = blockIdx.x * kThreads + threadIdx.x;
-    if (p >= N) return;
-    const int v = blockIdx.y;
-    const long long vn = (long long)v * N + p;
-    float x = coords[2 * vn], y = coords[2 * vn + 1];
-    if (normalized) {
-        x = unnormalize(x, W, align);
-        y = unnormalize(y, H, align);
-    }
-    const float sx = coord_scale(W, normalized, align), sy = coord_scale(H, normalized, align);
-    const float hx = h[2 * vn] * sx, hy = h[2 * vn + 1] * sy;
-    const Axis ax = tri_axis(x, W), ay = tri_axis(y, H);
-    // corner k = (ox, oy) = (k & 1, k >> 1), the reference's order
-    const float* row[4];
-    float dw[4], in[4];
+// K1g's shared geometry of a block's samples (``bilinear_bwd2_gather_kernel``).
+struct Bwd2Stage {
+    int4 tex[kThreads];       // the four corner texels (safe)
+    float4 dw[kThreads];      // the four directional weights, 0 outside
+    float2 h[kThreads];       // h' = (s_x h_x, s_y h_y)
+    int mask[kThreads];       // bit k: corner k inside
+    float4 S[kThreads];       // the shared-memory form's S_k sums
+};
+
+// K1g's Hessian row of a sample from its S_k: M = sum_k (+-in_k) S_k in the
+// reference's corner order (d_x d_y w_k = +1 at corners 0 and 3, -1 at 1
+// and 2), then (M h'_y s_x, M h'_x s_y), as the plain version forms them.
+__device__ __forceinline__ float2 bwd2_hess(const float (&S)[4], int mask, float2 hv,
+                                            float sx, float sy) {
+    float m = 0.0f;
 #pragma unroll
     for (int k = 0; k < 4; ++k) {
-        const int ox = k & 1, oy = k >> 1;
-        const float wx = ox ? ax.f : ax.g, wy = oy ? ay.f : ay.g;
-        in[k] = (ox ? ax.in1 : ax.in0) * (oy ? ay.in1 : ay.in0);
-        dw[k] = ((ox ? wy : -wy) * hx + (oy ? wx : -wx) * hy) * in[k];
-        row[k] =
-            img + ((long long)(v * H + (oy ? ay.i1 : ay.i0)) * W + (ox ? ax.i1 : ax.i0)) * C;
+        const float t = S[k] * (((mask >> k) & 1) ? 1.0f : 0.0f);
+        const float tk = (k == 0 || k == 3) ? t : -t;
+        m = k == 0 ? tk : m + tk;
     }
-    if (dir != nullptr) {
-        float* o = dir + vn * C;
-        for (int c = 0; c < C; ++c) {
-            float acc = row[0][c] * dw[0];
-#pragma unroll
-            for (int k = 1; k < 4; ++k) acc = acc + row[k][c] * dw[k];
-            o[c] = acc;
-        }
-    }
-    if (hess != nullptr) {
-        const float* g = ct + vn * C;
-        float m = 0.0f;
-#pragma unroll
-        for (int k = 0; k < 4; ++k) {
-            float sk = row[k][0] * g[0];
-            for (int c = 1; c < C; ++c) sk = sk + row[k][c] * g[c];
-            const float t = sk * in[k];
-            const float tk = (k == 0 || k == 3) ? t : -t;     // d_x d_y w_k = +-1
-            m = k == 0 ? tk : m + tk;
-        }
-        hess[2 * vn] = (m * hy) * sx;
-        hess[2 * vn + 1] = (m * hx) * sy;
-    }
+    return make_float2((m * hv.y) * sx, (m * hv.x) * sy);
 }
 
-// K1s: dw_k ct of a (view, sample) added into its inside corners' rows of
-// d_img (f32 (V, H, W, C), zero-filled by the caller).
+// K1g, spread: a block of 256 samples.  Its threads stage each sample's
+// geometry (``Bwd2Stage``), then walk the block's (256, C) span in
+// VEC-channel chunks, neighbouring lanes on neighbouring chunks of one
+// sample.  A chunk issues its four corner loads before any add, writes
+// its directional chunk sum_k dw_k r_k (the plain version's order, from
+// the first term) and, for the Hessian, forms its part of each S_k from
+// the same loads and its ct chunk.  Where a sample's chunks divide 32
+// they sit on neighbouring lanes of one warp, which sum their parts by a
+// butterfly of shuffles; else the parts are added into shared memory.
+// The sample's first chunk (or its thread, in the shared-memory form)
+// then writes its Hessian row (``bwd2_hess``).
+template <int CT, int VEC>
 __global__ void __launch_bounds__(kThreads)
-bilinear_bwd2_scatter_kernel(const float* __restrict__ coords, const float* __restrict__ h,
-                             const float* __restrict__ ct, float* __restrict__ d_img, int H,
-                             int W, int C, int N, int normalized, int align) {
-    const int p = blockIdx.x * kThreads + threadIdx.x;
-    if (p >= N) return;
+bilinear_bwd2_gather_kernel(const float* __restrict__ img, const float2* __restrict__ coords,
+                            const float2* __restrict__ h, const float* __restrict__ ct,
+                            float* __restrict__ dir, float2* __restrict__ hess, int H, int W,
+                            int C_rt, int N, int normalized, int align) {
+    __shared__ Bwd2Stage st;
+    const int C = CT ? CT : C_rt;
     const int v = blockIdx.y;
-    const long long vn = (long long)v * N + p;
-    float x = coords[2 * vn], y = coords[2 * vn + 1];
-    if (normalized) {
-        x = unnormalize(x, W, align);
-        y = unnormalize(y, H, align);
-    }
-    const float hx = h[2 * vn] * coord_scale(W, normalized, align);
-    const float hy = h[2 * vn + 1] * coord_scale(H, normalized, align);
-    const Axis ax = tri_axis(x, W), ay = tri_axis(y, H);
-    const float* g = ct + vn * C;
+    const int p0 = blockIdx.x * kThreads;
+    const int n = min(kThreads, N - p0);
+    const long long row0 = (long long)v * N + p0;
+    const float sx = coord_scale(W, normalized, align), sy = coord_scale(H, normalized, align);
+    const int chunks = C / VEC;                  // per sample
+    const bool lanes = 32 % chunks == 0;         // a sample's chunks on one warp
+    const int i = threadIdx.x;
+    if (i < n) {
+        const Taps t = bilinear_taps(coords[row0 + i], v, H, W, normalized, align);
+        const float2 hv = h[row0 + i];
+        const float hx = hv.x * sx, hy = hv.y * sy;
+        float dw[4];
 #pragma unroll
-    for (int k = 0; k < 4; ++k) {
-        const int ox = k & 1, oy = k >> 1;
-        if ((ox ? ax.in1 : ax.in0) == 0.0f || (oy ? ay.in1 : ay.in0) == 0.0f) continue;
-        const float wx = ox ? ax.f : ax.g, wy = oy ? ay.f : ay.g;
-        const float dwk = (ox ? wy : -wy) * hx + (oy ? wx : -wx) * hy;
-        if (dwk == 0.0f) continue;
-        float* dst =
-            d_img + ((long long)(v * H + (oy ? ay.i1 : ay.i0)) * W + (ox ? ax.i1 : ax.i0)) * C;
-        for (int c = 0; c < C; ++c) {
-            const float gc = g[c];
-            if (gc != 0.0f) atomicAdd(dst + c, gc * dwk);
+        for (int k = 0; k < 4; ++k) {
+            const float wx = corner_wx(t, k), wy = corner_wy(t, k);
+            const float in = ((t.mask >> k) & 1) ? 1.0f : 0.0f;
+            dw[k] = (((k & 1) ? wy : -wy) * hx + ((k >> 1) ? wx : -wx) * hy) * in;
+        }
+        const int vbase = v * H * W;
+        st.tex[i] = make_int4(safe_texel(t, 0, vbase, W), safe_texel(t, 1, vbase, W),
+                              safe_texel(t, 2, vbase, W), safe_texel(t, 3, vbase, W));
+        st.dw[i] = make_float4(dw[0], dw[1], dw[2], dw[3]);
+        st.h[i] = make_float2(hx, hy);
+        st.mask[i] = t.mask;
+        st.S[i] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    }
+    __syncthreads();
+    const int span = n * chunks;
+    float* od = dir == nullptr ? nullptr : dir + row0 * C;
+    const float* g = ct == nullptr ? nullptr : ct + row0 * C;
+    // a trip count the whole block shares, for the warps' shuffles
+#pragma unroll 4
+    for (int base = 0; base < span; base += kThreads) {
+        const int e = base + i;
+        const bool on = e < span;
+        const int s = on ? e / chunks : 0;
+        const int c = (e - s * chunks) * VEC;
+        float S[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+        if (on) {
+            const int4 tex = st.tex[s];
+            float r[4][VEC];
+            load_vec<VEC>(r[0], img + tex.x * C + c);
+            load_vec<VEC>(r[1], img + tex.y * C + c);
+            load_vec<VEC>(r[2], img + tex.z * C + c);
+            load_vec<VEC>(r[3], img + tex.w * C + c);
+            if (od != nullptr) {
+                const float4 w = st.dw[s];
+                float acc[VEC];
+#pragma unroll
+                for (int j = 0; j < VEC; ++j) acc[j] = r[0][j] * w.x;
+#pragma unroll
+                for (int j = 0; j < VEC; ++j) acc[j] = acc[j] + r[1][j] * w.y;
+#pragma unroll
+                for (int j = 0; j < VEC; ++j) acc[j] = acc[j] + r[2][j] * w.z;
+#pragma unroll
+                for (int j = 0; j < VEC; ++j) acc[j] = acc[j] + r[3][j] * w.w;
+                store_vec<VEC>(od + e * VEC, acc);
+            }
+            if (hess != nullptr) {
+                float q[VEC];
+                load_vec<VEC>(q, g + e * VEC);
+#pragma unroll
+                for (int k = 0; k < 4; ++k) {
+                    S[k] = r[k][0] * q[0];
+#pragma unroll
+                    for (int j = 1; j < VEC; ++j) S[k] = S[k] + r[k][j] * q[j];
+                }
+            }
+        }
+        if (hess == nullptr) continue;
+        if (lanes) {
+            for (int d = 1; d < chunks; d <<= 1) {
+#pragma unroll
+                for (int k = 0; k < 4; ++k) S[k] += __shfl_xor_sync(kFull, S[k], d);
+            }
+            if (on && c == 0) hess[row0 + s] = bwd2_hess(S, st.mask[s], st.h[s], sx, sy);
+        } else if (on) {
+            atomicAdd(&st.S[s].x, S[0]);
+            atomicAdd(&st.S[s].y, S[1]);
+            atomicAdd(&st.S[s].z, S[2]);
+            atomicAdd(&st.S[s].w, S[3]);
+        }
+    }
+    if (hess != nullptr && !lanes) {
+        __syncthreads();
+        if (i < n) {
+            const float4 q = st.S[i];
+            const float S[4] = {q.x, q.y, q.z, q.w};
+            hess[row0 + i] = bwd2_hess(S, st.mask[i], st.h[i], sx, sy);
         }
     }
 }
@@ -1124,6 +1199,40 @@ inline int bilinear_args_ok(int V, int H, int W, int C, long long N, const void*
         return (int)cudaErrorInvalidValue;
     if (!aligned(coords, 8)) return (int)cudaErrorMisalignedAddress;
     return 0;
+}
+
+// K1b's kernel for its C (DIR: K1s, whose img and d_coords are null).
+template <bool DIR>
+void bilinear_bwd_launch(const float* img, const float2* co, const float2* h, const float* ct,
+                         float* d_img, float2* dco, int V, int H, int W, int C, int n,
+                         int normalized, int align, cudaStream_t s) {
+    const dim3 grid(blocks_for(n), V);
+    // 16-byte rows: the image, the cotangent and the gradient image aligned
+    const bool vec = C % 4 == 0 && aligned(img, 16) && aligned(ct, 16) &&
+                     (d_img == nullptr || aligned(d_img, 16));
+    if constexpr (DIR) {
+        if (C == 16 && vec) {
+            bilinear_bwd_kernel<16, 4, true><<<grid, kThreads, 0, s>>>(
+                img, co, h, ct, d_img, dco, H, W, C, n, normalized, align);
+            return;
+        }
+    }
+    if (C == 1) {
+        bilinear_bwd_kernel<1, 1, DIR><<<grid, kThreads, 0, s>>>(img, co, h, ct, d_img, dco,
+                                                                 H, W, C, n, normalized, align);
+    } else if (C == 3) {
+        bilinear_bwd_kernel<3, 1, DIR><<<grid, kThreads, 0, s>>>(img, co, h, ct, d_img, dco,
+                                                                 H, W, C, n, normalized, align);
+    } else if (C == 4 && vec) {
+        bilinear_bwd_kernel<4, 4, DIR><<<grid, kThreads, 0, s>>>(img, co, h, ct, d_img, dco,
+                                                                 H, W, C, n, normalized, align);
+    } else if (vec) {
+        bilinear_bwd_kernel<0, 4, DIR><<<grid, kThreads, 0, s>>>(img, co, h, ct, d_img, dco,
+                                                                 H, W, C, n, normalized, align);
+    } else {
+        bilinear_bwd_kernel<0, 1, DIR><<<grid, kThreads, 0, s>>>(img, co, h, ct, d_img, dco,
+                                                                 H, W, C, n, normalized, align);
+    }
 }
 
 // K2b's and K2s's size rule: the volume below 2^31 elements, each side
@@ -1258,30 +1367,9 @@ int bilinear_sample_2d_bwd(const float* img, const float* coords,
     if (!bad && d_coords != nullptr && !aligned(d_coords, 8))
         bad = (int)cudaErrorMisalignedAddress;
     if (bad) return bad;
-    const dim3 grid(blocks_for(N), V);
-    cudaStream_t s = (cudaStream_t)stream;
-    const float2* co = reinterpret_cast<const float2*>(coords);
-    float2* dco = reinterpret_cast<float2*>(d_coords);
-    const int n = (int)N;
-    // 16-byte rows: the image, the cotangent and the gradient image aligned
-    const bool vec = C % 4 == 0 && aligned(img, 16) && aligned(ct, 16) &&
-                     (d_img == nullptr || aligned(d_img, 16));
-    if (C == 1) {
-        bilinear_bwd_kernel<1, 1><<<grid, kThreads, 0, s>>>(img, co, ct, d_img, dco, H, W,
-                                                            C, n, normalized, align);
-    } else if (C == 3) {
-        bilinear_bwd_kernel<3, 1><<<grid, kThreads, 0, s>>>(img, co, ct, d_img, dco, H, W,
-                                                            C, n, normalized, align);
-    } else if (C == 4 && vec) {
-        bilinear_bwd_kernel<4, 4><<<grid, kThreads, 0, s>>>(img, co, ct, d_img, dco, H, W,
-                                                            C, n, normalized, align);
-    } else if (vec) {
-        bilinear_bwd_kernel<0, 4><<<grid, kThreads, 0, s>>>(img, co, ct, d_img, dco, H, W,
-                                                            C, n, normalized, align);
-    } else {
-        bilinear_bwd_kernel<0, 1><<<grid, kThreads, 0, s>>>(img, co, ct, d_img, dco, H, W,
-                                                            C, n, normalized, align);
-    }
+    bilinear_bwd_launch<false>(img, reinterpret_cast<const float2*>(coords), nullptr, ct,
+                               d_img, reinterpret_cast<float2*>(d_coords), V, H, W, C, (int)N,
+                               normalized, align, (cudaStream_t)stream);
     return (int)cudaGetLastError();
 }
 
@@ -1321,31 +1409,66 @@ int trilinear_sample_3d_bwd(const void* vol, int is_bf16, const float* coords,
 
 // K1g.  img (V, H, W, C) f32, coords and h (V, N, 2) f32, ct (V, N, C) f32
 // (read for hess only, else NULL); dir (V, N, C) f32 or NULL; hess (V, N, 2)
-// f32 or NULL.
+// f32 or NULL.  coords, h and hess 8-byte aligned.
 int bilinear_sample_2d_bwd2_gather(const float* img, const float* coords, const float* h,
                                    const float* ct, float* dir, float* hess, int V, int H,
                                    int W, int C, long long N, int normalized, int align,
                                    void* stream) {
     if (V <= 0 || N <= 0 || C <= 0 || (dir == nullptr && hess == nullptr)) return 0;
-    if ((long long)V * H * W * C >= (long long)INT_MAX || V > 65535 ||
-        N > (long long)INT_MAX - kThreads || (hess != nullptr && ct == nullptr))
-        return (int)cudaErrorInvalidValue;
-    bilinear_bwd2_gather_kernel<<<dim3(blocks_for(N), V), kThreads, 0, (cudaStream_t)stream>>>(
-        img, coords, h, ct, dir, hess, H, W, C, (int)N, normalized, align);
+    if (hess != nullptr && ct == nullptr) return (int)cudaErrorInvalidValue;
+    int bad = bilinear_args_ok(V, H, W, C, N, coords);
+    if (!bad && (!aligned(h, 8) || (hess != nullptr && !aligned(hess, 8))))
+        bad = (int)cudaErrorMisalignedAddress;
+    if (bad) return bad;
+    const dim3 grid(blocks_for(N), V);
+    cudaStream_t s = (cudaStream_t)stream;
+    const float2* co = reinterpret_cast<const float2*>(coords);
+    const float2* hv = reinterpret_cast<const float2*>(h);
+    float2* he = reinterpret_cast<float2*>(hess);
+    const int n = (int)N;
+    // 16-byte rows: the image, the cotangent and the directional term aligned
+    const bool vec = C % 4 == 0 && aligned(img, 16) && (ct == nullptr || aligned(ct, 16)) &&
+                     (dir == nullptr || aligned(dir, 16));
+    if (C == 1)
+        bilinear_bwd2_gather_kernel<1, 1><<<grid, kThreads, 0, s>>>(img, co, hv, ct, dir, he,
+                                                                    H, W, C, n, normalized,
+                                                                    align);
+    else if (C == 3)
+        bilinear_bwd2_gather_kernel<3, 3><<<grid, kThreads, 0, s>>>(img, co, hv, ct, dir, he,
+                                                                    H, W, C, n, normalized,
+                                                                    align);
+    else if (C == 4 && vec)
+        bilinear_bwd2_gather_kernel<4, 4><<<grid, kThreads, 0, s>>>(img, co, hv, ct, dir, he,
+                                                                    H, W, C, n, normalized,
+                                                                    align);
+    else if (C == 16 && vec)
+        bilinear_bwd2_gather_kernel<16, 4><<<grid, kThreads, 0, s>>>(img, co, hv, ct, dir, he,
+                                                                     H, W, C, n, normalized,
+                                                                     align);
+    else if (vec)
+        bilinear_bwd2_gather_kernel<0, 4><<<grid, kThreads, 0, s>>>(img, co, hv, ct, dir, he,
+                                                                    H, W, C, n, normalized,
+                                                                    align);
+    else
+        bilinear_bwd2_gather_kernel<0, 1><<<grid, kThreads, 0, s>>>(img, co, hv, ct, dir, he,
+                                                                    H, W, C, n, normalized,
+                                                                    align);
     return (int)cudaGetLastError();
 }
 
-// K1s.  coords and h (V, N, 2) f32, ct (V, N, C) f32; d_img (V, H, W, C) f32
-// zero-filled by the caller.
+// K1s, K1b's scatter with the directional weights.  coords and h (V, N, 2)
+// f32, 8-byte aligned; ct (V, N, C) f32; d_img (V, H, W, C) f32 zero-filled
+// by the caller.
 int bilinear_sample_2d_bwd2_scatter(const float* coords, const float* h, const float* ct,
                                     float* d_img, int V, int H, int W, int C, long long N,
                                     int normalized, int align, void* stream) {
     if (V <= 0 || N <= 0 || C <= 0) return 0;
-    if ((long long)V * H * W * C >= (long long)INT_MAX || V > 65535 ||
-        N > (long long)INT_MAX - kThreads)
-        return (int)cudaErrorInvalidValue;
-    bilinear_bwd2_scatter_kernel<<<dim3(blocks_for(N), V), kThreads, 0, (cudaStream_t)stream>>>(
-        coords, h, ct, d_img, H, W, C, (int)N, normalized, align);
+    int bad = bilinear_args_ok(V, H, W, C, N, coords);
+    if (!bad && !aligned(h, 8)) bad = (int)cudaErrorMisalignedAddress;
+    if (bad) return bad;
+    bilinear_bwd_launch<true>(nullptr, reinterpret_cast<const float2*>(coords),
+                              reinterpret_cast<const float2*>(h), ct, d_img, nullptr, V, H, W,
+                              C, (int)N, normalized, align, (cudaStream_t)stream);
     return (int)cudaGetLastError();
 }
 

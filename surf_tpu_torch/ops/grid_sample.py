@@ -253,8 +253,10 @@ def _k1_second_args(what, images, coords, h, ct):
                 ct.dtype != torch.float32 or tuple(ct.shape) != (V, N, C))):
         raise ValueError(f"{what}: needs f32 images (V,H,W,C), coords and h (V,N,2) "
                          "and ct (V,N,C)")
-    _k1_layout(what, images, coords)
-    return V, H, W, C, N
+    # coords and h are read as float2: on an 8-byte boundary
+    coords = _k1_layout(what, images, coords)
+    h = h if h.data_ptr() % 8 == 0 else h.clone()
+    return V, H, W, C, N, coords, h
 
 
 def bilinear_sample_bwd2_gather(images, coords, h, ct=None, *, normalized=True,
@@ -265,8 +267,8 @@ def bilinear_sample_bwd2_gather(images, coords, h, ct=None, *, normalized=True,
         return bilinear_sample_bwd2_gather_plain(
             images, coords, h, ct, normalized=normalized, align_corners=align_corners,
             need_dir=need_dir, need_hess=need_hess)
-    V, H, W, C, N = _k1_second_args("bilinear_sample_bwd2_gather", images, coords, h,
-                                    ct if need_hess else None)
+    V, H, W, C, N, coords, h = _k1_second_args("bilinear_sample_bwd2_gather", images,
+                                               coords, h, ct if need_hess else None)
     dir_ = torch.empty((V, N, C), dtype=torch.float32, device=images.device) \
         if need_dir else None
     hess = torch.empty_like(coords) if need_hess else None
@@ -286,11 +288,13 @@ def bilinear_sample_bwd2_gather(images, coords, h, ct=None, *, normalized=True,
 def bilinear_sample_bwd2_scatter(images, coords, h, ct, *, normalized=True,
                                  align_corners=True):
     """K1s wrapper.  Same contract as ``bilinear_sample_bwd2_scatter_plain``
-    (``images`` gives the shape; its values are not read)."""
+    (``images`` gives the shape; its values are not read): K1b's scatter
+    kernel with the directional weights."""
     if images.device.type == "cpu" and coords.device.type == "cpu":
         return bilinear_sample_bwd2_scatter_plain(
             images, coords, h, ct, normalized=normalized, align_corners=align_corners)
-    V, H, W, C, N = _k1_second_args("bilinear_sample_bwd2_scatter", images, coords, h, ct)
+    V, H, W, C, N, coords, h = _k1_second_args("bilinear_sample_bwd2_scatter", images,
+                                               coords, h, ct)
     d_img = torch.zeros((V, H, W, C), dtype=torch.float32, device=images.device)
     fn = _build.kernel_fn("grid_sample", "bilinear_sample_2d_bwd2_scatter",
                           [_P, _P, _P, _P, _I, _I, _I, _I, _L, _I, _I, _P])

@@ -339,18 +339,40 @@ def _second_order_check(got, ref, exact_dir, exact_hess, rtol=RTOL):
             _close(a.cpu().numpy(), b.cpu().numpy(), rtol=rtol)
 
 
+def _k1_shared_cases(g, V, N, H, W):
+    """(name, coords, kwargs) where the lanes of a warp share texels: runs
+    of 40 consecutive points in one texel cell each, and ray-ordered points
+    stepping 0.05 texels a point along 8 rays a view (some 20 consecutive
+    points a cell, the cells changing slowly), normalized with
+    ``align_corners``."""
+    cells = torch.stack([torch.randint(0, W - 1, (V, -(-N // 40)), generator=g),
+                         torch.randint(0, H - 1, (V, -(-N // 40)), generator=g)], -1)
+    runs = cells.repeat_interleave(40, 1)[:, :N] + torch.rand(V, N, 2, generator=g)
+    per = -(-N // 8)
+    start = torch.rand(V, 8, 1, 2, generator=g) * torch.tensor([W - 1.0, H - 1.0])
+    ang = torch.rand(V, 8, 1, 1, generator=g) * 6.2832
+    step = 0.05 * torch.cat([torch.cos(ang), torch.sin(ang)], -1)
+    rays = (start + step * torch.arange(per)[:, None]).reshape(V, 8 * per, 2)[:, :N]
+    scale = torch.tensor([2.0 / (W - 1), 2.0 / (H - 1)])
+    return [("runs of 40 points a cell", runs * scale - 1.0, dict(align_corners=True)),
+            ("ray-ordered points", rays * scale - 1.0, dict(align_corners=True))]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("V", [1, 5])
-@pytest.mark.parametrize("C", [1, 3, 4, 5, 19, 32])
+@pytest.mark.parametrize("C", [1, 3, 4, 5, 16, 19, 32])
 def test_k1g_k1s_match_plain(C, V):
     """K1g and K1s (the second order of K1) against their plain versions on
-    the card at every channel count K1's kernels specialise and two they do
-    not: K1g's directional term bit for bit, its Hessian term bit for bit
-    at C = 1 and at rtol 1e-5 otherwise, K1s (atomics) at rtol 1e-5 and
-    atol 1e-5 times max(1, the largest entry); normalized (both
-    conventions), pixel and pile-up coordinates, one point and 1000, a
-    cotangent zero on one row in three, each term alone (the other's
-    cotangent None), and an image and coordinates off their alignment."""
+    the card at every channel count K1's kernels specialise, two they do
+    not and the triplane's 16: K1g's directional term bit for bit, its
+    Hessian term bit for bit at C = 1 and at rtol 1e-5 otherwise, K1s
+    (atomics) at rtol 1e-5 and atol 1e-5 times max(1, the largest entry);
+    normalized (both conventions), pixel and pile-up coordinates, runs of
+    40 points in one cell and ray-ordered points (the lanes of a warp on
+    one texel: K1s's merged atomics, K1g's per-sample reductions), one
+    point and 1000, a cotangent zero on one row in three, each term alone
+    (the other's cotangent None), and an image and coordinates off their
+    alignment."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
     from surf_tpu_torch import _build
@@ -364,7 +386,7 @@ def test_k1g_k1s_match_plain(C, V):
     n_g = n_s = 0
     for img in imgs:
         for N in (1, 1000):
-            for what, co, kw in _k1_cases(g, V, N, H, W):
+            for what, co, kw in _k1_cases(g, V, N, H, W) + _k1_shared_cases(g, V, N, H, W):
                 co = torch.cat([torch.zeros(1), co.reshape(-1)]).to(dev)[1:].view(V, N, 2) \
                     if img is imgs[1] else co.to(dev)
                 h = torch.randn(V, N, 2, generator=g).to(dev)

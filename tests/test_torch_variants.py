@@ -521,13 +521,22 @@ def _port_second(sample, V, x, ct, G, h):
 
 
 @pytest.mark.parametrize("align", [True, False])
-@pytest.mark.parametrize("case", ["bilinear_sample_2d", "lookup_volume grad f32",
-                                  "lookup_volume grad bf16"])
+@pytest.mark.parametrize("case", ["bilinear_sample_2d", "bilinear_sample_2d C16 clustered",
+                                  "lookup_volume grad f32", "lookup_volume grad bf16"])
 def test_second_order_matches_jax(case, align):
+    """The double backward against ``jax.grad`` of ``jax.vjp``; "clustered":
+    16 channels (the triplane's width) and 60 points in runs of 12 inside
+    one texel cell each, in order, as K1s's merged scatter and K1g's
+    per-sample reductions meet them on the card."""
     rng = np.random.RandomState(16 + align)
-    if case == "bilinear_sample_2d":
-        V = rng.randn(9, 11, 3).astype(np.float32)
-        x = rng.uniform(-1.2, 1.2, (60, 2)).astype(np.float32)
+    if case.startswith("bilinear_sample_2d"):
+        if case.endswith("clustered"):
+            V = rng.randn(9, 11, 16).astype(np.float32)
+            cells = rng.uniform(-0.9, 0.9, (5, 1, 2))
+            x = (cells + rng.uniform(0.0, 0.02, (5, 12, 2))).reshape(60, 2).astype(np.float32)
+        else:
+            V = rng.randn(9, 11, 3).astype(np.float32)
+            x = rng.uniform(-1.2, 1.2, (60, 2)).astype(np.float32)
         jfn = lambda V, x: jgs.bilinear_sample_2d(V, x, align_corners=align)   # noqa: E731
         tfn = lambda V, x: tgs.bilinear_sample_2d(V, x, align_corners=align)   # noqa: E731
     else:
