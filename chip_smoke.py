@@ -69,7 +69,10 @@ Phases, one line each (any failure exits non-zero, with no result line):
    largest call of each (of each second-order kernel on each operand) is
    held against its plain version and timed with its bound and library
    call (none for the new four: F.grid_sample has no double backward on
-   the card); one
+   the card), K1g / K1s on the largest plane and K2g / K2s on the
+   (176, 176, 176, 16) volume once more at as many uniformly random
+   points; K1s's entries count its 16-byte atomics (``k1s_rows``), K2s's
+   carry the kernel's own counts and, at C other than 1, ``k2s_rows``'; one
    ``[variants]`` line gives the parts' seconds, the phase's and its peak
    memory;
 7. train: the port's training path, a ``Trainer`` on the same
@@ -3493,6 +3496,43 @@ def k1s_rows(img, co, h, ct, align):
             "vector_atomics": merged * C // 4 if C % 4 == 0 else None}
 
 
+def k2s_rows(vol, co, h, ct, align, normalized=True):
+    """K2s's rows form (C other than 1) as its kernel issues it: the
+    (sample, corner) rows it adds (a nonzero cotangent row, the corner
+    inside, its directional weight nonzero), the rows left after each
+    warp's 32 consecutive samples are merged (the lanes in a row in one
+    cell add one row a corner that a lane of the run scatters; a zero
+    cotangent row or a cell with no corner inside is a run of its own), and
+    the atomics issued: C / 4 16-byte ones a row where C is a multiple of
+    4 and the cotangent 16-byte aligned (``vec`` 4), else C scalar ones."""
+    import torch
+    from surf_tpu_torch.ops import grid_sample as gs
+    X, Y, Z, C = vol.shape
+    N = co.shape[0]
+    _, (hx, hy, hz) = gs._dir_scales((X, Y, Z), h, normalized, align)
+    nz = (ct != 0).any(-1)
+    on, vox = [], []
+    for idx, valid, wx, wy, wz, ex, ey, ez in gs._cell_3d(vol, co, normalized, align):
+        dw = gs._tri_dweight(wx, wy, wz, ex, ey, ez, hx, hy, hz, valid)
+        on.append(nz & (valid != 0) & (dw != 0))
+        vox.append(torch.where(valid != 0, idx, -1))
+    on, vox = torch.stack(on), torch.stack(vox)
+    warp = torch.arange(N, device=co.device) // 32
+    # the cell's low corner (from -1 where a corner is inside)
+    lo = [torch.floor(gs._unnormalize(co[:, a], n, align) if normalized else co[:, a])
+          .nan_to_num(-1.0).clamp(-1, n).long() + 1 for a, n in enumerate((X, Y, Z))]
+    cell = (lo[0] * (Y + 2) + lo[1]) * (Z + 2) + lo[2]
+    key = torch.where(nz & (vox >= 0).any(0), cell, -1 - torch.arange(N, device=co.device))
+    head = torch.ones(N, dtype=torch.bool, device=co.device)
+    head[1:] = (key[1:] != key[:-1]) | (warp[1:] != warp[:-1])
+    group = torch.cumsum(head.long(), 0)[None].expand(8, N)
+    ks = torch.arange(8, device=co.device)[:, None].expand(8, N)
+    merged = torch.unique(group[on] * 8 + ks[on]).numel()
+    vec = 4 if C % 4 == 0 and ct.data_ptr() % 16 == 0 else 1
+    return {"corner_rows": int(on.sum()), "rows_after_warp_merge": merged, "vec": vec,
+            "atomics": merged * C // vec}
+
+
 def second_order_entry(name, rec):
     """One second-order kernel's recorded call against its plain version
     (the gathers' directional term bit for bit, their Hessian term bit for
@@ -3541,7 +3581,19 @@ def second_order_entry(name, rec):
         moved += nbytes(ct) + (vol.numel() * 4 if d2 else nbytes(vol))
         flops = pts * corners * (2 * C + 10)
     b_ms, b_by = bound(moved, flops)
-    data = {"data": k1s_rows(vol, co, h, ct, align)} if d2 and not gather else {}
+    data = {}
+    if d2 and not gather:
+        data = {"data": k1s_rows(vol, co, h, ct, align)}
+    elif not gather:
+        # the kernel's own counts, and the rows form's
+        d = {}
+        if ct.is_cuda:
+            cnt = torch.zeros(2, dtype=torch.int64, device=ct.device)
+            fn(*a, **k, counts=cnt)
+            d.update(zip(("corner_scatters", "atomics"), cnt.tolist()))
+        if C != 1:
+            d["rows_form"] = k2s_rows(vol, co, h, ct, align)
+        data = {"data": d}
     return {"shape": f"{'image' if d2 else 'volume'} {tuple(vol.shape)} "
                      f"{str(vol.dtype).split('.')[-1]}, {pts} points"
                      + (f" x {vol.shape[0]} views" if d2 else "")
@@ -3572,7 +3624,9 @@ def variants_phase(v, dev="cuda", vol_side=176, plane_res=(512, 256), train_hw=(
     rendering net at a render chunk's 557,056 points; ``sample_pdf`` in
     both modes.  Each second-order kernel's largest call on each operand is
     held against its plain version and timed, K1g's and K1s's on the
-    largest plane once more at as many uniformly random points.  Returns
+    largest plane and K2g's and K2s's on the (176, 176, 176, 16) volume once
+    more at as many uniformly random points; K2s's entries carry the
+    kernel's counts and ``k2s_rows``'.  Returns
     (launches, entries: kernel -> [entries], new rows, numbers).  (``dev``
     "cpu" with smaller ``vol_side``, ``plane_res`` and ``train_hw``
     rehearses the phase without a card.)"""
@@ -3781,11 +3835,12 @@ def variants_phase(v, dev="cuda", vol_side=176, plane_res=(512, 256), train_hw=(
             e = second_order_entry(name, r)
             e["call_site"] = f"variants, {operand}"
             es.append(e)
-        if name.startswith("bilinear"):
-            # K1g / K1s again on the largest plane at as many uniformly
-            # random points (the same for both), beside build_z_vals' ray-
-            # ordered ones
-            operand, (n, a, k) = max(recs, key=lambda kr: kr[1][1][0].numel())
+        # each again at as many uniformly random points (the same for the
+        # gather and the scatter), beside the path's ray-ordered ones: K1g /
+        # K1s on the largest plane, K2g / K2s on the widest volume
+        if recs:
+            operand, (n, a, k) = max(recs, key=lambda kr: (kr[1][1][0].shape[-1],
+                                                            kr[1][1][0].numel()))
             if operand not in uniform:
                 uniform[operand] = torch.rand(
                     a[1].shape, device=a[1].device,

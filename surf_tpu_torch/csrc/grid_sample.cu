@@ -404,8 +404,12 @@ trilinear_kernel(const T* __restrict__ vol, const float* __restrict__ coords,
 //     __match_any_sync over 8 corners (its cost grows with the distinct
 //     keys in a warp, which along a ray are many) both cost more than the
 //     global atomics they saved.  Offsets are 32-bit (the wrapper keeps
-//     the volume below 2^31 elements), C = 1 is a template parameter
-//     (run-time C: an atomic a (corner, channel)).
+//     the volume below 2^31 elements).  That kernel is the C = 1 form
+//     only; any other C (K2s's C = 16; none on the path) takes the rows
+//     form, ``trilinear_bwd_scatter_rows_kernel``, which merges the same
+//     runs a row at a time and adds each merged row with 16-byte vector
+//     atomics where C is a multiple of 4 and the rows are aligned, scalar
+//     ones otherwise (the K2s block below).
 // d_coords, when asked, is ``trilinear_bwd_coords_kernel``: a thread a
 // sample, the corners in the reference's order, channels summed in order,
 // the product rule through the fractional weights (corner indices carry
@@ -665,11 +669,12 @@ __device__ __forceinline__ int run_end(bool head, int lane) {
 }
 
 // x summed over each run into its first lane (a segmented sum by
-// doubling: lane i adds lane i + d's partial sum while i + d is in its run).
+// doubling: lane i adds lane i + d's partial sum while i + d is in its
+// run), with the steps runs of up to ``len`` lanes need (warp-uniform).
 template <int K>
-__device__ __forceinline__ void run_sum(float (&x)[K], int lane, int end) {
+__device__ __forceinline__ void run_sum(float (&x)[K], int lane, int end, int len = 32) {
 #pragma unroll
-    for (int d = 1; d < 32; d <<= 1) {
+    for (int d = 1; d < len; d <<= 1) {
         const bool in = lane + d <= end;
 #pragma unroll
         for (int i = 0; i < K; ++i) {
@@ -756,6 +761,21 @@ trilinear_bwd_zero_kernel(const int* __restrict__ bricks, float* __restrict__ bu
     }
 }
 
+// A block's counts (``s_counts``, zeroed at its start) added into
+// ``counts`` (or null): each thread's scatters and atomics.
+__device__ __forceinline__ void flush_counts(unsigned long long* counts, unsigned* s_counts,
+                                             unsigned scatters, unsigned atomics) {
+    if (counts == nullptr) return;
+    __syncthreads();
+    atomicAdd(s_counts, scatters);
+    atomicAdd(s_counts + 1, atomics);
+    __syncthreads();
+    if (threadIdx.x == 0) {
+        atomicAdd(counts, (unsigned long long)s_counts[0]);
+        atomicAdd(counts + 1, (unsigned long long)s_counts[1]);
+    }
+}
+
 // The chunk of 32 * kBwdRun samples that warp w takes, of ``chunks``: the
 // chunks in kSpread interleaved streams, so the warps on the card at one
 // time work on samples far apart (far-apart rays), not on neighbouring
@@ -770,21 +790,20 @@ __device__ __forceinline__ int spread_chunk(int w, int chunks) {
 // d_volume's scatter into ``dst`` (f32 (X, Y, Z, C), zero where it is
 // added to), with the trilinear weights or, given ``dirs`` (N, 3), K2s's
 // directional ones (``scatter_weight``).  A warp takes kBwdRun chunks of
-// 32 consecutive samples (``spread_chunk`` picks which).  CT =
-// 1: the lanes in a row in one cell sum their 8 corner values into the
-// run's first lane (``run_sum``), which adds each nonzero one with one
-// global atomic.  Run-time C: an atomic a (corner, channel).  ``counts``
-// (or null) receives the (corner, channel) scatters of nonzero cotangents
-// and the global atomics issued.
-template <int CT>
+// 32 consecutive samples (``spread_chunk`` picks which), and the lanes in
+// a row in one cell sum what they add into the run's first lane
+// (``run_sum``).  ``counts`` (or null) receives the (corner, channel)
+// scatters of nonzero cotangents and the global atomics issued.
+//
+// C = 1 (K2b on the path): the run's first lane adds each nonzero sum of
+// its 8 corner values with one global atomic.
 __global__ void __launch_bounds__(kThreads)
 trilinear_bwd_scatter_kernel(const float* __restrict__ coords, const float* __restrict__ ct,
                              const float* __restrict__ dirs, float* __restrict__ dst, int X,
-                             int Y, int Z, int C_rt, int N, int normalized, int align,
+                             int Y, int Z, int N, int normalized, int align,
                              unsigned long long* __restrict__ counts) {
     __shared__ unsigned s_counts[2];
     if (counts != nullptr && threadIdx.x < 2) s_counts[threadIdx.x] = 0u;
-    const int C = CT ? CT : C_rt;
     const int lane = threadIdx.x & 31;
     const bool dir = dirs != nullptr;
     const float sx = coord_scale(X, normalized, align), sy = coord_scale(Y, normalized, align),
@@ -800,57 +819,110 @@ trilinear_bwd_scatter_kernel(const float* __restrict__ coords, const float* __re
             hy = __ldg(dirs + 3 * p + 1) * sy;
             hz = __ldg(dirs + 3 * p + 2) * sz;
         }
-        if constexpr (CT == 1) {
-            Cell3 c;
-            c.mask = 0;
-            const float g = p < N ? __ldg(ct + p) : 0.0f;
-            if (!__any_sync(kFull, g != 0.0f)) continue;
-            if (p < N) c = tri_cell(coords + 3 * p, X, Y, Z, normalized, align);
-            if (g != 0.0f) scatters += __popc(c.mask);
-            // the lanes in a row in one cell (neighbouring samples of a
-            // ray; a zero cotangent adds 0) sum into the run's first lane
-            const long long key = cell_key(c, lane);
-            const long long prev = __shfl_up_sync(kFull, key, 1);
-            const bool head = lane == 0 || prev != key;
-            float x[8];
+        Cell3 c;
+        c.mask = 0;
+        const float g = p < N ? __ldg(ct + p) : 0.0f;
+        if (!__any_sync(kFull, g != 0.0f)) continue;
+        if (p < N) c = tri_cell(coords + 3 * p, X, Y, Z, normalized, align);
+        if (g != 0.0f) scatters += __popc(c.mask);
+        // the lanes in a row in one cell (neighbouring samples of a ray; a
+        // zero cotangent adds 0) sum into the run's first lane
+        const long long key = cell_key(c, lane);
+        const long long prev = __shfl_up_sync(kFull, key, 1);
+        const bool head = lane == 0 || prev != key;
+        float x[8];
 #pragma unroll
-            for (int k = 0; k < 8; ++k)
-                x[k] = c.mask ? g * scatter_weight(c, k, dir, hx, hy, hz) : 0.0f;
-            run_sum<8>(x, lane, run_end(head, lane));
-            if (!head) continue;
+        for (int k = 0; k < 8; ++k)
+            x[k] = c.mask ? g * scatter_weight(c, k, dir, hx, hy, hz) : 0.0f;
+        run_sum<8>(x, lane, run_end(head, lane));
+        if (!head) continue;
 #pragma unroll
-            for (int k = 0; k < 8; ++k) {
-                if (!((c.mask >> k) & 1) || x[k] == 0.0f) continue;
-                red_add(dst + cell_voxel(c, k, Y, Z), x[k]);
-                ++atomics;
-            }
-        } else {
-            if (p >= N) continue;
-            const Cell3 c = tri_cell(coords + 3 * p, X, Y, Z, normalized, align);
-            for (int k = 0; k < 8; ++k) {
-                if (!((c.mask >> k) & 1)) continue;
-                const int v = cell_voxel(c, k, Y, Z);
-                const float wk = scatter_weight(c, k, dir, hx, hy, hz);
-                for (int ch = 0; ch < C; ++ch) {
-                    const float gc = __ldg(ct + (long long)p * C + ch);
-                    if (gc == 0.0f) continue;
-                    ++scatters;
-                    red_add(dst + (long long)v * C + ch, gc * wk);
+        for (int k = 0; k < 8; ++k) {
+            if (!((c.mask >> k) & 1) || x[k] == 0.0f) continue;
+            red_add(dst + cell_voxel(c, k, Y, Z), x[k]);
+            ++atomics;
+        }
+    }
+    flush_counts(counts, s_counts, scatters, atomics);
+}
+
+// C != 1, the rows form: a sample whose cotangent row is all zero, a
+// corner outside and a corner whose weight is 0 add nothing.  The run
+// sums each corner's row VEC channels at a time, and its first lane adds
+// the sum with one atomic a VEC channels where a lane of the run scatters
+// that corner: 16-byte vector atomics at VEC = 4 (C a multiple of 4, the
+// cotangent and the sum 16-byte aligned), scalar ones at VEC = 1.  The
+// shuffle sum takes the steps the warp's longest run needs: none where no
+// two neighbouring lanes share a cell.
+template <int VEC>
+__global__ void __launch_bounds__(kThreads)
+trilinear_bwd_scatter_rows_kernel(const float* __restrict__ coords, const float* __restrict__ ct,
+                                  const float* __restrict__ dirs, float* __restrict__ dst,
+                                  int X, int Y, int Z, int C, int N, int normalized, int align,
+                                  unsigned long long* __restrict__ counts) {
+    __shared__ unsigned s_counts[2];
+    if (counts != nullptr && threadIdx.x < 2) s_counts[threadIdx.x] = 0u;
+    const int lane = threadIdx.x & 31;
+    const bool dir = dirs != nullptr;
+    const float sx = coord_scale(X, normalized, align), sy = coord_scale(Y, normalized, align),
+                sz = coord_scale(Z, normalized, align);
+    unsigned scatters = 0, atomics = 0;
+    const int chunk = spread_chunk(blockIdx.x * kBwdWarps + (threadIdx.x >> 5),
+                                   (N + 32 * kBwdRun - 1) / (32 * kBwdRun));
+    for (int it = 0; it < kBwdRun && chunk >= 0; ++it) {
+        const int p = (chunk * kBwdRun + it) * 32 + lane;
+        const bool live = p < N;
+        const float* g = ct + (long long)(live ? p : 0) * C;
+        bool nz = false;
+        for (int c = 0; live && c < C && !nz; c += VEC) {
+            float x[VEC];
+            load_vec<VEC>(x, g + c);
+#pragma unroll
+            for (int i = 0; i < VEC; ++i) nz |= x[i] != 0.0f;
+        }
+        if (!__any_sync(kFull, nz)) continue;
+        Cell3 cell;
+        cell.mask = 0;
+        if (nz) cell = tri_cell(coords + 3 * (long long)p, X, Y, Z, normalized, align);
+        float hx = 0.0f, hy = 0.0f, hz = 0.0f;
+        if (dir && nz) {
+            hx = __ldg(dirs + 3 * (long long)p) * sx;
+            hy = __ldg(dirs + 3 * (long long)p + 1) * sy;
+            hz = __ldg(dirs + 3 * (long long)p + 2) * sz;
+        }
+        // the runs of lanes in one cell, and the warp's longest
+        const long long key = cell_key(cell, lane);
+        const long long prev = __shfl_up_sync(kFull, key, 1);
+        const bool head = lane == 0 || prev != key;
+        const int end = run_end(head, lane);
+        const int len = (int)__reduce_max_sync(kFull, (unsigned)(end - lane + 1));
+        const unsigned run = ((2u << end) - 1u) & ~((1u << lane) - 1u);
+#pragma unroll
+        for (int k = 0; k < 8; ++k) {
+            const float w = scatter_weight(cell, k, dir, hx, hy, hz);
+            // a run shares its cell, so its first lane knows the voxel
+            // though its own weight may be 0
+            const bool inside = (cell.mask >> k) & 1;
+            const bool on = inside && w != 0.0f;
+            const unsigned ons = __ballot_sync(kFull, on);
+            if (ons == 0u) continue;
+            if (on) scatters += C;
+            const bool issue = head && (ons & run) != 0u;
+            float* d = dst + (long long)(inside ? cell_voxel(cell, k, Y, Z) : 0) * C;
+            for (int c = 0; c < C; c += VEC) {
+                float x[VEC];
+                load_vec<VEC>(x, g + c);
+#pragma unroll
+                for (int i = 0; i < VEC; ++i) x[i] = on ? x[i] * w : 0.0f;
+                run_sum<VEC>(x, lane, end, len);
+                if (issue) {
+                    atomic_add_row<VEC>(d + c, x);
                     ++atomics;
                 }
             }
         }
     }
-    if (counts != nullptr) {
-        __syncthreads();
-        atomicAdd(s_counts, scatters);
-        atomicAdd(s_counts + 1, atomics);
-        __syncthreads();
-        if (threadIdx.x == 0) {
-            atomicAdd(counts, (unsigned long long)s_counts[0]);
-            atomicAdd(counts + 1, (unsigned long long)s_counts[1]);
-        }
-    }
+    flush_counts(counts, s_counts, scatters, atomics);
 }
 
 // The volume-dtype (bf16) gradient in one linear pass: a warp an (x, y)
@@ -946,26 +1018,74 @@ trilinear_bwd_coords_kernel(const T* __restrict__ vol, const float* __restrict__
 //   * K1g / K2g, a gather, one pass over a sample's 4 (8) corner rows: the
 //     directional term sum_k dw_k V[i_k] (N, C), d ct, and the Hessian
 //     term s_b sum_{a != b} h'_a sum_k d_a d_b w_k S_k (N, 2 or 3), d
-//     coords (the unmixed d_a^2 w_k are 0).  The directional term is K1
-//     with the weights w_k replaced by dw_k, and K1g is K1's spread form:
-//     the geometry staged once in shared memory, the (256, C) span walked
-//     in 16-byte chunks on neighbouring lanes, the Hessian's channel sums
-//     reduced across a sample's lanes (``bilinear_bwd2_gather_kernel``).
-//     K2g is one thread a sample;
+//     coords (the unmixed d_a^2 w_k are 0);
 //   * K1s / K2s, a scatter: dw_k ct into the corners, d image / d volume.
-//     Each is its first-order scatter in a weight mode, with every way it
-//     has of merging atomics.  K1s is ``bilinear_bwd_kernel`` with DIR:
-//     all-zero cotangent rows and zero weights scatter nothing, the lanes
-//     on one texel are summed into one (__match_any_sync and the peer
-//     tree), a row is added with 16-byte vector atomics.  K2s is
-//     ``trilinear_bwd_scatter_kernel`` with ``dirs``: its run merging, its
-//     f32 sum and, for a bf16 volume, its bricked form and bf16 cast.
 // Bound on the card: bytes, as K1 / K2 and K1b / K2b (a few FLOPs a byte
-// read).  A term whose cotangent or output is not wanted is skipped (a
-// null pointer).  The gathers use the plain versions' operation order
-// (-fmad=false): the directional term equals the plain version bit for
-// bit, as K1 / K2 do; the Hessian term sums channels in another order
-// than PyTorch's sum in the plain version (equal at C = 1).  The
+// read).  What keeps a gather from it is the latency of its corner loads
+// (too few in flight when a thread walks a wide row channel by channel)
+// and the instructions per (sample, channel); what keeps a scatter from it
+// is its atomics.  A term whose cotangent or output is not wanted is
+// skipped (a null pointer).
+//
+// K1g is K1's spread form: the geometry staged once in shared memory, the
+// (256, C) span walked in 16-byte chunks on neighbouring lanes, the
+// Hessian's channel sums reduced across a sample's lanes
+// (``bilinear_bwd2_gather_kernel``).  K2g has three forms, chosen on C:
+//   * spread (C a multiple of 4 with the volume rows, the cotangent and
+//     the directional term aligned for 4-channel vectors; compile-time
+//     C = 16, the grad lookups' width): a block of 256 threads takes
+//     256 / P samples, P lanes each (C / 4 chunks rounded up to a power
+//     of two, at most 32: 4 at C = 16, so 8 samples a warp).  The first
+//     threads stage each sample's 8 voxel rows, 8 directional weights, h',
+//     fractions and inside mask (``Tri2Stage``); a lane then issues the 8
+//     loads of its 4-channel chunk of the 8 corner rows (16 bytes each,
+//     8 for bf16) before any add, so a sample's 8 x 64-byte span is read
+//     by 4 neighbouring lanes in 32 requests in flight at once, writes
+//     its directional chunk as one 16-byte store and forms its part of
+//     each S_k from the same registers; a butterfly of shuffles sums the
+//     parts over the sample's lanes (neighbours in one warp) and its first
+//     lane writes the Hessian row (``tri2_hess``).  Small tiles give the
+//     training step's 69,632 points 1,088 blocks, about 8 an SM;
+//   * a thread a sample with compile-time C = 1 (the sphere grid's bf16
+//     matching volume): each axis's geometry once (``tri_axis``), the 8
+//     corner loads issued before any add, and both terms from those 8
+//     registers, as K2's C = 1 form reads them;
+//   * a thread a sample with C at run time (any other C, or rows off
+//     their alignment): a channel's 8 corner values loaded once feed both
+//     terms, so each corner row is read once.
+// The gathers use the plain versions' operation order (-fmad=false): the
+// directional term equals the plain version bit for bit, as K1 / K2 do;
+// the Hessian term sums channels in another order than PyTorch's sum in
+// the plain version (equal at C = 1).
+//
+// K1s is ``bilinear_bwd_kernel`` with DIR: all-zero cotangent rows and
+// zero weights scatter nothing, the lanes on one texel are summed into one
+// (__match_any_sync and the peer tree), a row is added with 16-byte vector
+// atomics.  K2s is K2b's scatter with ``dirs`` (its f32 sum and, for a
+// bf16 volume, its bricked form and bf16 cast).  At C = 1 it is K2b's run
+// merge (``trilinear_bwd_scatter_kernel``, one ``red.global.add.f32`` a
+// merged corner).  At any other C it is the rows form
+// (``trilinear_bwd_scatter_rows_kernel``, C at run time): an all-zero
+// cotangent row, a corner outside and a zero weight add nothing; the lanes
+// in a row in one cell sum each corner's row into the run's first lane (a
+// segmented shuffle sum of as many steps as the warp's longest run needs,
+// none where no two lanes share a cell), VEC channels at a time, and that
+// lane adds it with one atomic a VEC channels: VEC = 4 where C is a
+// multiple of 4 and the cotangent and the f32 sum are 16-byte aligned
+// (at C = 16 four 16-byte atomics a (sample, corner) row in place of
+// sixteen scalar ones), else VEC = 1.  One kernel serves both widths; a
+// compile-time C = 16 instance that held the cotangent row in registers
+// was dropped, the run-time loop reloading each 16-byte chunk from L1.
+// Merging the lanes on one voxel per corner instead (__match_any_sync
+// and the peer tree, as K1s does) was measured against the run on the
+// H100 at C = 16: at the training step's ray-ordered points both rules
+// merged the same rows (a warp's 32 consecutive samples lie on one or two
+// rays, and a ray's samples in one cell are neighbouring lanes), and the
+// match costs a __match_any_sync a corner where the run costs one key
+// compare a sample, so the run was kept.  What is left at C = 16 is the
+// wrapper's zero fill of the full f32 sum, which is the byte bound itself
+// (the output), and the atomics' read-modify-writes of sectors the zero
+// fill has pushed out of L2.  The
 // scatters' sums, and K1g's Hessian where a sample's chunks do not divide
 // a warp (shared-memory atomics), run in an order that changes from run
 // to run.
@@ -1108,77 +1228,225 @@ bilinear_bwd2_gather_kernel(const float* __restrict__ img, const float2* __restr
     }
 }
 
-// K2g: directional term (dir, or null) and Hessian term (hess, or null; it
-// reads ct) of a sample, its 8 corners clamped to the volume as K2 reads
-// them (an outside corner is weighted 0).
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-trilinear_bwd2_gather_kernel(const T* __restrict__ vol, const float* __restrict__ coords,
-                             const float* __restrict__ h, const float* __restrict__ ct,
-                             float* __restrict__ dir, float* __restrict__ hess, int X, int Y,
-                             int Z, int C, int N, int normalized, int align) {
-    const int p = blockIdx.x * kThreads + threadIdx.x;
-    if (p >= N) return;
-    const float* co = coords + 3 * (long long)p;
+// K2g's geometry of one sample: its 8 corners' voxels clamped to the
+// volume as K2 reads them, the directional weights dw_k (0 outside), a mask
+// of the corners inside (bit k = 4 ox + 2 oy + oz), the fractions and
+// h' = s h, in the plain version's operation order.
+struct Tri2 {
+    int vox[8];
+    float dw[8];
+    int mask;
+    float fx, fy, fz;
+    float hx, hy, hz;
+};
+
+__device__ __forceinline__ Tri2 tri2_geometry(const float* co, const float* hp, int X, int Y,
+                                              int Z, int normalized, int align) {
     float x = co[0], y = co[1], z = co[2];
     if (normalized) {
         x = unnormalize(x, X, align);
         y = unnormalize(y, Y, align);
         z = unnormalize(z, Z, align);
     }
-    const float sx = coord_scale(X, normalized, align), sy = coord_scale(Y, normalized, align),
-                sz = coord_scale(Z, normalized, align);
-    const float* hp = h + 3 * (long long)p;
-    const float hx = hp[0] * sx, hy = hp[1] * sy, hz = hp[2] * sz;
+    Tri2 t;
+    t.hx = hp[0] * coord_scale(X, normalized, align);
+    t.hy = hp[1] * coord_scale(Y, normalized, align);
+    t.hz = hp[2] * coord_scale(Z, normalized, align);
     const Axis ax = tri_axis(x, X), ay = tri_axis(y, Y), az = tri_axis(z, Z);
-    // corner k = 4 ox + 2 oy + oz
-    const T* row[8];
-    float dw[8], in[8], wxs[8], wys[8], wzs[8];
+    t.fx = ax.f;
+    t.fy = ay.f;
+    t.fz = az.f;
+    t.mask = 0;
 #pragma unroll
     for (int k = 0; k < 8; ++k) {
         const int ox = (k >> 2) & 1, oy = (k >> 1) & 1, oz = k & 1;
         const float wx = ox ? ax.f : ax.g, wy = oy ? ay.f : ay.g, wz = oz ? az.f : az.g;
-        in[k] = ((ox ? ax.in1 : ax.in0) * (oy ? ay.in1 : ay.in0)) * (oz ? az.in1 : az.in0);
+        const float in =
+            ((ox ? ax.in1 : ax.in0) * (oy ? ay.in1 : ay.in0)) * (oz ? az.in1 : az.in0);
         const float pyz = wy * wz, pxz = wx * wz, pxy = wx * wy;
-        dw[k] = ((ox ? pyz : -pyz) * hx + (oy ? pxz : -pxz) * hy + (oz ? pxy : -pxy) * hz) *
-                in[k];
-        wxs[k] = wx;
-        wys[k] = wy;
-        wzs[k] = wz;
-        const int vox =
-            ((ox ? ax.i1 : ax.i0) * Y + (oy ? ay.i1 : ay.i0)) * Z + (oz ? az.i1 : az.i0);
-        row[k] = vol + (long long)vox * C;
+        t.dw[k] = ((ox ? pyz : -pyz) * t.hx + (oy ? pxz : -pxz) * t.hy +
+                   (oz ? pxy : -pxy) * t.hz) * in;
+        t.mask |= (in != 0.0f) << k;
+        t.vox[k] = ((ox ? ax.i1 : ax.i0) * Y + (oy ? ay.i1 : ay.i0)) * Z + (oz ? az.i1 : az.i0);
     }
-    if (dir != nullptr) {
-        float* o = dir + (long long)p * C;
-        for (int c = 0; c < C; ++c) {
-            float acc = to_float(row[0][c]) * dw[0];
+    return t;
+}
+
+// K2g's Hessian row of a sample from its channel sums S_k: M_xy, M_xz and
+// M_yz over the corners in the reference's order (the mixed second
+// derivatives of w_k are +-wz, +-wy, +-wx), then the three coordinates,
+// as the plain version forms them.
+__device__ __forceinline__ void tri2_hess(const float (&S)[8], int mask, float fx, float fy,
+                                          float fz, float hx, float hy, float hz, float sx,
+                                          float sy, float sz, float* o) {
+    float mxy = 0.0f, mxz = 0.0f, myz = 0.0f;
 #pragma unroll
-            for (int k = 1; k < 8; ++k) acc = acc + to_float(row[k][c]) * dw[k];
-            o[c] = acc;
+    for (int k = 0; k < 8; ++k) {
+        const int ox = (k >> 2) & 1, oy = (k >> 1) & 1, oz = k & 1;
+        const float wx = ox ? fx : 1.0f - fx, wy = oy ? fy : 1.0f - fy,
+                    wz = oz ? fz : 1.0f - fz;
+        const float sk = S[k] * (((mask >> k) & 1) ? 1.0f : 0.0f);
+        const float txy = sk * ((ox == oy) ? wz : -wz);
+        const float txz = sk * ((ox == oz) ? wy : -wy);
+        const float tyz = sk * ((oy == oz) ? wx : -wx);
+        mxy = k == 0 ? txy : mxy + txy;
+        mxz = k == 0 ? txz : mxz + txz;
+        myz = k == 0 ? tyz : myz + tyz;
+    }
+    o[0] = (mxy * hy + mxz * hz) * sx;
+    o[1] = (mxy * hx + myz * hz) * sy;
+    o[2] = (mxz * hx + myz * hy) * sz;
+}
+
+// K2g, rows: one thread a sample; CT = 1 (the sphere grid's C) or 0 (C at
+// run time).  A channel's 8 corner values are loaded before any is added
+// and feed both terms, so each corner row is read once.
+template <typename T, int CT>
+__global__ void __launch_bounds__(kThreads)
+trilinear_bwd2_gather_kernel(const T* __restrict__ vol, const float* __restrict__ coords,
+                             const float* __restrict__ h, const float* __restrict__ ct,
+                             float* __restrict__ dir, float* __restrict__ hess, int X, int Y,
+                             int Z, int C_rt, int N, int normalized, int align) {
+    const int C = CT ? CT : C_rt;
+    const int p = blockIdx.x * kThreads + threadIdx.x;
+    if (p >= N) return;
+    const Tri2 t = tri2_geometry(coords + 3 * (long long)p, h + 3 * (long long)p, X, Y, Z,
+                                 normalized, align);
+    float* od = dir == nullptr ? nullptr : dir + (long long)p * C;
+    const float* g = ct + (long long)p * C;
+    float S[8];
+    for (int c = 0; c < C; ++c) {
+        float v[8];
+#pragma unroll
+        for (int k = 0; k < 8; ++k) v[k] = to_float(vol[t.vox[k] * C + c]);
+        if (od != nullptr) {
+            float acc = v[0] * t.dw[0];
+#pragma unroll
+            for (int k = 1; k < 8; ++k) acc = acc + v[k] * t.dw[k];
+            od[c] = acc;
+        }
+        if (hess != nullptr) {
+            const float gc = __ldg(g + c);
+#pragma unroll
+            for (int k = 0; k < 8; ++k) S[k] = c == 0 ? v[k] * gc : S[k] + v[k] * gc;
         }
     }
-    if (hess != nullptr) {
-        const float* g = ct + (long long)p * C;
-        float mxy = 0.0f, mxz = 0.0f, myz = 0.0f;
+    if (hess != nullptr)
+        tri2_hess(S, t.mask, t.fx, t.fy, t.fz, t.hx, t.hy, t.hz,
+                  coord_scale(X, normalized, align), coord_scale(Y, normalized, align),
+                  coord_scale(Z, normalized, align), hess + 3 * (long long)p);
+}
+
+// Four channels from p: one 16-byte load (f32) or 8-byte load (bf16),
+// the caller guaranteeing the alignment.
+__device__ __forceinline__ void load4(float (&r)[4], const float* p) {
+    const float4 q = __ldg(reinterpret_cast<const float4*>(p));
+    r[0] = q.x; r[1] = q.y; r[2] = q.z; r[3] = q.w;
+}
+__device__ __forceinline__ void load4(float (&r)[4], const __nv_bfloat16* p) {
+    const uint2 q = __ldg(reinterpret_cast<const uint2*>(p));
+    r[0] = __uint_as_float(q.x << 16); r[1] = __uint_as_float(q.x & 0xffff0000u);
+    r[2] = __uint_as_float(q.y << 16); r[3] = __uint_as_float(q.y & 0xffff0000u);
+}
+
+// K2g's shared geometry of a block's samples (``trilinear_bwd2_spread_kernel``).
+struct Tri2Stage {
+    int4 vox[2][kThreads];    // the 8 corner voxels (clamped)
+    float4 dw[2][kThreads];   // the 8 directional weights, 0 outside
+    float4 h[kThreads];       // h' and the inside mask's bits
+    float4 f[kThreads];       // the fractions
+};
+
+// The lanes of a sample in K2g's spread form: C / 4 chunks rounded up to a
+// power of two, at most 32 (a lane then takes every 32nd chunk).
+__host__ __device__ constexpr int spread_lanes(int chunks) {
+    return chunks > 16 ? 32 : chunks > 8 ? 16 : chunks > 4 ? 8 : chunks > 2 ? 4
+         : chunks > 1 ? 2 : 1;
+}
+
+// K2g, spread (C a multiple of 4, the rows aligned): a block of 256
+// threads takes 256 / P samples, P lanes each (P = 4 at C = 16).  The
+// first threads stage each sample's geometry (``Tri2Stage``); then a
+// lane walks its sample's chunks of 4 channels (one at C = 16), issues
+// the 8 corner loads of a chunk before any add, writes its directional
+// chunk as one 16-byte store (the plain version's order, from the first
+// term) and forms its part of each S_k from the same loads and its ct
+// chunk.  The sample's lanes are neighbours in one warp: a butterfly of
+// shuffles sums their parts, and the first lane writes the Hessian row.
+template <typename T, int CT>
+__global__ void __launch_bounds__(kThreads)
+trilinear_bwd2_spread_kernel(const T* __restrict__ vol, const float* __restrict__ coords,
+                             const float* __restrict__ h, const float* __restrict__ ct,
+                             float* __restrict__ dir, float* __restrict__ hess, int X, int Y,
+                             int Z, int C_rt, int N, int normalized, int align) {
+    __shared__ Tri2Stage st;
+    const int C = CT ? CT : C_rt;
+    const int chunks = C / 4;
+    constexpr int PCT = CT ? spread_lanes(CT / 4) : 0;
+    const int P = PCT ? PCT : spread_lanes(chunks);
+    const int tile = kThreads / P;
+    const int p0 = blockIdx.x * tile;
+    const int n = min(tile, N - p0);
+    const int i = threadIdx.x;
+    if (i < n) {
+        const long long p = p0 + i;
+        const Tri2 t = tri2_geometry(coords + 3 * p, h + 3 * p, X, Y, Z, normalized, align);
+        st.vox[0][i] = make_int4(t.vox[0], t.vox[1], t.vox[2], t.vox[3]);
+        st.vox[1][i] = make_int4(t.vox[4], t.vox[5], t.vox[6], t.vox[7]);
+        st.dw[0][i] = make_float4(t.dw[0], t.dw[1], t.dw[2], t.dw[3]);
+        st.dw[1][i] = make_float4(t.dw[4], t.dw[5], t.dw[6], t.dw[7]);
+        st.h[i] = make_float4(t.hx, t.hy, t.hz, __int_as_float(t.mask));
+        st.f[i] = make_float4(t.fx, t.fy, t.fz, 0.0f);
+    }
+    __syncthreads();
+    const int s = i / P, j = i - s * P;           // the sample, its lane
+    const bool on = s < n;
+    float S[8];
 #pragma unroll
-        for (int k = 0; k < 8; ++k) {
-            const int ox = (k >> 2) & 1, oy = (k >> 1) & 1, oz = k & 1;
-            float sk = to_float(row[k][0]) * g[0];
-            for (int c = 1; c < C; ++c) sk = sk + to_float(row[k][c]) * g[c];
-            sk = sk * in[k];
-            // the mixed second derivatives of w_k: +-wz, +-wy, +-wx
-            const float txy = sk * ((ox == oy) ? wzs[k] : -wzs[k]);
-            const float txz = sk * ((ox == oz) ? wys[k] : -wys[k]);
-            const float tyz = sk * ((oy == oz) ? wxs[k] : -wxs[k]);
-            mxy = k == 0 ? txy : mxy + txy;
-            mxz = k == 0 ? txz : mxz + txz;
-            myz = k == 0 ? tyz : myz + tyz;
+    for (int k = 0; k < 8; ++k) S[k] = 0.0f;
+    if (on) {
+        const int4 va = st.vox[0][s], vb = st.vox[1][s];
+        const int vox[8] = {va.x, va.y, va.z, va.w, vb.x, vb.y, vb.z, vb.w};
+        const float4 wa = st.dw[0][s], wb = st.dw[1][s];
+        const float dw[8] = {wa.x, wa.y, wa.z, wa.w, wb.x, wb.y, wb.z, wb.w};
+        const long long row = (long long)(p0 + s) * C;
+        for (int c4 = j; c4 < chunks; c4 += P) {
+            const int c = c4 * 4;
+            float r[8][4];
+#pragma unroll
+            for (int k = 0; k < 8; ++k) load4(r[k], vol + vox[k] * C + c);
+            if (dir != nullptr) {
+                float acc[4];
+#pragma unroll
+                for (int q = 0; q < 4; ++q) acc[q] = r[0][q] * dw[0];
+#pragma unroll
+                for (int k = 1; k < 8; ++k) {
+#pragma unroll
+                    for (int q = 0; q < 4; ++q) acc[q] = acc[q] + r[k][q] * dw[k];
+                }
+                *reinterpret_cast<float4*>(dir + row + c) =
+                    make_float4(acc[0], acc[1], acc[2], acc[3]);
+            }
+            if (hess != nullptr) {
+                float g[4];
+                load4(g, ct + row + c);
+#pragma unroll
+                for (int k = 0; k < 8; ++k)
+                    S[k] = S[k] + (((r[k][0] * g[0] + r[k][1] * g[1]) + r[k][2] * g[2]) +
+                                   r[k][3] * g[3]);
+            }
         }
-        float* o = hess + 3 * (long long)p;
-        o[0] = (mxy * hy + mxz * hz) * sx;
-        o[1] = (mxy * hx + myz * hz) * sy;
-        o[2] = (mxz * hx + myz * hy) * sz;
+    }
+    if (hess == nullptr) return;
+    for (int d = 1; d < P; d <<= 1) {
+#pragma unroll
+        for (int k = 0; k < 8; ++k) S[k] += __shfl_xor_sync(kFull, S[k], d);
+    }
+    if (on && j == 0) {
+        const float4 hv = st.h[s], fv = st.f[s];
+        tri2_hess(S, __float_as_int(hv.w), fv.x, fv.y, fv.z, hv.x, hv.y, hv.z,
+                  coord_scale(X, normalized, align), coord_scale(Y, normalized, align),
+                  coord_scale(Z, normalized, align), hess + 3 * (long long)(p0 + s));
     }
 }
 
@@ -1235,6 +1503,34 @@ void bilinear_bwd_launch(const float* img, const float2* co, const float2* h, co
     }
 }
 
+// K2g's form for its C: spread where C is a multiple of 4 and the volume
+// rows, the cotangent and the directional term are aligned for 4-channel
+// vectors (compile-time C = 16, else C at run time), else a thread a
+// sample (compile-time C = 1, else C at run time).
+template <typename T>
+void tri_bwd2_gather_launch(const T* vol, const float* coords, const float* h, const float* ct,
+                            float* dir, float* hess, int X, int Y, int Z, int C, int n,
+                            int normalized, int align, cudaStream_t s) {
+    const bool vec = C % 4 == 0 && aligned(vol, 4 * sizeof(T)) &&
+                     (ct == nullptr || aligned(ct, 16)) && (dir == nullptr || aligned(dir, 16));
+    if (vec) {
+        const int tile = kThreads / spread_lanes(C / 4);
+        const unsigned grid = (unsigned)((n + tile - 1) / tile);
+        if (C == 16)
+            trilinear_bwd2_spread_kernel<T, 16><<<grid, kThreads, 0, s>>>(
+                vol, coords, h, ct, dir, hess, X, Y, Z, C, n, normalized, align);
+        else
+            trilinear_bwd2_spread_kernel<T, 0><<<grid, kThreads, 0, s>>>(
+                vol, coords, h, ct, dir, hess, X, Y, Z, C, n, normalized, align);
+    } else if (C == 1) {
+        trilinear_bwd2_gather_kernel<T, 1><<<blocks_for(n), kThreads, 0, s>>>(
+            vol, coords, h, ct, dir, hess, X, Y, Z, C, n, normalized, align);
+    } else {
+        trilinear_bwd2_gather_kernel<T, 0><<<blocks_for(n), kThreads, 0, s>>>(
+            vol, coords, h, ct, dir, hess, X, Y, Z, C, n, normalized, align);
+    }
+}
+
 // K2b's and K2s's size rule: the volume below 2^31 elements, each side
 // below 2^21 - 1 (``cell_key``'s fields), the bricked form with both
 // gradient buffers.
@@ -1270,10 +1566,13 @@ inline void tri_scatter(const float* coords, const float* ct, const float* dirs,
         const int warps = kSpread * ((chunks + kSpread - 1) / kSpread);
         const unsigned grid = (unsigned)((warps + kBwdWarps - 1) / kBwdWarps);
         if (C == 1)
-            trilinear_bwd_scatter_kernel<1><<<grid, kThreads, 0, s>>>(
+            trilinear_bwd_scatter_kernel<<<grid, kThreads, 0, s>>>(
+                coords, ct, dirs, d_vol, X, Y, Z, n, normalized, align, counts);
+        else if (C % 4 == 0 && aligned(ct, 16) && aligned(d_vol, 16))
+            trilinear_bwd_scatter_rows_kernel<4><<<grid, kThreads, 0, s>>>(
                 coords, ct, dirs, d_vol, X, Y, Z, C, n, normalized, align, counts);
         else
-            trilinear_bwd_scatter_kernel<0><<<grid, kThreads, 0, s>>>(
+            trilinear_bwd_scatter_rows_kernel<1><<<grid, kThreads, 0, s>>>(
                 coords, ct, dirs, d_vol, X, Y, Z, C, n, normalized, align, counts);
     }
     if (d_vol_out != nullptr) {
@@ -1484,28 +1783,26 @@ int trilinear_sample_3d_bwd2_gather(const void* vol, int is_bf16, const float* c
         N > (long long)INT_MAX - kThreads || (hess != nullptr && ct == nullptr))
         return (int)cudaErrorInvalidValue;
     cudaStream_t s = (cudaStream_t)stream;
-    const unsigned grid = blocks_for(N);
     if (is_bf16)
-        trilinear_bwd2_gather_kernel<__nv_bfloat16><<<grid, kThreads, 0, s>>>(
-            (const __nv_bfloat16*)vol, coords, h, ct, dir, hess, X, Y, Z, C, (int)N,
-            normalized, align);
+        tri_bwd2_gather_launch((const __nv_bfloat16*)vol, coords, h, ct, dir, hess, X, Y, Z, C,
+                               (int)N, normalized, align, s);
     else
-        trilinear_bwd2_gather_kernel<float><<<grid, kThreads, 0, s>>>(
-            (const float*)vol, coords, h, ct, dir, hess, X, Y, Z, C, (int)N, normalized, align);
+        tri_bwd2_gather_launch((const float*)vol, coords, h, ct, dir, hess, X, Y, Z, C, (int)N,
+                               normalized, align, s);
     return (int)cudaGetLastError();
 }
 
-// K2s.  coords and h (N, 3) f32, ct (N, C) f32; d_vol, d_vol_out and
-// bricks as K2b's (d_vol required).
+// K2s.  coords and h (N, 3) f32, ct (N, C) f32; d_vol, d_vol_out, bricks
+// and counts as K2b's (d_vol required).
 int trilinear_sample_3d_bwd2_scatter(const float* coords, const float* h, const float* ct,
                                      float* d_vol, int X, int Y, int Z, int C, long long N,
                                      int normalized, int align, void* stream, void* d_vol_out,
-                                     int* bricks) {
+                                     int* bricks, unsigned long long* counts) {
     int bad = tri_bwd_args_ok(X, Y, Z, C, N, d_vol, d_vol_out, bricks);
     if (!bad && d_vol == nullptr) bad = (int)cudaErrorInvalidValue;
     if (bad) return bad;
     tri_scatter(coords, ct, h, d_vol, X, Y, Z, C, (int)N, normalized, align, d_vol_out, bricks,
-                nullptr, (cudaStream_t)stream);
+                counts, (cudaStream_t)stream);
     return (int)cudaGetLastError();
 }
 

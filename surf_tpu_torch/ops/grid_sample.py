@@ -561,7 +561,8 @@ def trilinear_sample_bwd(volume, coords, ct, *, normalized=True,
     ``bricked`` (None: ``k2b_bricked``'s rule) picks the form of a bf16
     volume's gradient; ``counts``, a zeroed (2,) int64 CUDA tensor, receives
     the (corner, channel) scatters of nonzero cotangents and the global
-    atomics the kernel issued (the rest were merged before an atomic)."""
+    atomics the kernel issued (the rest were merged before an atomic; at C
+    a multiple of 4, 16-byte atomics of four channels)."""
     if volume.device.type == "cpu" and coords.device.type == "cpu":
         return trilinear_sample_bwd_plain(
             volume, coords, ct, normalized=normalized, align_corners=align_corners,
@@ -715,11 +716,12 @@ def trilinear_sample_bwd2_gather(volume, coords, h, ct=None, *, normalized=True,
 
 
 def trilinear_sample_bwd2_scatter(volume, coords, h, ct, *, normalized=True,
-                                  align_corners=True, bricked=None):
+                                  align_corners=True, bricked=None, counts=None):
     """K2s wrapper.  Same contract as ``trilinear_sample_bwd2_scatter_plain``
     (``volume`` gives the shape and dtype; its values are not read): K2b's
     scatter kernels with the directional weights, in K2b's forms
-    (``bricked``: None for ``k2b_bricked``'s rule)."""
+    (``bricked``: None for ``k2b_bricked``'s rule); ``counts`` as K2b's
+    (at C a multiple of 4, the second count is of 16-byte atomics)."""
     if volume.device.type == "cpu" and coords.device.type == "cpu":
         return trilinear_sample_bwd2_scatter_plain(
             volume, coords, h, ct, normalized=normalized, align_corners=align_corners)
@@ -736,13 +738,14 @@ def trilinear_sample_bwd2_scatter(volume, coords, h, ct, *, normalized=True,
     bricks = torch.zeros(k2b_bricks(volume.shape), dtype=torch.int32,
                          device=volume.device) if bricked else None
     fn = _build.kernel_fn("grid_sample", "trilinear_sample_3d_bwd2_scatter",
-                          [_P, _P, _P, _P, _I, _I, _I, _I, _L, _I, _I, _P, _P, _P])
+                          [_P, _P, _P, _P, _I, _I, _I, _I, _L, _I, _I, _P, _P, _P, _P])
     with _build.on_device(volume):
         _build.check(fn(coords.data_ptr(), h.data_ptr(), ct.data_ptr(), d_vol.data_ptr(),
                         X, Y, Z, C, N, int(normalized), int(align_corners),
                         _build.stream_of(volume),
                         d_out.data_ptr() if bf16 else None,
-                        bricks.data_ptr() if bricked else None),
+                        bricks.data_ptr() if bricked else None,
+                        counts.data_ptr() if counts is not None else None),
                      "trilinear_sample_3d_bwd2_scatter")
     _build.launches["trilinear_sample_3d_bwd2_scatter"] += 1
     return d_out if bf16 else d_vol

@@ -282,14 +282,16 @@ def _k2b_cases(g):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("C", [1, 3, 5])
+@pytest.mark.parametrize("C", [1, 3, 4, 5, 16])
 def test_k2b_forms_match_plain(C, dtype):
     """K2b against its plain version on the card (atomics: rtol 1e-5, atol
     1e-5 times max(1, the largest entry); one bf16 step for a bf16
     volume's gradient, summed in f32 and rounded once), both forms of a
     bf16 volume's gradient (single pass and bricked), with and without
     d_coords, on ``_k2b_cases``; one volume whose sides are multiples of 8
-    and one whose are not; rows of the cotangent zero one in five."""
+    and one whose are not; rows of the cotangent zero one in five; at C
+    other than 1 the rows form (merged rows; 16-byte atomics at C = 4 and
+    16)."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
     from surf_tpu_torch import _build
@@ -411,7 +413,7 @@ def test_k1g_k1s_match_plain(C, V):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("C", [1, 3, 5])
+@pytest.mark.parametrize("C", [1, 3, 4, 5, 16])
 def test_k2g_k2s_match_plain(C, dtype):
     """K2g and K2s (the second order of K2) against their plain versions on
     the card: K2g's directional term bit for bit, its Hessian term bit for
@@ -421,9 +423,17 @@ def test_k2g_k2s_match_plain(C, dtype):
     its forms; K2's points (corners, faces, outside, a z run) and K2b's
     cases (a band, the whole volume, a pile-up, a zero cotangent), both
     ``align_corners`` and pixel coordinates, each K2g term alone, a volume
-    off its allocation's alignment."""
+    and a cotangent off their allocation's alignment (at C = 4 and 16 they
+    take the forms for unaligned rows).  At every C but 1, K2s's counts
+    equal ``chip_smoke.k2s_rows``' (the rows it scatters and the atomics
+    left after its merge: 16-byte ones at C = 4 and 16 on aligned rows,
+    scalar ones otherwise)."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    import os
+    import sys
+    sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+    from chip_smoke import k2s_rows
     from surf_tpu_torch import _build
     dt = getattr(torch, dtype)
     g = torch.Generator().manual_seed(400 + C)
@@ -439,7 +449,11 @@ def test_k2g_k2s_match_plain(C, dtype):
         for vol in vols:
             for what, co, on in cases:
                 h = torch.randn(co.shape[0], 3, generator=g).to(dev)
-                ct = (torch.randn(co.shape[0], C, generator=g) * on).to(dev)
+                ct = torch.randn(co.shape[0], C, generator=g) * on
+                if vol is vols[1]:
+                    ct = torch.cat([torch.zeros(1), ct.reshape(-1)]).to(dev)[1:].view(-1, C)
+                else:
+                    ct = ct.to(dev)
                 for kw in (dict(align_corners=True), dict(align_corners=False),
                            dict(normalized=False)):
                     c = ((co + 1.3) * 5.0 if "normalized" in kw else co).to(dev)
@@ -452,13 +466,20 @@ def test_k2g_k2s_match_plain(C, dtype):
                         n_g += 1
                     ref = tgs.trilinear_sample_bwd2_scatter_plain(vol, c, h, ct, **kw)
                     for bricked in forms:
-                        got = tgs.trilinear_sample_bwd2_scatter(vol, c, h, ct,
-                                                                bricked=bricked, **kw)
+                        counts = torch.zeros(2, dtype=torch.int64, device=dev)
+                        got = tgs.trilinear_sample_bwd2_scatter(vol, c, h, ct, bricked=bricked,
+                                                                counts=counts, **kw)
                         n_s += 1
                         assert got.dtype == ref.dtype == dt
                         rtol = 2.0 ** -7 if dt == torch.bfloat16 else RTOL
                         _close(got.float().cpu().numpy(), ref.float().cpu().numpy(),
                                rtol=rtol)
+                        if C != 1:
+                            want = k2s_rows(vol, c, h, ct, kw.get("align_corners", True),
+                                            normalized=kw.get("normalized", True))
+                            assert want["vec"] == (4 if C % 4 == 0 and vol is vols[0] else 1)
+                            assert counts.tolist() == [want["corner_rows"] * C,
+                                                       want["atomics"]], (what, kw)
     torch.cuda.synchronize()
     assert _build.launches["trilinear_sample_3d_bwd2_gather"] == n_g
     assert _build.launches["trilinear_sample_3d_bwd2_scatter"] == n_s
