@@ -131,7 +131,8 @@ Phases, one line each (any failure exits non-zero, with no result line):
    largest call of every kernel launched there is recorded and held
    against its plain version (an ``also_checked`` entry of the kernel's
    row, with ``call_site`` "dtu ...").  Prints ``read_png``'s time on one
-   1200x1600 image, the loaders' seconds per item, ``build_s``,
+   1200x1600 image and on the same image Adam7-interlaced (its pixels
+   held equal to the plain file's), the loaders' seconds per item, ``build_s``,
    ``mesh_s``, ``clean_mesh_s``, s/step and peak memory, and each kernel
    row gains its launches in the three parts
    (``launches_in_dtu_validate`` / ``_train`` / ``_finetune``);
@@ -165,8 +166,14 @@ Phases, one line each (any failure exits non-zero, with no result line):
    largest operands inside their 32-bit rules, and the largest call of
    every kernel launched held against its plain version (``call_site``
    "mvs <key> validate"; K1 also on its largest image, the colour
-   fetch's fused pyramid).  Prints ``read_jpeg``'s time on one native
-   image of each (the first read apart, the library's build apart), the
+   fetch's fused pyramid).  The BlendedMVS and ETH3D scenes are written
+   with progressive JPEGs too (the port's encoder, libjpeg's simple
+   progression): each ETH3D and BlendedMVS view's progressive file must
+   decode to its baseline file's pixels, and the BlendedMVS validate runs
+   again on the progressive scene, its loader items and cascade equal to
+   the baseline scene's bit for bit.  Prints ``read_jpeg``'s time on one
+   native image of each, baseline and (BlendedMVS, ETH3D) progressive
+   (the first read apart, the library's build apart), the
    seconds a loaded item, ``build_s``, ``mesh_s``, ``clean_mesh_s``,
    ``render_rays_per_s``, peak memory, and each kernel row gains its
    launches in each validate (``launches_in_mvs_bmvs`` / ``_tanks`` /
@@ -2250,7 +2257,9 @@ def dtu_phase(dev="cuda", conf_path=None, ft_conf_path=None, image_hw=(1200, 160
     recorded and then held against its plain version at the tolerances of
     the kernel's row, with its times and bound (``largest_call_entries``).
     The training's peak memory includes the recorded calls' tensors.
-    Also times ``read_png`` on one of the scene's 1200x1600 RGB images.
+    Also times ``read_png`` on one of the scene's 1200x1600 RGB images,
+    and on the same image written Adam7-interlaced (``write_png(...,
+    interlace=True)``), whose pixels must equal the plain file's.
     With ``keep_mesh`` (a path), the validate's mesh is copied there for
     the ``eval`` phase.
 
@@ -2265,7 +2274,7 @@ def dtu_phase(dev="cuda", conf_path=None, ft_conf_path=None, image_hw=(1200, 160
     from surf_tpu_torch import _build, validate
     from surf_tpu_torch.data.dtu_scene import LIGHT, SCAN, write_dtu_scene
     from surf_tpu_torch.finetune import Finetuner
-    from surf_tpu_torch.io import read_png
+    from surf_tpu_torch.io import read_png, write_png
     from surf_tpu_torch.train import Trainer
     cuda = dev == "cuda"
     train_steps, ft_steps = 2, 3
@@ -2290,6 +2299,19 @@ def dtu_phase(dev="cuda", conf_path=None, ft_conf_path=None, image_hw=(1200, 160
             read_png(png)
             png_s.append(time.time() - t0)
         nums.update(read_png_cold_s=png_s[0], read_png_s=statistics.median(png_s[1:]))
+        # the same view as an Adam7-interlaced PNG: the same pixels
+        adam7 = os.path.join(tmp, "adam7.png")
+        write_png(adam7, read_png(png), interlace=True)
+        png_s = []
+        for _ in range(4):
+            t0 = time.time()
+            pixels = read_png(adam7)
+            png_s.append(time.time() - t0)
+        if not np.array_equal(pixels, read_png(png)):
+            fail("dtu: the Adam7-interlaced PNG reads as other pixels than the plain one")
+        nums.update(read_png_interlaced_first_s=png_s[0],
+                    read_png_interlaced_s=statistics.median(png_s[1:]))
+        del pixels
         conf, ft_conf = dtu_confs(root, conf_path, ft_conf_path)
         launches = {}
 
@@ -2672,6 +2694,11 @@ def eval_phase(dtu_mesh, mask_hw=(1200, 1600), radius_mm=150.0, lattice=512,
 
 # key -> the conf that names the dataset, its scan and its views
 MVS_CONFS = {"bmvs": "surf_bmvs.conf", "tanks": "surf_tanks.conf", "eth3d": "surf_eth3d.conf"}
+# the scenes also written with progressive JPEGs: ETH3D's native images (the
+# largest) decoded both ways, BlendedMVS's (the cheapest validate) validated
+# a second time
+MVS_PROGRESSIVE = ("bmvs", "eth3d")
+MVS_PROGRESSIVE_VALIDATE = "bmvs"
 INT32_LIMIT = 2 ** 31 - 1
 
 
@@ -2707,6 +2734,70 @@ def record_size_limits():
             "trilinear_sample"]
 
 
+def same_items(a, b):
+    """Bit equality of two loader items: the same keys, dtypes, shapes and
+    values."""
+    import numpy as np
+    import torch
+    if sorted(a) != sorted(b):
+        return False
+    for k in a:
+        x, y = a[k], b[k]
+        if isinstance(x, torch.Tensor) or isinstance(y, torch.Tensor):
+            if not (isinstance(x, torch.Tensor) and isinstance(y, torch.Tensor)
+                    and x.dtype == y.dtype and torch.equal(x, y)):
+                return False
+        elif isinstance(x, str) or isinstance(y, str):
+            if x != y:
+                return False
+        else:
+            x, y = np.asarray(x), np.asarray(y)
+            if x.dtype != y.dtype or not np.array_equal(x, y):
+                return False
+    return True
+
+
+def progressive_validate(v, conf_path, prog_root, dev, mesh_resolution, out):
+    """A second validate of ``v``'s scene, read from its copy with
+    progressive JPEGs (``prog_root``): a fresh ``Validator`` (same seed) whose
+    loader items equal ``v``'s bit for bit and whose cascade equals the one
+    ``v``'s validate built, bit for bit; every forward kernel launched."""
+    import torch
+    from surf_tpu_torch import _build, validate
+    from surf_tpu_torch.config import ConfigFactory
+    conf = ConfigFactory.parse_file(conf_path)
+    conf["val_dataset"]["data_dir"] = prog_root
+    pv = validate.Validator(conf, device=dev, mesh_resolution=mesh_resolution, seed=0,
+                            base_exp_dir=out, clean_mesh=True)
+    t0 = time.time()
+    for i in range(len(v.dataset)):
+        if not same_items(pv.dataset[i], v.dataset[i]):
+            fail(f"mvs: loader item {i} of the progressive-JPEG scene differs from the "
+                 f"baseline scene's")
+    items_s = time.time() - t0
+    if dev == "cuda":
+        torch.cuda.synchronize()
+    _build.reset_launches()
+    t0 = time.time()
+    (m,) = pv.validate()
+    if dev == "cuda":
+        torch.cuda.synchronize()
+    wall = time.time() - t0
+    launches = dict(_build.launches)
+    missing = [k for k in FWD_KERNELS if launches[k] <= 0]
+    if missing:
+        fail(f"mvs: the progressive-JPEG validate launched no {missing}")
+    if not same_cascade(v.last_scene, pv.last_scene):
+        fail("mvs: the progressive-JPEG validate's cascade differs from the baseline "
+             "scene's bits")
+    nums = {"items_equal": len(v.dataset), "items_s": items_s, "cascade_equal": True,
+            "wall_s": wall, "launches": {k: c for k, c in launches.items() if c}}
+    nums.update({k: m[k] for k in ("build_s", "mesh_s", "clean_mesh_s", "render_rays_per_s",
+                                   "mesh_faces", "psnr")})
+    pv.last_scene = None
+    return nums
+
+
 def mvs_phase(dev="cuda", conf_paths=None, image_hw=None, mesh_resolution=512):
     """The three cross-dataset validates at their confs' full width
     (confs/surf_bmvs.conf, surf_tanks.conf, surf_eth3d.conf: 3 views of
@@ -2724,7 +2815,12 @@ def mvs_phase(dev="cuda", conf_paths=None, image_hw=None, mesh_resolution=512):
     "mvs <key> validate"), and K1's call on its largest image (the colour
     fetch's fused pyramid) too.  Also times ``read_jpeg`` on one native image
     of each dataset (the first read apart; the library's g++ build
-    apart, before any scene is written).
+    apart, before any scene is written).  The BlendedMVS and ETH3D scenes
+    are also written with progressive JPEGs (``MVS_PROGRESSIVE``): each
+    view's progressive file must decode to its baseline file's pixels,
+    ``read_jpeg`` is timed on one, and the BlendedMVS validate runs a
+    second time on the progressive scene (``progressive_validate``: loader
+    items and cascade equal to the baseline scene's bit for bit).
 
     Returns (the launches of each validate, the numbers of each, the
     entries of each by kernel), keyed "bmvs", "tanks", "eth3d".  (``dev``
@@ -2759,20 +2855,38 @@ def mvs_phase(dev="cuda", conf_paths=None, image_hw=None, mesh_resolution=512):
             views = sorted(list(d["ref_view"]) + list(d["src_views"]))
             native = (image_hw or {}).get(key) or _SPECS[name]["native_hw"]
             t0 = time.time()
+            prog_root = os.path.join(tmp, key + "_progressive") \
+                if key in MVS_PROGRESSIVE else None
             root = write_mvs_scene(os.path.join(tmp, key), name, scan, views,
-                                   image_hw=native)
+                                   image_hw=native, progressive_root=prog_root)
             n = {"dataset": name, "views": len(views), "native_hw": list(native),
                  "scene_write_s": time.time() - t0}
             if key == "bmvs":
                 n["jpeg_library_build_s"] = build_s
-            img = os.path.join(root, _SPECS[name]["img_pattern"].format(scan=scan,
-                                                                          vid=views[0]))
+
+            def image(base, vid):
+                return os.path.join(base, _SPECS[name]["img_pattern"].format(scan=scan, vid=vid))
             times = []
             for _ in range(4):
                 t0 = time.time()
-                jpeg.read_jpeg(img)
+                jpeg.read_jpeg(image(root, views[0]))
                 times.append(time.time() - t0)
             n.update(read_jpeg_first_s=times[0], read_jpeg_s=statistics.median(times[1:]))
+            if prog_root:
+                times = []
+                for _ in range(4):
+                    t0 = time.time()
+                    jpeg.read_jpeg(image(prog_root, views[0]))
+                    times.append(time.time() - t0)
+                n.update(read_jpeg_progressive_first_s=times[0],
+                         read_jpeg_progressive_s=statistics.median(times[1:]))
+                # the same coefficients: the same pixels, view by view
+                for vid in views:
+                    if not np.array_equal(jpeg.read_jpeg(image(prog_root, vid)),
+                                          jpeg.read_jpeg(image(root, vid))):
+                        fail(f"mvs {key}: view {vid}'s progressive JPEG decodes to other "
+                             f"pixels than its baseline JPEG")
+                n["progressive_views_equal"] = len(views)
             d["data_dir"] = root
             v = validate.Validator(conf, device=dev, mesh_resolution=mesh_resolution, seed=0,
                                    base_exp_dir=os.path.join(tmp, key + "_val"),
@@ -2827,6 +2941,10 @@ def mvs_phase(dev="cuda", conf_paths=None, image_hw=None, mesh_resolution=512):
             n["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 2 ** 30 if cuda else 0.0
             n["largest_operands"] = dict(sizes, int32_limit=INT32_LIMIT)
             n["launches"] = {k: c for k, c in launches[key].items() if c}
+            if key == MVS_PROGRESSIVE_VALIDATE:
+                n["progressive_validate"] = progressive_validate(
+                    v, (conf_paths or {}).get(key) or os.path.join(HERE, "confs", conf_name),
+                    prog_root, dev, mesh_resolution, os.path.join(tmp, key + "_progressive_val"))
             say("mvs", f"{key} validate ({file_name}, {len(arts)} artifacts): "
                 + json.dumps(n))
             del v, written

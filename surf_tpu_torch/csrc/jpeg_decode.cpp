@@ -1,14 +1,26 @@
-// Baseline JPEG (ITU T.81: SOF0/SOF1, 8-bit samples, Huffman coding) for
-// the port's JPEG reader, io/jpeg.py.  The pixels equal libjpeg-turbo's as
-// Pillow calls it (`np.array(PIL.Image.open(path))`): its arithmetic is
-// copied step for step, integer only, so the result does not depend on
-// compiler flags.
+// JPEG (ITU T.81) for the port's JPEG reader, io/jpeg.py: baseline and
+// extended sequential (SOF0/SOF1) and progressive (SOF2) frames, 8-bit
+// samples, Huffman coding.  The pixels equal libjpeg-turbo's as Pillow
+// calls it (`np.array(PIL.Image.open(path))`): its arithmetic is copied
+// step for step, integer only, so the result does not depend on compiler
+// flags.
 //
 // * entropy decoding as jdhuff.c (derived tables, HUFF_EXTEND, the DC
 //   prediction kept in an int and stored in a 16-bit coefficient, AC runs
 //   past coefficient 63 land on 63 as jpeg_natural_order's extra entries
 //   make them), restart intervals (DRI / RSTn), 0xFF00 stuffing and
 //   0xFF fill bytes;
+// * progressive scans as jdphuff.c (Annex G): DC first and refinement, AC
+//   first (EOB runs, ZRL) and AC refinement (correction bits), into one
+//   16-bit coefficient buffer a component for the whole image, scans
+//   checked as start_pass_phuff_decoder and jdinput.c check them (a
+//   progression libjpeg warns about as JWRN_BOGUS_PROGRESSION raises
+//   here), each component's quantization table latched at its first scan
+//   (latch_quant_tables), the IDCT run once at EOI.  A progression that
+//   leaves any coefficient short of its last refinement (Al = 0) raises:
+//   libjpeg smooths such blocks (jdcoefct.c), which this decoder does not
+//   repeat; once every coefficient is complete libjpeg does not smooth, so
+//   the pixels are those of the baseline file with the same coefficients;
 // * jidctint.c's jpeg_idct_islow (CONST_BITS 13, PASS1_BITS 2, its DC-only
 //   column shortcut) with the final descale through jdmaster.c's
 //   range-limit table;
@@ -22,23 +34,26 @@
 //   chosen as jdapimin.c's default_decompress_parms chooses it (JFIF,
 //   Adobe APP14 transform, component ids).
 //
-// Everything else raises (returns -1 with a message): progressive,
-// lossless, hierarchical and arithmetic-coded files, sample precisions
-// other than 8, 2- and 4-component images (CMYK, YCCK), DNL, corrupt
-// Huffman codes and truncated data.  Nothing is guessed.
+// Everything else raises (returns -1 with a message): lossless,
+// hierarchical and arithmetic-coded files, sample precisions other than 8,
+// 2- and 4-component images (CMYK, YCCK), DNL, bad or incomplete
+// progressions, corrupt Huffman codes and truncated data.  Nothing is
+// guessed.
 //
-// The same file holds a baseline encoder with the Annex K tables at 4:4:4,
-// 4:2:2 and 4:2:0 (a test and scene-writing fixture; the port's loaders
-// only decode).
+// The same file holds an encoder with the Annex K tables at 4:4:4, 4:2:2
+// and 4:2:0, baseline or progressive (libjpeg's jpeg_simple_progression
+// script), a test and scene-writing fixture: the port's loaders only
+// decode.
 //
 // C ABI for ctypes:
 //   jpeg_header(buf, len, dims[3], err, errlen) -> 0 | -1: height, width,
 //       channels (1 or 3) of the output
 //   jpeg_decode(buf, len, out, out_size, err, errlen) -> 0 | -1: the
 //       (H, W, channels) uint8 pixels into out
-//   jpeg_encode(px, h, w, c, quality, subsampling, size, err, errlen)
-//       -> malloc'd bytes (free with jpeg_free) | null: c is 1 or 3,
-//       subsampling 0 (4:4:4), 1 (4:2:2) or 2 (4:2:0)
+//   jpeg_encode(px, h, w, c, quality, subsampling, progressive, size, err,
+//       errlen) -> malloc'd bytes (free with jpeg_free) | null: c is 1 or
+//       3, subsampling 0 (4:4:4), 1 (4:2:2) or 2 (4:2:0), progressive 0
+//       or 1
 
 #include <algorithm>
 #include <cmath>
@@ -201,6 +216,15 @@ struct Component {
     std::vector<uint8_t> plane;
     int pred = 0;                   // last DC value
     bool scanned = false;
+    // progressive frames: the whole image's coefficients (bw x bh blocks
+    // of 64, natural order; at ETH3D's 4141x6212 about 77 MB over the
+    // three components at 4:2:0, 154 MB at 4:4:4), each coefficient's
+    // current Al (-1: no scan yet, as jdinput.c's coef_bits) and the
+    // quantization table latched at the component's first scan
+    std::vector<int16_t> coef;
+    int coef_bits[64];
+    int16_t qt[64] = {};
+    Component() { std::fill(coef_bits, coef_bits + 64, -1); }
 };
 
 // entropy-coded bytes with 0xFF00 unstuffed, stopping at the first marker;
@@ -261,6 +285,12 @@ struct BitReader {
     }
 };
 
+// the scan's data ran out: the file's end, or a marker before its last block
+[[noreturn]] void fail_data_end(const BitReader& br) {
+    if (br.stopped && br.marker == nullptr) fail("truncated data: the file ends inside the scan");
+    fail("corrupt data: the scan's data ends before its last block");
+}
+
 inline int decode_huff(BitReader& br, const HuffTable& t) {
     const unsigned look = br.peek(kLookBits);
     const unsigned e = t.look[look];
@@ -276,6 +306,7 @@ inline int decode_huff(BitReader& br, const HuffTable& t) {
             return t.vals[(int)(code + t.valoffset[l])];
         }
     }
+    if (br.pad > br.nbits - 16) fail_data_end(br);    // a code read from past the data
     fail("corrupt data: bad Huffman code");
 }
 
@@ -416,7 +447,7 @@ struct Decoder {
     const uint8_t* pos;
     int width = 0, height = 0, ncomp = 0;
     int max_h = 1, max_v = 1;
-    bool have_frame = false, saw_jfif = false, saw_adobe = false;
+    bool have_frame = false, saw_jfif = false, saw_adobe = false, progressive = false;
     int adobe_transform = 0;
     ColorSpace space = ColorSpace::kGray;   // fixed at the first scan, as libjpeg's
     int restart_interval = 0;
@@ -471,6 +502,7 @@ struct Decoder {
         if (ncomp == 4) fail("4-component (CMYK/YCCK) JPEG is not supported");
         if (ncomp != 1 && ncomp != 3) fail("%d-component JPEG is not supported", ncomp);
         if (n != 6u + 3u * ncomp) fail("bad SOF segment length");
+        progressive = code == 0xC2;
         comps.resize(ncomp);
         for (int i = 0; i < ncomp; ++i) {
             Component& c = comps[i];
@@ -578,11 +610,9 @@ struct Decoder {
     // SOS (decode())
     bool dispatch(int code) {
         switch (code) {
-        case 0xC0: case 0xC1:
+        case 0xC0: case 0xC1: case 0xC2:
             read_sof(code);
             return true;
-        case 0xC2:
-            fail("progressive JPEG (SOF2) is not supported: only baseline");
         case 0xC3:
             fail("lossless JPEG (SOF3) is not supported");
         case 0xC5: case 0xC6: case 0xC7: case 0xDE: case 0xDF:
@@ -648,12 +678,56 @@ struct Decoder {
         }
     }
 
+    // the Huffman table a scan uses; jstdhuff.c: a missing table 0 or 1 is
+    // Annex K's (Motion-JPEG)
+    void need_table(bool is_ac, int id) {
+        HuffTable& t = is_ac ? ac[id] : dc[id];
+        if (t.defined) return;
+        if (id > 1) fail("Huffman table %d is not defined", id);
+        if (!is_ac)
+            std_table(t, id ? kDcChromBits : kDcLumBits, kDcVals, 12, true);
+        else
+            std_table(t, id ? kAcChromBits : kAcLumBits, id ? kAcChromVals : kAcLumVals, 162,
+                      false);
+    }
+
+    // at the start of each restart interval but the first: the RSTn that
+    // must end the last one, and the bit reader started after it
+    void restart(BitReader& br, int& next_rst) {
+        const uint8_t* q = br.marker;
+        if (q == nullptr) {
+            q = br.p;
+            while (q < end && !(q[0] == 0xFF && q + 1 < end && q[1] != 0 && q[1] != 0xFF))
+                ++q;
+        }
+        if (q + 1 >= end) fail("truncated data: the file ends inside the scan");
+        if (q[1] != 0xD0 + next_rst)
+            fail("corrupt data: marker 0x%02X where RST%d was due", q[1], next_rst);
+        next_rst = (next_rst + 1) & 7;
+        br = BitReader{q + 2, end};
+    }
+
+    static void check_overrun(const BitReader& br) {
+        if (br.overran()) fail_data_end(br);
+    }
+
     void read_scan() {
         unsigned n;
         const uint8_t* s = segment(n);
         if (n < 1) fail("bad SOS segment");
         const int ns = s[0];
         if (ns < 1 || ns > 4 || n != 4u + 2u * ns) fail("bad SOS segment");
+        // spectral selection and successive approximation (progressive only)
+        const int Ss = s[1 + 2 * ns], Se = s[2 + 2 * ns];
+        const int Ah = s[3 + 2 * ns] >> 4, Al = s[3 + 2 * ns] & 15;
+        if (progressive) {
+            // jdphuff.c start_pass_phuff_decoder's JERR_BAD_PROGRESSION
+            const bool bad = (Ss == 0 ? Se != 0 : (Ss > Se || Se > 63 || ns != 1)) ||
+                             (Ah != 0 && Al != Ah - 1) || Al > 13;
+            if (bad)
+                fail("bad progression: a scan of %d components with Ss %d, Se %d, Ah %d, Al %d",
+                     ns, Ss, Se, Ah, Al);
+        }
         if (std::none_of(comps.begin(), comps.end(),
                          [](const Component& c) { return c.scanned; }))
             space = color_space();
@@ -665,29 +739,29 @@ struct Decoder {
             for (Component& cc : comps)
                 if (cc.id == id) c = &cc;
             if (c == nullptr) fail("SOS names component %d, which the frame lacks", id);
-            if (c->scanned) fail("component %d in a second scan", id);
+            if (std::find(in_scan.begin(), in_scan.end(), c) != in_scan.end())
+                fail("SOS names component %d twice", id);
+            if (!progressive && c->scanned) fail("component %d in a second scan", id);
             c->td = s[2 + 2 * i] >> 4;
             c->ta = s[2 + 2 * i] & 15;
             if (c->td > 3 || c->ta > 3) fail("bad Huffman table id in SOS");
-            if (!quant_defined[c->tq]) fail("quantization table %d is not defined", c->tq);
-            // jstdhuff.c: a missing table 0 or 1 is Annex K's (Motion-JPEG)
-            for (int k = 0; k < 2; ++k) {
-                HuffTable& t = k ? ac[c->ta] : dc[c->td];
-                const int id2 = k ? c->ta : c->td;
-                if (t.defined) continue;
-                if (id2 > 1) fail("Huffman table %d is not defined", id2);
-                if (k == 0)
-                    std_table(t, id2 ? kDcChromBits : kDcLumBits, kDcVals, 12, true);
-                else
-                    std_table(t, id2 ? kAcChromBits : kAcLumBits,
-                              id2 ? kAcChromVals : kAcLumVals, 162, false);
+            if (!c->scanned) {
+                // jdinput.c latch_quant_tables: the table in force now
+                if (!quant_defined[c->tq]) fail("quantization table %d is not defined", c->tq);
+                std::memcpy(c->qt, quant[c->tq], sizeof(c->qt));
             }
+            if (!progressive || (Ss == 0 && Ah == 0)) need_table(false, c->td);
+            if (!progressive || Ss > 0) need_table(true, c->ta);
             c->scanned = true;
             c->pred = 0;
             in_scan.push_back(c);
             blocks_per_mcu += ns > 1 ? c->h * c->v : 1;
         }
         if (blocks_per_mcu > 10) fail("bad MCU: %d blocks", blocks_per_mcu);
+        if (progressive) {
+            progressive_scan(in_scan, Ss, Se, Ah, Al);
+            return;
+        }
 
         int mcux, mcuy;
         if (ns == 1) {
@@ -706,18 +780,7 @@ struct Decoder {
         const int64_t total = (int64_t)mcux * mcuy;
         for (int64_t m = 0; m < total; ++m) {
             if (restart_interval && m > 0 && m % restart_interval == 0) {
-                // the RSTn that must end this interval
-                const uint8_t* q = br.marker;
-                if (q == nullptr) {
-                    q = br.p;
-                    while (q < end && !(q[0] == 0xFF && q + 1 < end && q[1] != 0 && q[1] != 0xFF))
-                        ++q;
-                }
-                if (q + 1 >= end) fail("truncated data: the file ends inside the scan");
-                if (q[1] != 0xD0 + next_rst)
-                    fail("corrupt data: marker 0x%02X where RST%d was due", q[1], next_rst);
-                next_rst = (next_rst + 1) & 7;
-                br = BitReader{q + 2, end};
+                restart(br, next_rst);
                 for (Component* c : in_scan) c->pred = 0;
             }
             const int my = (int)(m / mcux), mx = (int)(m % mcux);
@@ -732,14 +795,178 @@ struct Decoder {
                     }
                 }
             }
-            if (br.overran()) {
-                if (br.stopped && br.marker == nullptr)
-                    fail("truncated data: the file ends inside the scan");
-                fail("corrupt data: the scan's data ends before its last block");
-            }
+            check_overrun(br);
         }
         // on to the marker after the scan's data
         pos = br.marker ? br.marker : br.p;
+    }
+
+    // -- progressive scans (jdphuff.c), into the components' coefficients --
+
+    void dc_first(BitReader& br, Component& c, int16_t* blk, int Al) {
+        int s = decode_huff(br, dc[c.td]);
+        if (s) s = extend(br.get(s), s);
+        s += c.pred;
+        c.pred = s;
+        blk[0] = (int16_t)((unsigned)s << Al);
+    }
+
+    static void dc_refine(BitReader& br, int16_t* blk, int Al) {
+        if (br.get(1)) blk[0] = (int16_t)(blk[0] | (1 << Al));
+    }
+
+    void ac_first(BitReader& br, const Component& c, int16_t* blk, int Ss, int Se, int Al,
+                  int& eobrun) {
+        if (eobrun > 0) {
+            --eobrun;
+            return;
+        }
+        const HuffTable& t = ac[c.ta];
+        for (int k = Ss; k <= Se; ++k) {
+            int s = decode_huff(br, t);
+            const int r = s >> 4;
+            s &= 15;
+            if (s) {
+                k += r;
+                blk[kNatural[k]] = (int16_t)((unsigned)extend(br.get(s), s) << Al);
+            } else if (r == 15) {
+                k += 15;                           // ZRL
+            } else {
+                eobrun = 1 << r;                   // EOBr: 2^r + r bits blocks
+                if (r) eobrun += (int)br.get(r);
+                --eobrun;                          // this block is one of them
+                break;
+            }
+        }
+    }
+
+    // decode_mcu_AC_refine: a correction bit for each coefficient already
+    // nonzero that a run passes, and for those past the band's last new one
+    // in an EOB run
+    void ac_refine(BitReader& br, const Component& c, int16_t* blk, int Ss, int Se, int Al,
+                   int& eobrun) {
+        const int p1 = 1 << Al, m1 = -(1 << Al);
+        auto correct = [&](int16_t& co) {
+            if (br.get(1) && (co & p1) == 0) co = (int16_t)(co >= 0 ? co + p1 : co + m1);
+        };
+        int k = Ss;
+        if (eobrun == 0) {
+            const HuffTable& t = ac[c.ta];
+            for (; k <= Se; ++k) {
+                int s = decode_huff(br, t);
+                int r = s >> 4;
+                s &= 15;
+                if (s) {
+                    if (s != 1) {
+                        check_overrun(br);
+                        fail("corrupt data: a refinement's new coefficient of size %d", s);
+                    }
+                    s = br.get(1) ? p1 : m1;
+                } else if (r != 15) {
+                    eobrun = 1 << r;
+                    if (r) eobrun += (int)br.get(r);
+                    break;
+                }
+                // past the coefficients already nonzero and r zero ones
+                do {
+                    int16_t& co = blk[kNatural[k]];
+                    if (co != 0)
+                        correct(co);
+                    else if (--r < 0)
+                        break;
+                    ++k;
+                } while (k <= Se);
+                if (s) blk[kNatural[k]] = (int16_t)s;
+            }
+        }
+        if (eobrun > 0) {
+            for (; k <= Se; ++k) {
+                int16_t& co = blk[kNatural[k]];
+                if (co != 0) correct(co);
+            }
+            --eobrun;
+        }
+    }
+
+    void progressive_scan(const std::vector<Component*>& in_scan, int Ss, int Se, int Ah,
+                          int Al) {
+        // jdinput.c's coef_bits: libjpeg warns (JWRN_BOGUS_PROGRESSION) and
+        // goes on; here it raises
+        for (Component* c : in_scan) {
+            if (Ss > 0 && c->coef_bits[0] < 0)
+                fail("bogus progression: an AC scan of component %d before its first DC scan",
+                     c->id);
+            for (int k = Ss; k <= Se; ++k) {
+                const int expected = c->coef_bits[k] < 0 ? 0 : c->coef_bits[k];
+                if (Ah != expected)
+                    fail("bogus progression: component %d, coefficient %d: a scan with Ah %d "
+                         "where its bits stand at %d", c->id, k, Ah, c->coef_bits[k]);
+                c->coef_bits[k] = Al;
+            }
+            if (c->coef.empty()) c->coef.assign((size_t)c->bw * c->bh * 64, 0);
+        }
+        const int ns = (int)in_scan.size();
+        int mcux, mcuy;
+        if (ns == 1) {
+            mcux = in_scan[0]->width_in_blocks;
+            mcuy = in_scan[0]->height_in_blocks;
+        } else {
+            mcux = (width + 8 * max_h - 1) / (8 * max_h);
+            mcuy = (height + 8 * max_v - 1) / (8 * max_v);
+        }
+        BitReader br{pos, end};
+        int next_rst = 0, eobrun = 0;
+        const int64_t total = (int64_t)mcux * mcuy;
+        for (int64_t m = 0; m < total; ++m) {
+            if (restart_interval && m > 0 && m % restart_interval == 0) {
+                restart(br, next_rst);
+                for (Component* c : in_scan) c->pred = 0;
+                eobrun = 0;
+            }
+            const int64_t my = m / mcux, mx = m % mcux;
+            if (ns > 1) {                          // interleaved: DC only
+                for (Component* c : in_scan)
+                    for (int bv = 0; bv < c->v; ++bv)
+                        for (int bh = 0; bh < c->h; ++bh) {
+                            int16_t* blk = c->coef.data() +
+                                           ((my * c->v + bv) * c->bw + mx * c->h + bh) * 64;
+                            if (Ah == 0)
+                                dc_first(br, *c, blk, Al);
+                            else
+                                dc_refine(br, blk, Al);
+                        }
+            } else {
+                Component& c = *in_scan[0];
+                int16_t* blk = c.coef.data() + (my * c.bw + mx) * 64;
+                if (Ss == 0)
+                    Ah == 0 ? dc_first(br, c, blk, Al) : dc_refine(br, blk, Al);
+                else if (Ah == 0)
+                    ac_first(br, c, blk, Ss, Se, Al, eobrun);
+                else
+                    ac_refine(br, c, blk, Ss, Se, Al, eobrun);
+            }
+            check_overrun(br);
+        }
+        pos = br.marker ? br.marker : br.p;
+    }
+
+    // at EOI: every coefficient at its last refinement, then the IDCT of
+    // every block of the image with the latched tables
+    void finish_progressive() {
+        for (Component& c : comps) {
+            for (int k = 0; k < 64; ++k)
+                if (c.coef_bits[k] != 0)
+                    fail("incomplete progression: component %d, coefficient %d ends at bit %d, "
+                         "not 0", c.id, k, c.coef_bits[k]);
+        }
+        for (Component& c : comps) {
+            c.plane.assign((size_t)c.stride * c.bh * 8, 0);
+            for (int64_t by = 0; by < c.height_in_blocks; ++by)
+                for (int64_t bx = 0; bx < c.width_in_blocks; ++bx)
+                    idct_islow(c.coef.data() + (by * c.bw + bx) * 64, c.qt,
+                               c.plane.data() + by * 8 * c.stride + bx * 8, c.stride);
+            std::vector<int16_t>().swap(c.coef);
+        }
     }
 
     void decode(uint8_t* out, int64_t out_size) {
@@ -760,6 +987,7 @@ struct Decoder {
                  width, ncomp == 1 ? 1 : 3);
         for (const Component& c : comps)
             if (!c.scanned) fail("truncated file: component %d has no scan", c.id);
+        if (progressive) finish_progressive();
         convert(out);
     }
 
@@ -872,7 +1100,7 @@ void set_error(char* err, int64_t errlen, const std::string& msg) {
 }
 
 // ---------------------------------------------------------------------------
-// encoding (a fixture: Annex K tables, float DCT)
+// encoding (a fixture: Annex K tables, float DCT; baseline or progressive)
 // ---------------------------------------------------------------------------
 
 struct HuffCode {
@@ -926,11 +1154,13 @@ struct EncComponent {
     int id, h, v, tq, tbl;
     int pw, ph;                     // plane size: whole MCUs
     std::vector<float> plane;       // samples - 128
+    std::vector<int16_t> coef;      // (ph / 8) x (pw / 8) blocks, natural order
     int pred = 0;
 };
 
-void encode_block(BitWriter& bw, const float* src, int64_t stride, const float* qdiv,
-                  const double (*cosv)[8], int& pred, const HuffCode& dch, const HuffCode& ach) {
+// the quantized coefficients (natural order) of one 8x8 block of samples
+void quantize_block(const float* src, int64_t stride, const float* qdiv, const double (*cosv)[8],
+                    int16_t* q) {
     double tmp[64], co[64];
     for (int y = 0; y < 8; ++y)
         for (int u = 0; u < 8; ++u) {
@@ -944,21 +1174,29 @@ void encode_block(BitWriter& bw, const float* src, int64_t stride, const float* 
             for (int y = 0; y < 8; ++y) s += tmp[y * 8 + u] * cosv[v][y];
             co[v * 8 + u] = s;
         }
-    int q[64];
-    for (int k = 0; k < 64; ++k) q[k] = (int)std::lround(co[k] / qdiv[k]);
-    auto nbits = [](int v) {
-        int a = v < 0 ? -v : v, n = 0;
-        while (a) {
-            ++n;
-            a >>= 1;
-        }
-        return n;
-    };
-    const int diff = q[0] - pred;
-    pred = q[0];
-    int s = nbits(diff);
+    for (int k = 0; k < 64; ++k) q[k] = (int16_t)std::lround(co[k] / qdiv[k]);
+}
+
+int nbits(int v) {
+    int a = v < 0 ? -v : v, n = 0;
+    while (a) {
+        ++n;
+        a >>= 1;
+    }
+    return n;
+}
+
+void emit_dc(BitWriter& bw, int diff, const HuffCode& dch) {
+    const int s = nbits(diff);
     bw.put(dch.code[s], dch.len[s]);
     if (s) bw.put((unsigned)(diff < 0 ? diff - 1 : diff), s);
+}
+
+// one block of a sequential scan
+void emit_sequential(BitWriter& bw, const int16_t* q, int& pred, const HuffCode& dch,
+                     const HuffCode& ach) {
+    emit_dc(bw, q[0] - pred, dch);
+    pred = q[0];
     int run = 0;
     for (int k = 1; k < 64; ++k) {
         const int v = q[kNatural[k]];
@@ -970,7 +1208,7 @@ void encode_block(BitWriter& bw, const float* src, int64_t stride, const float* 
             bw.put(ach.code[0xF0], ach.len[0xF0]);
             run -= 16;
         }
-        s = nbits(v);
+        const int s = nbits(v);
         const int rs = (run << 4) | s;
         bw.put(ach.code[rs], ach.len[rs]);
         bw.put((unsigned)(v < 0 ? v - 1 : v), s);
@@ -979,7 +1217,87 @@ void encode_block(BitWriter& bw, const float* src, int64_t stride, const float* 
     if (run > 0) bw.put(ach.code[0], ach.len[0]);
 }
 
-std::vector<uint8_t> encode(const uint8_t* px, int h, int w, int c, int quality, int sub) {
+// jcphuff.c's encoders for one block of a progressive scan.  Each band
+// that ends in zeros ends in an EOB run of one block (EOB0): Annex K's AC
+// tables have no longer EOBn symbols.
+void emit_ac_first(BitWriter& bw, const int16_t* q, int Ss, int Se, int Al, const HuffCode& ach) {
+    int run = 0;
+    for (int k = Ss; k <= Se; ++k) {
+        const int v = q[kNatural[k]];
+        const int t = (v < 0 ? -v : v) >> Al;   // the magnitude's point transform
+        if (t == 0) {
+            ++run;
+            continue;
+        }
+        while (run > 15) {
+            bw.put(ach.code[0xF0], ach.len[0xF0]);
+            run -= 16;
+        }
+        const int s = nbits(t);
+        const int rs = (run << 4) | s;
+        bw.put(ach.code[rs], ach.len[rs]);
+        bw.put((unsigned)(v < 0 ? ~t : t), s);
+        run = 0;
+    }
+    if (run > 0) bw.put(ach.code[0], ach.len[0]);
+}
+
+// a refinement: each coefficient new at bit Al as a run of zeros and a
+// sign; one correction bit (bit Al) for each coefficient nonzero before,
+// sent after the next symbol
+void emit_ac_refine(BitWriter& bw, const int16_t* q, int Ss, int Se, int Al,
+                    const HuffCode& ach) {
+    int mag[64], last_new = 0;
+    for (int k = Ss; k <= Se; ++k) {
+        const int v = q[kNatural[k]];
+        mag[k] = (v < 0 ? -v : v) >> Al;
+        if (mag[k] == 1) last_new = k;
+    }
+    uint8_t corr[64];
+    int run = 0, ncorr = 0;
+    auto flush_corr = [&]() {
+        for (int i = 0; i < ncorr; ++i) bw.put(corr[i], 1);
+        ncorr = 0;
+    };
+    for (int k = Ss; k <= Se; ++k) {
+        if (mag[k] == 0) {
+            ++run;
+            continue;
+        }
+        while (run > 15 && k <= last_new) {
+            bw.put(ach.code[0xF0], ach.len[0xF0]);
+            run -= 16;
+            flush_corr();
+        }
+        if (mag[k] > 1) {
+            corr[ncorr++] = (uint8_t)(mag[k] & 1);
+            continue;
+        }
+        const int rs = (run << 4) | 1;
+        bw.put(ach.code[rs], ach.len[rs]);
+        bw.put(q[kNatural[k]] < 0 ? 0u : 1u, 1);
+        flush_corr();
+        run = 0;
+    }
+    if (run > 0 || ncorr > 0) {
+        bw.put(ach.code[0], ach.len[0]);
+        flush_corr();
+    }
+}
+
+// libjpeg's jpeg_simple_progression: (component or -1 for all, Ss, Se, Ah, Al)
+struct ScanSpec {
+    int comp, ss, se, ah, al;
+};
+const ScanSpec kColourScript[10] = {{-1, 0, 0, 0, 1}, {0, 1, 5, 0, 2},  {2, 1, 63, 0, 1},
+                                    {1, 1, 63, 0, 1}, {0, 6, 63, 0, 2}, {0, 1, 63, 2, 1},
+                                    {-1, 0, 0, 1, 0}, {2, 1, 63, 1, 0}, {1, 1, 63, 1, 0},
+                                    {0, 1, 63, 1, 0}};
+const ScanSpec kGreyScript[6] = {{-1, 0, 0, 0, 1}, {0, 1, 5, 0, 2},  {0, 6, 63, 0, 2},
+                                 {0, 1, 63, 2, 1}, {-1, 0, 0, 1, 0}, {0, 1, 63, 1, 0}};
+
+std::vector<uint8_t> encode(const uint8_t* px, int h, int w, int c, int quality, int sub,
+                            bool progressive) {
     if (h < 1 || w < 1 || h > 65535 || w > 65535) fail("image size %dx%d out of range", h, w);
     if (c != 1 && c != 3) fail("%d channels: only 1 or 3", c);
     if (sub < 0 || sub > 2) fail("subsampling %d: only 0 (4:4:4), 1 (4:2:2), 2 (4:2:0)", sub);
@@ -996,42 +1314,44 @@ std::vector<uint8_t> encode(const uint8_t* px, int h, int w, int c, int quality,
     const int mcux = (w + 8 * mh - 1) / (8 * mh), mcuy = (h + 8 * mv - 1) / (8 * mv);
     const int fw = mcux * 8 * mh, fh = mcuy * 8 * mv;     // padded full size
     std::vector<EncComponent> comps;
-    comps.push_back({1, mh, mv, 0, 0, fw, fh, {}});
+    comps.push_back({1, mh, mv, 0, 0, fw, fh, {}, {}});
     if (c == 3) {
-        comps.push_back({2, 1, 1, 1, 1, fw / mh, fh / mv, {}});
-        comps.push_back({3, 1, 1, 1, 1, fw / mh, fh / mv, {}});
+        comps.push_back({2, 1, 1, 1, 1, fw / mh, fh / mv, {}, {}});
+        comps.push_back({3, 1, 1, 1, 1, fw / mh, fh / mv, {}, {}});
     }
-    // colour conversion (JFIF) on the edge-replicated padded image
-    std::vector<float> full[3];
-    for (int ci = 0; ci < c; ++ci) full[ci].resize((size_t)fw * fh);
-    for (int y = 0; y < fh; ++y) {
-        const int sy = y < h ? y : h - 1;
-        for (int x = 0; x < fw; ++x) {
-            const int sx = x < w ? x : w - 1;
-            const uint8_t* p = px + ((int64_t)sy * w + sx) * c;
-            const size_t o = (size_t)y * fw + x;
-            if (c == 1) {
-                full[0][o] = p[0];
-            } else {
-                const float r = p[0], g = p[1], b = p[2];
-                full[0][o] = 0.299f * r + 0.587f * g + 0.114f * b;
-                full[1][o] = -0.168736f * r - 0.331264f * g + 0.5f * b + 128.0f;
-                full[2][o] = 0.5f * r - 0.418688f * g - 0.081312f * b + 128.0f;
+    {
+        // colour conversion (JFIF) on the edge-replicated padded image
+        std::vector<float> full[3];
+        for (int ci = 0; ci < c; ++ci) full[ci].resize((size_t)fw * fh);
+        for (int y = 0; y < fh; ++y) {
+            const int sy = y < h ? y : h - 1;
+            for (int x = 0; x < fw; ++x) {
+                const int sx = x < w ? x : w - 1;
+                const uint8_t* p = px + ((int64_t)sy * w + sx) * c;
+                const size_t o = (size_t)y * fw + x;
+                if (c == 1) {
+                    full[0][o] = p[0];
+                } else {
+                    const float r = p[0], g = p[1], b = p[2];
+                    full[0][o] = 0.299f * r + 0.587f * g + 0.114f * b;
+                    full[1][o] = -0.168736f * r - 0.331264f * g + 0.5f * b + 128.0f;
+                    full[2][o] = 0.5f * r - 0.418688f * g - 0.081312f * b + 128.0f;
+                }
             }
         }
-    }
-    for (int ci = 0; ci < c; ++ci) {
-        EncComponent& e = comps[ci];
-        const int fx = ci == 0 ? 1 : mh, fy = ci == 0 ? 1 : mv;
-        e.plane.resize((size_t)e.pw * e.ph);
-        for (int y = 0; y < e.ph; ++y)
-            for (int x = 0; x < e.pw; ++x) {
-                float s = 0;
-                for (int dy = 0; dy < fy; ++dy)
-                    for (int dx = 0; dx < fx; ++dx)
-                        s += full[ci][(size_t)(y * fy + dy) * fw + x * fx + dx];
-                e.plane[(size_t)y * e.pw + x] = s / (fx * fy) - 128.0f;
-            }
+        for (int ci = 0; ci < c; ++ci) {
+            EncComponent& e = comps[ci];
+            const int fx = ci == 0 ? 1 : mh, fy = ci == 0 ? 1 : mv;
+            e.plane.resize((size_t)e.pw * e.ph);
+            for (int y = 0; y < e.ph; ++y)
+                for (int x = 0; x < e.pw; ++x) {
+                    float s = 0;
+                    for (int dy = 0; dy < fy; ++dy)
+                        for (int dx = 0; dx < fx; ++dx)
+                            s += full[ci][(size_t)(y * fy + dy) * fw + x * fx + dx];
+                    e.plane[(size_t)y * e.pw + x] = s / (fx * fy) - 128.0f;
+                }
+        }
     }
     double cosv[8][8];
     for (int u = 0; u < 8; ++u)
@@ -1040,6 +1360,18 @@ std::vector<uint8_t> encode(const uint8_t* px, int h, int w, int c, int quality,
     float qdiv[2][64];
     for (int t = 0; t < 2; ++t)
         for (int k = 0; k < 64; ++k) qdiv[t][k] = qt[t][k];
+    for (EncComponent& e : comps) {
+        const int bw = e.pw / 8, bh = e.ph / 8;
+        e.coef.resize((size_t)bw * bh * 64);
+        for (int64_t by = 0; by < bh; ++by)
+            for (int64_t bx = 0; bx < bw; ++bx)
+                quantize_block(e.plane.data() + by * 8 * e.pw + bx * 8, e.pw, qdiv[e.tbl], cosv,
+                               e.coef.data() + (by * bw + bx) * 64);
+        std::vector<float>().swap(e.plane);
+    }
+    auto block = [](EncComponent& e, int64_t by, int64_t bx) {
+        return e.coef.data() + (by * (e.pw / 8) + bx) * 64;
+    };
 
     std::vector<uint8_t> out = {0xFF, 0xD8};
     put_marker(out, 0xE0, {'J', 'F', 'I', 'F', 0, 1, 1, 0, 0, 1, 0, 1, 0, 0});
@@ -1055,7 +1387,7 @@ std::vector<uint8_t> encode(const uint8_t* px, int h, int w, int c, int quality,
         sof.push_back((uint8_t)((e.h << 4) | e.v));
         sof.push_back((uint8_t)e.tq);
     }
-    put_marker(out, 0xC0, sof);
+    put_marker(out, progressive ? 0xC2 : 0xC0, sof);
     const uint8_t* bits[4] = {kDcLumBits, kAcLumBits, kDcChromBits, kAcChromBits};
     const uint8_t* vals[4] = {kDcVals, kAcLumVals, kDcVals, kAcChromVals};
     const int nvals[4] = {12, 162, 12, 162};
@@ -1065,28 +1397,77 @@ std::vector<uint8_t> encode(const uint8_t* px, int h, int w, int c, int quality,
         body.insert(body.end(), vals[t], vals[t] + nvals[t]);
         put_marker(out, 0xC4, body);
     }
-    std::vector<uint8_t> sos = {(uint8_t)c};
-    for (const EncComponent& e : comps) {
-        sos.push_back((uint8_t)e.id);
-        sos.push_back((uint8_t)((e.tbl << 4) | e.tbl));
-    }
-    sos.insert(sos.end(), {0, 63, 0});
-    put_marker(out, 0xDA, sos);
     const HuffCode dch[2] = {make_codes(kDcLumBits, kDcVals), make_codes(kDcChromBits, kDcVals)};
     const HuffCode ach[2] = {make_codes(kAcLumBits, kAcLumVals),
                              make_codes(kAcChromBits, kAcChromVals)};
-    BitWriter bw{out};
-    for (int my = 0; my < mcuy; ++my)
-        for (int mx = 0; mx < mcux; ++mx)
-            for (EncComponent& e : comps)
-                for (int bv = 0; bv < e.v; ++bv)
-                    for (int bh = 0; bh < e.h; ++bh) {
-                        const int64_t y0 = ((int64_t)my * e.v + bv) * 8;
-                        const int64_t x0 = ((int64_t)mx * e.h + bh) * 8;
-                        encode_block(bw, e.plane.data() + y0 * e.pw + x0, e.pw, qdiv[e.tbl], cosv,
-                                     e.pred, dch[e.tbl], ach[e.tbl]);
-                    }
-    bw.flush();
+    if (!progressive) {
+        std::vector<uint8_t> sos = {(uint8_t)c};
+        for (const EncComponent& e : comps) {
+            sos.push_back((uint8_t)e.id);
+            sos.push_back((uint8_t)((e.tbl << 4) | e.tbl));
+        }
+        sos.insert(sos.end(), {0, 63, 0});
+        put_marker(out, 0xDA, sos);
+        BitWriter bw{out};
+        for (int my = 0; my < mcuy; ++my)
+            for (int mx = 0; mx < mcux; ++mx)
+                for (EncComponent& e : comps)
+                    for (int bv = 0; bv < e.v; ++bv)
+                        for (int bh = 0; bh < e.h; ++bh)
+                            emit_sequential(bw, block(e, (int64_t)my * e.v + bv,
+                                                      (int64_t)mx * e.h + bh),
+                                            e.pred, dch[e.tbl], ach[e.tbl]);
+        bw.flush();
+    } else {
+        const ScanSpec* script = c == 3 ? kColourScript : kGreyScript;
+        for (int si = 0; si < (c == 3 ? 10 : 6); ++si) {
+            const ScanSpec& sc = script[si];
+            std::vector<EncComponent*> in_scan;
+            for (int ci = 0; ci < c; ++ci)
+                if (sc.comp < 0 || sc.comp == ci) in_scan.push_back(&comps[ci]);
+            // jcmarker.c write_sos: 0 for the tables a scan does not use
+            std::vector<uint8_t> sos = {(uint8_t)in_scan.size()};
+            for (EncComponent* e : in_scan) {
+                sos.push_back((uint8_t)e->id);
+                const int td = sc.ss == 0 && sc.ah == 0 ? e->tbl : 0;
+                sos.push_back((uint8_t)(sc.ss == 0 ? td << 4 : e->tbl));
+                e->pred = 0;
+            }
+            sos.insert(sos.end(), {(uint8_t)sc.ss, (uint8_t)sc.se,
+                                   (uint8_t)((sc.ah << 4) | sc.al)});
+            put_marker(out, 0xDA, sos);
+            BitWriter bw{out};
+            auto emit = [&](EncComponent& e, const int16_t* q) {
+                if (sc.ss == 0 && sc.ah == 0) {
+                    const int dcv = q[0] >> sc.al;      // arithmetic shift, as jcphuff.c
+                    emit_dc(bw, dcv - e.pred, dch[e.tbl]);
+                    e.pred = dcv;
+                } else if (sc.ss == 0) {
+                    bw.put((unsigned)(q[0] >> sc.al) & 1u, 1);
+                } else if (sc.ah == 0) {
+                    emit_ac_first(bw, q, sc.ss, sc.se, sc.al, ach[e.tbl]);
+                } else {
+                    emit_ac_refine(bw, q, sc.ss, sc.se, sc.al, ach[e.tbl]);
+                }
+            };
+            if (in_scan.size() > 1) {               // interleaved DC: whole MCUs
+                for (int my = 0; my < mcuy; ++my)
+                    for (int mx = 0; mx < mcux; ++mx)
+                        for (EncComponent* e : in_scan)
+                            for (int bv = 0; bv < e->v; ++bv)
+                                for (int bh = 0; bh < e->h; ++bh)
+                                    emit(*e, block(*e, (int64_t)my * e->v + bv,
+                                                   (int64_t)mx * e->h + bh));
+            } else {                                // the component's own blocks
+                EncComponent& e = *in_scan[0];
+                const int wib = (int)(((int64_t)w * e.h + 8 * mh - 1) / (8 * mh));
+                const int hib = (int)(((int64_t)h * e.v + 8 * mv - 1) / (8 * mv));
+                for (int by = 0; by < hib; ++by)
+                    for (int bx = 0; bx < wib; ++bx) emit(e, block(e, by, bx));
+            }
+            bw.flush();
+        }
+    }
     out.push_back(0xFF);
     out.push_back(0xD9);
     return out;
@@ -1125,10 +1506,11 @@ int64_t jpeg_decode(const uint8_t* buf, int64_t len, uint8_t* out, int64_t out_s
 }
 
 uint8_t* jpeg_encode(const uint8_t* px, int64_t h, int64_t w, int64_t c, int64_t quality,
-                     int64_t subsampling, int64_t* size, char* err, int64_t errlen) {
+                     int64_t subsampling, int64_t progressive, int64_t* size, char* err,
+                     int64_t errlen) {
     try {
         std::vector<uint8_t> out = encode(px, (int)h, (int)w, (int)c, (int)quality,
-                                          (int)subsampling);
+                                          (int)subsampling, progressive != 0);
         uint8_t* p = (uint8_t*)std::malloc(out.size());
         if (p == nullptr) fail("out of memory");
         std::memcpy(p, out.data(), out.size());

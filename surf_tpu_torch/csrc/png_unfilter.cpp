@@ -8,8 +8,10 @@
 //
 // raw: h rows of 1 + row_bytes bytes, each a filter byte and the filtered
 // row, as zlib inflates them; out: h * row_bytes bytes; bpp: bytes per
-// pixel (1-4 at 8 bits), the distance to the "left" byte; row_bytes is a
-// whole number of pixels, at least one.
+// pixel, at least 1 (1-8 at depths 8 and 16; 1 below 8, where a pixel
+// has fewer bits than a byte), the distance to the "left" byte; row_bytes:
+// at least one, whole pixels at depths 8 and 16, the last byte padded
+// below 8.  An Adam7 pass is unfiltered as an image of its own.
 
 #include <cstdint>
 #include <cstdlib>

@@ -12,7 +12,11 @@ and ETH3D data paths run with no download:
 
 One view per id of ``view_ids``, the ring's cameras in order.  The images
 are baseline JPEGs (``io.jpeg.write_jpeg``, 4:2:0) at ``image_hw``, the
-dataset's native size by default (576x768, 1080x1920, 4141x6212).  The
+dataset's native size by default (576x768, 1080x1920, 4141x6212); with
+``progressive_root`` the same scene is written there too, every file the
+same but the JPEGs progressive (``write_jpeg(..., progressive=True)`` of
+the same pixels: the same coefficients, so ``read_jpeg`` gives the same
+pixels from either).  The
 cam files hold the intrinsics at the native size that the loader rescales
 from and the depth range [d - 1.5 r, d + 1.5 r] over the dataset's conf's
 ``num_interval`` planes.  ``pair.txt`` lists every id from 0 to the
@@ -48,9 +52,10 @@ MAX_RENDER_PIXELS = 2_500_000
 JPEG_QUALITY = 90
 
 
-def write_mvs_scene(root, dataset_name, scan, view_ids, image_hw=None):
-    """Write scan ``scan`` of ``dataset_name``'s layout under ``root``.
-    Returns ``root``."""
+def write_mvs_scene(root, dataset_name, scan, view_ids, image_hw=None,
+                    progressive_root=None):
+    """Write scan ``scan`` of ``dataset_name``'s layout under ``root`` (and
+    with progressive JPEGs under ``progressive_root``). Returns ``root``."""
     spec = _SPECS[dataset_name]
     native_hw = spec["native_hw"]
     h, w = image_hw or native_hw
@@ -67,24 +72,28 @@ def write_mvs_scene(root, dataset_name, scan, view_ids, image_hw=None):
     near = syn.cam_dist - 1.5 * syn.radius_world
     interval = 3.0 * syn.radius_world / NUM_INTERVAL[dataset_name]
 
-    def path(key, vid=0):
-        p = os.path.join(root, spec[key].format(scan=scan, vid=vid))
+    roots = [root] + ([progressive_root] if progressive_root else [])
+
+    def path(key, vid=0, base=root):
+        p = os.path.join(base, spec[key].format(scan=scan, vid=vid))
         os.makedirs(os.path.dirname(p), exist_ok=True)
         return p
 
-    with open(path("pair_pattern"), "w") as f:
-        f.write(f"{max(view_ids) + 1}\n")
-        for ref in range(max(view_ids) + 1):
-            others = ring_neighbours(view_ids.index(ref), n) if ref in view_ids else []
-            f.write(f"{ref}\n{len(others)}" + "".join(
-                f" {view_ids[j]} {1000.0 - k:.1f}" for k, j in enumerate(others)) + "\n")
+    for base in roots:
+        with open(path("pair_pattern", base=base), "w") as f:
+            f.write(f"{max(view_ids) + 1}\n")
+            for ref in range(max(view_ids) + 1):
+                others = ring_neighbours(view_ids.index(ref), n) if ref in view_ids else []
+                f.write(f"{ref}\n{len(others)}" + "".join(
+                    f" {view_ids[j]} {1000.0 - k:.1f}" for k, j in enumerate(others)) + "\n")
     for i, vid in enumerate(view_ids):
-        write_cam_file(path("cam_pattern", vid), np.linalg.inv(poses[i]), native, near,
-                       interval)
         img, depth, _ = syn._render_view(intr, poses[i], syn.radius_world, scene_seed)
-        rgb = np.clip(img * 256.0, 0, 255).astype(np.uint8)
-        write_jpeg(path("img_pattern", vid), resize_nearest(rgb, (w, h)),
-                   quality=JPEG_QUALITY)
-        if spec["depth_pattern"] is not None:
-            write_pfm(path("depth_pattern", vid), resize_nearest(depth, (w, h)))
+        rgb = resize_nearest(np.clip(img * 256.0, 0, 255).astype(np.uint8), (w, h))
+        for j, base in enumerate(roots):
+            write_cam_file(path("cam_pattern", vid, base), np.linalg.inv(poses[i]), native,
+                           near, interval)
+            write_jpeg(path("img_pattern", vid, base), rgb, quality=JPEG_QUALITY,
+                       progressive=j == 1)
+            if spec["depth_pattern"] is not None:
+                write_pfm(path("depth_pattern", vid, base), resize_nearest(depth, (w, h)))
     return root

@@ -12,7 +12,8 @@ write ``final/scan{N}.ply`` for ``dtu_eval``:
         --out_dir <exp>/meshes [--n_view 3] [--set 1] [--mask_kernel_size 11]
 
 Masks are read with the port's PNG reader (``Image.open(p).convert("L")
-> 127``, as ``to_luma``), cameras from ``scan{N}/cams/`` or else
+> 127``, as ``read_png_luma``: any PNG form, 1-bit and palette masks
+too), cameras from ``scan{N}/cams/`` or else
 ``Cameras/``.
 """
 
@@ -27,7 +28,7 @@ import numpy as np
 from ..data.cameras import read_cam_file
 from ..geometry.clean_mesh import clean_mesh_outside_frustum, dilate_masks
 from ..geometry.mesh import Mesh
-from ..io.image import read_png, to_luma
+from ..io.image import read_png_luma
 
 SCANS = [24, 37, 40, 55, 63, 65, 69, 83, 97, 105, 106, 110, 114, 118, 122]
 VIEW_LIST_SET0 = [23, 24, 33, 22, 15, 34, 14, 32, 16, 35, 25]
@@ -78,7 +79,7 @@ def load_views(root_dir, scan, view_ids):
     masks, intrs, c2ws = [], [], []
     for vid in view_ids:
         mask_path = os.path.join(root_dir, f"scan{scan}", "mask", f"{vid:03d}.png")
-        mask = to_luma(read_png(mask_path)).astype(np.float32) > 127
+        mask = read_png_luma(mask_path).astype(np.float32) > 127
         cam_path = os.path.join(root_dir, f"scan{scan}", "cams",
                                 f"{vid:08d}_cam.txt")
         if not os.path.exists(cam_path):

@@ -3,8 +3,10 @@
 ``BMVSDataset``, ``TanksDataset``, ``ETH3DDataset``) against the JAX
 package's on the same miniature on-disk scenes (the DTU, NeuS and BMVS
 layouts of tests/test_datasets.py, copied here and extended to the Tanks
-and ETH3D layouts, written by PIL and cv2; and the procedural scene that
-``data.mvs_scene.write_mvs_scene`` writes) and the same seed.  Every key
+and ETH3D layouts, written by PIL and cv2; the DTU one again with
+Adam7-interlaced images and 16-bit and palette masks; and the procedural
+scene that ``data.mvs_scene.write_mvs_scene`` writes, with baseline and
+with progressive JPEGs) and the same seed.  Every key
 of every item must be equal exactly: images, masks and depths are the
 same pixels (the port reads them with its own PNG/JPEG/PFM readers and
 nearest resize, the JAX package with PIL and cv2), and the cameras, rays
@@ -12,6 +14,7 @@ and pseudo points come from the same numpy arithmetic on the same values,
 so the tolerance for them is 0 as well."""
 
 import os
+import shutil
 
 import cv2
 import numpy as np
@@ -32,7 +35,7 @@ from surf_tpu_torch.data import (DTUDataset as TDTU, DTUDatasetFinetune as TFine
                                  DTUDatasetFinetuneNeuS as TNeuS, get_dataset)
 from surf_tpu_torch.data.mvs_generic import _SPECS, GenericMVSDataset as TGeneric
 from surf_tpu_torch.data.mvs_scene import write_mvs_scene
-from surf_tpu_torch.io.image import resize_nearest
+from surf_tpu_torch.io.image import read_png, resize_nearest, write_png
 
 H, W = 48, 64
 
@@ -207,6 +210,43 @@ def test_dtu_items_equal_jax(dtu_root, mode):
         assert_items_equal(tds[i], jds[i])
 
 
+@pytest.fixture(scope="module")
+def dtu_forms_root(dtu_root, tmp_path_factory):
+    """``dtu_root`` with its images written again as Adam7-interlaced PNGs
+    (``write_png(interlace=True)``) and its masks as 16-bit greyscale
+    (even views; 0 or 4096) and palette PNGs (odd views; indices 0 or
+    255), both by PIL."""
+    root = tmp_path_factory.mktemp("dtu_forms")
+    shutil.copytree(dtu_root, root, dirs_exist_ok=True)
+    for p in sorted(root.glob("Rectified_raw/scan24/*.png")):
+        write_png(str(p), read_png(str(p)), interlace=True)
+    for vid in range(5):
+        p = root / f"Depths_raw/scan24/depth_visual_{vid:0>4}.png"
+        m = read_png(str(p)) > 127
+        if vid % 2:
+            im = Image.fromarray(m.astype(np.uint8) * 255, "P")
+            im.putpalette(bytes(range(256)) * 3)
+            im.save(p)
+        else:
+            Image.fromarray(m.astype(np.uint16) * 4096).save(p)
+    return str(root)
+
+
+@pytest.mark.parametrize("mode", ["train", "val"])
+def test_dtu_items_equal_jax_on_interlaced_images_and_other_masks(dtu_forms_root, mode):
+    root = dtu_forms_root
+    assert open(f"{root}/Rectified_raw/scan24/rect_001_3_r5000.png", "rb").read()[28] == 1
+    assert [open(f"{root}/Depths_raw/scan24/depth_visual_{v:0>4}.png", "rb").read()[24:26]
+            for v in (0, 1)] == [b"\x10\x00", b"\x08\x03"]
+    jc, tc = confs(dtu_conf(root, mode))
+    jds = JDTU(jc, mode, rng=np.random.RandomState(7))
+    tds = TDTU(tc, mode, rng=np.random.RandomState(7))
+    for i in list(range(len(jds))) + [0]:
+        item = tds[i]
+        assert_items_equal(item, jds[i])
+    assert 0 < item["masks" if mode == "val" else "mask_ref"].mean() < 1
+
+
 def test_get_dataset_passes_the_seeded_generator_as_get_loader_does(dtu_root):
     text = dtu_conf(dtu_root, "train").replace("d {", "d {\n dataset_name = DTUDataset", 1)
     jc, tc = confs(text)
@@ -319,11 +359,16 @@ def mvs_roots(tmp_path_factory):
 @pytest.fixture(scope="module")
 def mvs_scene_roots(tmp_path_factory):
     """The procedural scene in each layout (``write_mvs_scene``: the port's
-    JPEG encoder, 4:2:0), at the file sizes above."""
-    return {name: write_mvs_scene(str(tmp_path_factory.mktemp(name + "_scene")), name,
-                                  MVS_SCAN[name], list(range(MVS_VIEWS)),
-                                  image_hw=MVS_FILE_HW[name])
-            for name in MVS}
+    JPEG encoder, 4:2:0), at the file sizes above; under ``"progressive"``
+    the same scenes with progressive JPEGs."""
+    roots = {"progressive": {}}
+    for name in MVS:
+        roots["progressive"][name] = str(tmp_path_factory.mktemp(name + "_progressive"))
+        roots[name] = write_mvs_scene(str(tmp_path_factory.mktemp(name + "_scene")), name,
+                                      MVS_SCAN[name], list(range(MVS_VIEWS)),
+                                      image_hw=MVS_FILE_HW[name],
+                                      progressive_root=roots["progressive"][name])
+    return roots
 
 
 def mvs_conf(name, root, mode):
@@ -343,11 +388,16 @@ def mvs_conf(name, root, mode):
     }}"""
 
 
-@pytest.mark.parametrize("layout", ["pil", "scene"])
+@pytest.mark.parametrize("layout", ["pil", "scene", "progressive"])
 @pytest.mark.parametrize("mode", ["train", "val"])
 @pytest.mark.parametrize("name", MVS)
 def test_mvs_items_equal_jax(mvs_roots, mvs_scene_roots, name, mode, layout):
-    root = (mvs_roots if layout == "pil" else mvs_scene_roots)[name]
+    root = {"pil": mvs_roots, "scene": mvs_scene_roots,
+            "progressive": mvs_scene_roots["progressive"]}[layout][name]
+    if layout == "progressive":
+        img = os.path.join(root, _SPECS[name]["img_pattern"].format(scan=MVS_SCAN[name],
+                                                                    vid=0))
+        assert b"\xff\xc2" in open(img, "rb").read()
     jc, tc = confs(mvs_conf(name, root, mode))
     jds = JGeneric(jc, mode, name, rng=np.random.RandomState(7))
     tds = TGeneric(tc, mode, name, rng=np.random.RandomState(7))

@@ -13,7 +13,8 @@ them, on fixtures written here:
   1e-12 of the JAX one, and ``main``'s ``results.json``;
 * ``load_views`` and ``clean_mesh.main`` on a ``DTU_TEST``-layout scan
   (a sphere plus an out-of-mask cube; masks written by
-  ``write_dtu_test_scan`` and by PIL): the same masks, the same faces;
+  ``write_dtu_test_scan`` and by PIL, as RGB, L, 1-bit and palette PNGs
+  for ``load_views``): the same masks, the same faces;
 * ``chamfer_vs_sphere`` within 1e-12 of the tools copy, and the
   synthetic ``main``'s scores within 1e-12 of tools/eval_finetune_meshes.py's
   steps on the JAX modules (with ``scale_mat`` inverted whole).
@@ -232,7 +233,9 @@ def dtu_test(tmp_path_factory):
                                mask_hw=MASK_HW)
     return {"write_dtu_test_scan": port,
             "pil_rgb": _pil_masks(port, str(root / "pil_rgb"), "RGB"),
-            "pil_l": _pil_masks(port, str(root / "pil_l"), "L")}
+            "pil_l": _pil_masks(port, str(root / "pil_l"), "L"),
+            "pil_1": _pil_masks(port, str(root / "pil_1"), "1"),
+            "pil_p": _pil_masks(port, str(root / "pil_p"), "P")}
 
 
 def test_dtu_test_fixture_layout(dtu_test):
@@ -243,7 +246,8 @@ def test_dtu_test_fixture_layout(dtu_test):
         assert os.path.exists(os.path.join(root, "scan24", "cams", f"{vid:08d}_cam.txt"))
 
 
-@pytest.mark.parametrize("writer", ["write_dtu_test_scan", "pil_rgb", "pil_l"])
+@pytest.mark.parametrize("writer", ["write_dtu_test_scan", "pil_rgb", "pil_l", "pil_1",
+                                    "pil_p"])
 def test_load_views_equals_the_jax_script(dtu_test, writer):
     got = t_clean.load_views(dtu_test[writer], 24, VIEWS)
     ref = j_clean.load_views(dtu_test[writer], 24, VIEWS)

@@ -1,8 +1,12 @@
 """The port's image and depth I/O (surf_tpu_torch/io) against what the JAX
 package reads them with: ``surf_tpu.io.pfm``, ``PIL.Image`` (the JAX
-loaders' ``np.array(Image.open(path))``), ``cv2.resize(...,
-INTER_NEAREST)`` and matplotlib's magma (the runner's ``save_depth_png``).
-Every comparison is exact: the same bytes, pixels and indices."""
+loaders' ``np.array(Image.open(path))`` and the evaluation's
+``convert("L")``), ``cv2.resize(..., INTER_NEAREST)`` and matplotlib's
+magma (the runner's ``save_depth_png``).  The PNGs come from Pillow, cv2
+and this file's own writer (``_encode``: every depth and colour type the
+PNG specification allows, every filter, Adam7 at sizes whose passes are
+empty).  Every comparison is exact: the same bytes, pixels, dtypes,
+shapes and indices."""
 
 import struct
 import zlib
@@ -57,16 +61,35 @@ def _filter_types(path):
     return set(_scanlines(open(path, "rb").read())[:, 0].tolist())
 
 
-def _encode(img, filters, depth=8, color=None, interlace=0):
-    """A PNG whose row y is filtered with ``filters[y % len(filters)]`` (the
-    PNG specification's five filters, written out here independently of
-    the reader)."""
-    a = img if img.ndim == 3 else img[..., None]
-    h, w, bpp = a.shape
-    rows = []
-    prev = np.zeros(w * bpp, np.int32)
-    for y in range(h):
-        cur = a[y].reshape(-1).astype(np.int32)
+# Adam7 (PNG specification, 8.2): (first row, first column, row step,
+# column step) of each of the seven passes
+ADAM7 = [(0, 0, 8, 8), (0, 4, 8, 8), (4, 0, 8, 4), (0, 2, 4, 4), (2, 0, 4, 2), (0, 1, 2, 2),
+         (1, 0, 2, 1)]
+
+
+def _pack(a, depth):
+    """The (h, row bytes) uint8 rows of (h, w, c) samples at ``depth``:
+    big-endian pairs at 16, bytes at 8, and below 8 (one channel) the
+    samples packed most significant first, the last byte padded."""
+    h, w, c = a.shape
+    if depth == 16:
+        return a.astype(">u2").view(np.uint8).reshape(h, w * c * 2)
+    if depth == 8:
+        return a.astype(np.uint8).reshape(h, w * c)
+    per = 8 // depth
+    v = np.zeros((h, -(-w // per) * per), np.int64)
+    v[:, :w] = a[..., 0]
+    shifts = 8 - depth - depth * np.arange(per)
+    return (v.reshape(h, -1, per) << shifts).sum(-1).astype(np.uint8)
+
+
+def _filter(rows, filters, bpp):
+    """Scanlines (filter byte + filtered bytes) of packed rows, row y under
+    ``filters[y % len(filters)]``."""
+    out = []
+    prev = np.zeros(rows.shape[1], np.int32)
+    for y in range(rows.shape[0]):
+        cur = rows[y].astype(np.int32)
         left = np.concatenate([np.zeros(bpp, np.int32), cur[:-bpp]])
         upleft = np.concatenate([np.zeros(bpp, np.int32), prev[:-bpp]])
         t = filters[y % len(filters)]
@@ -82,16 +105,36 @@ def _encode(img, filters, depth=8, color=None, interlace=0):
             p = left + prev - upleft
             pa, pb, pc = np.abs(p - left), np.abs(p - prev), np.abs(p - upleft)
             pred = np.where((pa <= pb) & (pa <= pc), left, np.where(pb <= pc, prev, upleft))
-        rows.append(bytes([t]) + ((cur - pred) % 256).astype(np.uint8).tobytes())
+        out.append(bytes([t]) + ((cur - pred) % 256).astype(np.uint8).tobytes())
         prev = cur
+    return out
+
+
+def _encode(img, filters, depth=8, color=None, interlace=0, plte=None):
+    """A PNG of the samples ``img`` ((H, W) or (H, W, C), uint8 or uint16)
+    at ``depth`` whose row y is filtered with ``filters[y % len(filters)]``
+    (the PNG specification's five filters, written out here independently
+    of the reader); with ``interlace`` 1 in Adam7's passes, each packed and
+    filtered on its own, an empty pass written as nothing; ``plte``: a PLTE
+    chunk's bytes."""
+    a = img if img.ndim == 3 else img[..., None]
+    h, w, c = a.shape
+    bpp = max(1, c * depth // 8)
+    passes = ADAM7 if interlace == 1 else [(0, 0, 1, 1)]
+    rows = []
+    for r0, c0, dr, dc in passes:
+        part = a[r0::dr, c0::dc]
+        if part.size:
+            rows += _filter(_pack(part, depth), filters, bpp)
     if color is None:
-        color = {1: 0, 2: 4, 3: 2, 4: 6}[bpp]
+        color = {1: 0, 2: 4, 3: 2, 4: 6}[c]
 
     def chunk(kind, data):
         return struct.pack(">I", len(data)) + kind + data + \
             struct.pack(">I", zlib.crc32(kind + data))
     return (b"\x89PNG\r\n\x1a\n"
             + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, depth, color, 0, 0, interlace))
+            + (chunk(b"PLTE", plte) if plte is not None else b"")
             + chunk(b"IDAT", zlib.compress(b"".join(rows)))
             + chunk(b"IEND", b""))
 
@@ -172,15 +215,19 @@ def test_read_png_one_row_and_one_column(tmp_path):
 def test_unsupported_pngs_raise(tmp_path):
     rng = np.random.RandomState(6)
     cases = {}
-    Image.fromarray((rng.rand(9, 11) * 65535).astype(np.uint16)).save(tmp_path / "16.png")
-    cases["16.png"] = "bit depth 16"
-    Image.fromarray((rng.rand(9, 11) * 255).astype(np.uint8)).convert(
-        "P").save(tmp_path / "p.png")
-    cases["p.png"] = "palette"
-    Image.fromarray(rng.rand(9, 11) > 0.5).save(tmp_path / "1.png")
-    cases["1.png"] = "bit depth 1"
-    (tmp_path / "i.png").write_bytes(_encode(_pixels(rng, 8, 8, 3), [0], interlace=1))
-    cases["i.png"] = "interlace"
+    # depth / colour-type pairs the PNG specification forbids
+    (tmp_path / "p16.png").write_bytes(_encode(
+        rng.randint(0, 4, (9, 11)).astype(np.uint16), [0], depth=16, color=3,
+        plte=bytes(range(12))))
+    cases["p16.png"] = "bit depth 16 is not allowed for colour type 3"
+    (tmp_path / "rgb1.png").write_bytes(_encode(
+        rng.randint(0, 2, (9, 11)).astype(np.uint8), [0], depth=1, color=2))
+    cases["rgb1.png"] = "bit depth 1 is not allowed for colour type 2"
+    (tmp_path / "nopal.png").write_bytes(_encode(
+        rng.randint(0, 4, (9, 11)).astype(np.uint8), [0], depth=2, color=3))
+    cases["nopal.png"] = "without a PLTE chunk"
+    (tmp_path / "i2.png").write_bytes(_encode(_pixels(rng, 8, 8, 3), [0], interlace=2))
+    cases["i2.png"] = "interlace method 2"
     (tmp_path / "j.png").write_bytes(b"\xff\xd8\xff\xe0" + bytes(64))
     cases["j.png"] = "not a PNG"
     bad = bytearray(_encode(_pixels(rng, 8, 8, 3), [0]))
@@ -192,6 +239,103 @@ def test_unsupported_pngs_raise(tmp_path):
     for name, what in cases.items():
         with pytest.raises(ValueError, match=what):
             image.read_png(str(tmp_path / name))
+        with pytest.raises(ValueError, match=what):
+            image.read_png_luma(str(tmp_path / name))
+
+
+# -- the PNG forms beyond 8-bit L / LA / RGB / RGBA ---------------------------
+
+def assert_pil_png(path):
+    """``read_png`` as ``np.array(Image.open)`` (dtype, shape, values) and
+    ``read_png_luma`` as ``convert("L")``; returns Pillow's image."""
+    im = Image.open(path)
+    ref = np.array(im)
+    got = image.read_png(path)
+    assert got.dtype == ref.dtype and got.shape == ref.shape, (got.dtype, ref.dtype,
+                                                                got.shape, ref.shape)
+    np.testing.assert_array_equal(got, ref)
+    luma = np.array(im.convert("L"))
+    np.testing.assert_array_equal(image.read_png_luma(path), luma)
+    if im.mode != "P":
+        np.testing.assert_array_equal(image.to_luma(got), luma)
+    return im
+
+
+@pytest.mark.parametrize("form,depth,mode", [
+    ("1", 1, "1"), ("P", 1, "P"), ("P", 2, "P"), ("P", 4, "P"), ("P", 8, "P"),
+    ("I;16", 16, "I;16")])
+def test_read_png_pillow_forms(tmp_path, form, depth, mode):
+    rng = np.random.RandomState(depth)
+    path = str(tmp_path / "f.png")
+    if form == "1":
+        Image.fromarray(rng.rand(37, 53) > 0.4).save(path)
+    elif form == "P":
+        im = Image.fromarray(rng.randint(0, 1 << depth, (37, 53)).astype(np.uint8), "P")
+        im.putpalette(rng.randint(0, 256, 3 << depth).astype(np.uint8).tobytes())
+        im.save(path, bits=depth)
+    else:
+        a = rng.randint(0, 65536, (37, 53)).astype(np.uint16)
+        a[0, :6] = [0, 1, 254, 255, 256, 65535]
+        Image.fromarray(a).save(path)
+    data = open(path, "rb").read()
+    assert data[24] == depth          # the file holds the depth this case is about
+    assert assert_pil_png(path).mode == mode
+
+
+@pytest.mark.parametrize("channels", [1, 3, 4])
+def test_read_png_cv2_16bit(tmp_path, channels):
+    rng = np.random.RandomState(channels)
+    path = str(tmp_path / "c.png")
+    assert cv2.imwrite(path, rng.randint(0, 65536, (29, 43, channels)).astype(np.uint16))
+    assert open(path, "rb").read()[24] == 16
+    assert_pil_png(path)
+
+
+# every (colour type, depth) pair the PNG specification allows
+FORMS = [(0, 1), (0, 2), (0, 4), (0, 8), (0, 16), (2, 8), (2, 16), (3, 1), (3, 2), (3, 4),
+         (3, 8), (4, 8), (4, 16), (6, 8), (6, 16)]
+
+
+@pytest.mark.parametrize("interlace", [0, 1])
+@pytest.mark.parametrize("color,depth", FORMS)
+def test_read_png_every_form(tmp_path, color, depth, interlace):
+    """Each form at sizes below 8x8 too (Adam7 passes left empty) and every
+    filter, against Pillow."""
+    rng = np.random.RandomState(color * 100 + depth)
+    channels = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}[color]
+    for h, w in [(1, 1), (3, 5), (9, 2), (23, 31)]:
+        top = 1 << depth
+        a = rng.randint(0, top, (h, w, channels)).astype(np.uint16 if depth == 16
+                                                        else np.uint8)
+        plte = rng.randint(0, 256, 3 * min(top, 256)).astype(np.uint8).tobytes() \
+            if color == 3 else None
+        path = tmp_path / f"{h}x{w}.png"
+        path.write_bytes(_encode(a[..., 0] if channels == 1 else a, [0, 1, 2, 3, 4],
+                                 depth=depth, color=color, interlace=interlace,
+                                 plte=plte))
+        im = assert_pil_png(str(path))
+        assert im.info.get("interlace", 0) == interlace
+
+
+@pytest.mark.parametrize("filters", [[0], [4, 3, 1], [0, 1, 2, 3, 4]])
+@pytest.mark.parametrize("mode", sorted(MODES))
+def test_read_png_adam7_every_filter(tmp_path, mode, filters):
+    img = _pixels(np.random.RandomState(12), 23, 31, MODES[mode])
+    path = tmp_path / "a.png"
+    path.write_bytes(_encode(img, filters, interlace=1))
+    np.testing.assert_array_equal(np.array(Image.open(str(path))), img)
+    np.testing.assert_array_equal(image.read_png(str(path)), img)
+
+
+def test_palette_index_beyond_plte(tmp_path):
+    """An index past the PLTE's entries: the indices are read as Pillow
+    reads them, their luma refused (the specification calls it an error)."""
+    a = np.array([[0, 1, 3], [2, 1, 0]], np.uint8)
+    path = tmp_path / "p.png"
+    path.write_bytes(_encode(a, [0], depth=2, color=3, plte=bytes(range(6))))
+    np.testing.assert_array_equal(image.read_png(str(path)), np.array(Image.open(path)))
+    with pytest.raises(ValueError, match="beyond the palette"):
+        image.read_png_luma(str(path))
 
 
 # -- PNG writing ------------------------------------------------------------
@@ -223,6 +367,19 @@ def test_write_png_picks_libpngs_filters(tmp_path, channels):
     np.testing.assert_array_equal(got[:, 0], want)
     np.testing.assert_array_equal(got, each[want, np.arange(len(want))])
     assert len(set(want.tolist())) >= 2
+
+
+@pytest.mark.parametrize("size", [(1, 1), (3, 5), (9, 2), (41, 29)])
+@pytest.mark.parametrize("channels", [1, 3, 4])
+def test_write_png_interlaced(tmp_path, channels, size):
+    img = _pixels(np.random.RandomState(13), *size, channels)
+    path = str(tmp_path / "i.png")
+    image.write_png(path, img, interlace=True)
+    assert open(path, "rb").read()[28] == 1
+    im = Image.open(path)
+    assert im.info.get("interlace") == 1
+    np.testing.assert_array_equal(np.array(im), img)
+    np.testing.assert_array_equal(image.read_png(path), img)
 
 
 # -- nearest resize -----------------------------------------------------------
