@@ -202,6 +202,20 @@ Phases, one line each (any failure exits non-zero, with no result line):
    times (two ranks, one process, NCCL at one rank), the all-reduce's time
    and size, and the sharded validate's ``render_rays_per_s`` and
    ``mesh_s``;
+11b. protocol: the training demo (``surf_tpu_torch.train_synthetic``) in
+   this process at tools/run_protocol_r5.sh's shape (4 stages to 704^3,
+   5 views of 480x640, 512 rays, bf16 matching volume), 60 steps under the
+   warmup-cosine schedule, a 256^3 evaluation (cascade, SDF lattice,
+   marching cubes, cleaning, Chamfer against the analytic sphere) after
+   step 30 and at the end, its JSONL log and checkpoint in a directory
+   under exp/ that the phase deletes (``protocol_phase``), every launch
+   count zeroed first: every loss term finite, the mean loss of steps
+   50-59 below that of steps 0-9 and the mean PSNR above it, both meshes
+   non-empty with a finite Chamfer, the checkpoint equal bit for bit to
+   the run's last parameters and state, ``summarize_run`` on the log,
+   every forward and backward kernel launched (each kernel row gains
+   ``launches_in_protocol``).  Prints the per-step losses and PSNRs, the
+   summary, the evaluations, s/step, peak memory and the phase's seconds;
 12. reference: the tiny model on the card against the same model on the
    CPU (plain versions, themselves held against the JAX package by the
    tier-1 tests): a validate build + render, and one training step's
@@ -3982,6 +3996,129 @@ def variants_phase(v, dev="cuda", vol_side=176, plane_res=(512, 256), train_hw=(
     return launches, entries, rows, nums
 
 
+PROTOCOL_KERNELS = FWD_KERNELS + BWD_KERNELS
+
+
+def leaves_equal(a, b):
+    """Two numpy pytrees (bf16 leaves as 2-byte void) equal bit for bit."""
+    if isinstance(a, dict):
+        return isinstance(b, dict) and a.keys() == b.keys() and all(
+            leaves_equal(a[k], b[k]) for k in a)
+    if isinstance(a, (list, tuple)):
+        return isinstance(b, (list, tuple)) and len(a) == len(b) and all(
+            leaves_equal(x, y) for x, y in zip(a, b))
+    return a.dtype == b.dtype and a.shape == b.shape and a.tobytes() == b.tobytes()
+
+
+def protocol_phase(dev="cuda", shape=(), steps=60, eval_every=30, mesh_res=256):
+    """The training demo (``surf_tpu_torch.train_synthetic``) in this
+    process at the r5 protocol's shape (``train_synthetic.R5_ARGS``: 4
+    stages 88^3 -> 704^3, 5 views of 480x640, 512 rays, bf16 matching
+    volume; ``shape``'s flags override them): ``steps`` steps under the
+    warmup-cosine schedule, an evaluation (cascade, ``mesh_res``^3 SDF
+    lattice, marching cubes, cleaning, Chamfer against the analytic
+    sphere) every ``eval_every`` steps and at the end, the JSONL log and the
+    checkpoint, in a directory under exp/ that the phase deletes.  The
+    launch counts are zeroed just before and read just after.  Checks:
+    every loss term finite at every step; the mean loss of the last 10
+    steps below that of the first 10 and the mean PSNR above it; each
+    evaluation a non-empty cleaned mesh with a finite Chamfer; the checkpoint read back equal bit for bit to the run's last
+    parameters and state; ``summarize_run`` on the log; every forward and
+    backward kernel launched.  Returns (launches, numbers).  (``dev``
+    "cpu" rehearses the phase without a card.)"""
+    import io
+    import math
+    import tempfile
+    import torch
+    from surf_tpu_torch import _build, summarize_run, train_synthetic
+    from surf_tpu_torch.utils import load_checkpoint, to_numpy_tree
+    cuda = dev == "cuda"
+    out = os.path.join(HERE, "exp", "chip_smoke_protocol")
+    shutil.rmtree(out, ignore_errors=True)
+    os.makedirs(out)
+    log, ckpt = os.path.join(out, "run.jsonl"), os.path.join(out, "run.ckpt.npz")
+    argv = list(train_synthetic.R5_ARGS) + list(shape) + [
+        "--steps", str(steps), "--eval_every", str(eval_every),
+        "--mesh_res", str(mesh_res), "--log_jsonl", log, "--save_ckpt", ckpt,
+        "--mesh_out", os.path.join(out, "mesh.ply"), "--device", dev]
+    tmp = tempfile.tempdir
+    if cuda:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    _build.reset_launches()
+    t0 = time.time()
+    try:
+        # the evaluations' vertex files go to the phase's directory
+        tempfile.tempdir = out
+        run = train_synthetic.main(argv)
+        if cuda:
+            torch.cuda.synchronize()
+        launches = dict(_build.launches)
+        run_s = time.time() - t0
+        rows = run["rows"]
+        bad = [(i, k, v) for i, r in enumerate(rows) for k, v in r.items()
+               if not math.isfinite(v)]
+        if len(rows) != steps or bad:
+            fail(f"protocol: {len(rows)} steps of {steps}, non-finite terms {bad[:5]}")
+        mean = lambda key, part: statistics.mean(r[key] for r in part)
+        first, last = rows[:10], rows[-10:]
+        nums = {"steps": steps, "run_s": run_s,
+                "loss_first_last": [mean("loss", first), mean("loss", last)],
+                "psnr_first_last": [mean("psnr", first), mean("psnr", last)],
+                "color_first_last": [mean("color_loss", first), mean("color_loss", last)],
+                "peak_mem_gb": torch.cuda.max_memory_allocated() / 2 ** 30 if cuda else 0.0}
+        with open(log) as f:
+            t_steps = [json.loads(line)["t"] for line in f]
+        if len(t_steps) != steps:
+            fail(f"protocol: the log holds {len(t_steps)} rows of {steps}")
+        nums["cold_step_s"], warm = t_steps[0], sorted(t_steps[1:])
+        nums["warm_s_per_step_median_min_max"] = [statistics.median(warm), warm[0], warm[-1]]
+        say("protocol", "loss " + " ".join(f"{r['loss']:.4f}" for r in rows))
+        say("protocol", "psnr " + " ".join(f"{r['psnr']:.3f}" for r in rows))
+        if not nums["loss_first_last"][1] < nums["loss_first_last"][0]:
+            fail(f"protocol: the mean loss of the last 10 steps "
+                 f"{nums['loss_first_last'][1]} is not below the first 10's "
+                 f"{nums['loss_first_last'][0]}")
+        if not nums["psnr_first_last"][1] > nums["psnr_first_last"][0]:
+            fail(f"protocol: the mean PSNR of the last 10 steps "
+                 f"{nums['psnr_first_last'][1]} is not above the first 10's "
+                 f"{nums['psnr_first_last'][0]}")
+        evals = run["evals"]
+        nums["evals"] = [{"step": e[0], "vertices": len(e[1]), "faces": len(e[2]),
+                          "chamfer": e[3], "seconds": e[4]} if e[1] is not None
+                         else {"step": e[0], "seconds": e[2]} for e in evals]
+        if [e[0] for e in evals] != list(range(eval_every, steps, eval_every)) + [steps] \
+                or any(e[1] is None or not len(e[1]) or not len(e[2])
+                       or not math.isfinite(e[3]) for e in evals):
+            fail(f"protocol: evaluations {nums['evals']}")
+        saved = load_checkpoint(ckpt)
+        if int(saved["epoch"]) != steps \
+                or not leaves_equal(saved["model"], to_numpy_tree(run["params"])) \
+                or not leaves_equal(saved["state"], to_numpy_tree(run["state"])):
+            fail("protocol: the checkpoint does not read back bit for bit")
+        nums["checkpoint_gb"] = os.path.getsize(ckpt) / 2 ** 30
+        say("protocol", f"checkpoint (epoch {steps}, model and state) read back bit for "
+            "bit against the run's last parameters and state")
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            summarize_run.main(log)
+        text = buf.getvalue()
+        if not text.startswith(f"steps: {steps} (step 0..{steps - 1})") \
+                or "loss window-means" not in text:
+            fail(f"protocol: summarize_run printed {text!r}")
+        for line in text.splitlines():
+            say("protocol", "summary: " + line)
+    finally:
+        tempfile.tempdir = tmp
+        shutil.rmtree(out, ignore_errors=True)
+    del run
+    say("protocol", "kernels " + json.dumps(launches))
+    missing = [k for k in PROTOCOL_KERNELS if launches[k] <= 0]
+    if missing:
+        fail(f"protocol: the training demo launched no {missing}")
+    return launches, nums
+
+
 def reference_check():
     import numpy as np
     import torch
@@ -4308,6 +4445,15 @@ def main():
     say("dp", json.dumps(dp_nums))
     torch.cuda.empty_cache()
 
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.time()
+    proto_launches, proto_nums = protocol_phase()
+    proto_nums["phase_s"] = time.time() - t0
+    say("protocol", json.dumps(proto_nums))
+    say("protocol", f"phase: {proto_nums['phase_s']:.1f} s")
+    torch.cuda.empty_cache()
+
     t0 = time.time()
     err = reference_check()
     say("reference", f"tiny model (validate and one training step) on the card matches "
@@ -4320,6 +4466,8 @@ def main():
         if var_entries.get(r["name"]):
             r.setdefault("also_checked", []).extend(var_entries[r["name"]])
     rows += second_rows
+    for r in rows:
+        r["launches_in_protocol"] = proto_launches.get(r["name"], 0)
     print(json.dumps({"kernels": rows}))
     print(smi_line)
     print(json.dumps({"ok": True, "device": {

@@ -7,7 +7,12 @@ sets, homography patch warp and the hand-written CUDA kernels' wrappers),
 schedule, npz checkpoints), ``geometry/`` (mesh extraction), ``data/``,
 ``config/`` and ``io/`` (host-side copies).  ``validate.py`` is the
 counterpart of ``Runner.validate`` and ``train.py`` of ``Runner.train``;
-``python -m surf_tpu_torch.main --mode val|train`` runs them.
+``python -m surf_tpu_torch.main [--mode train|val|finetune]`` runs them
+(``train`` by default, as the JAX CLI); ``train_synthetic.py`` is the
+training demo on the synthetic scene and ``summarize_run.py`` summarises
+its per-step log (tools/train_synthetic.py, tools/summarize_run.py);
+``val_after_train.py`` splits a trained conf's validated views at the
+scene's mask.
 
 The package imports ``torch`` and never ``jax`` nor ``surf_tpu``.
 """

@@ -1,6 +1,6 @@
 """CLI of the port, with the JAX CLI's flags (main.py):
 
-    python -m surf_tpu_torch.main --conf confs/surf.conf --mode val|train
+    python -m surf_tpu_torch.main --conf confs/surf.conf [--mode train|val]
         [--resume <npz>] [--load_vol] [--clean_mesh] [--mesh_resolution 512] [--seed 0]
     python -m surf_tpu_torch.main --conf confs/surf_finetune.conf --mode finetune
         --resume <npz> [--load_vol] [--scene <name>] [--ref_view <i>]
@@ -52,7 +52,7 @@ from .validate import Validator
 def parse_args(argv=None):
     p = argparse.ArgumentParser(description="surf_tpu_torch")
     p.add_argument("--conf", type=str, default="./confs/surf.conf")
-    p.add_argument("--mode", type=str, default="val", choices=["val", "train", "finetune"])
+    p.add_argument("--mode", type=str, default="train", choices=["train", "val", "finetune"])
     p.add_argument("--resume", type=str, default=None, help="checkpoint path to resume")
     p.add_argument("--load_vol", action="store_true",
                    help="resume from a volume-only finetune checkpoint")

@@ -22,9 +22,13 @@ epoch after the saved one.  After the save, every ``val_freq`` epochs
 the validation scenes go through the port's validate path (a
 ``Validator`` on the trained parameters and batch-norm state, under
 ``torch.no_grad``), which writes the mesh and the ``val_*`` files.  Each
-epoch's loss terms are averaged and printed.  As the JAX runner does, the
-first rank writes TensorBoard scalars under ``<base_exp_dir>/logs``
-(``utils.summary``): the terms as ``train/<term>`` at the global step
+epoch's loss terms are averaged and printed with the median step's
+seconds (a step from its forward until the card has run its update, the
+item's load outside it) and, on the card, the peak memory so far; a
+last ``[train]`` line gives the run's first step and the median, least
+and most of the others.  As the JAX runner does, the first rank writes
+TensorBoard scalars under ``<base_exp_dir>/logs`` (``utils.summary``):
+the terms as ``train/<term>`` at the global step
 every ``log_freq`` of an epoch, their epoch means as ``train_avg/<term>``
 at the epoch, and the validation's ``val_img_avg``.  With
 ``train.debug_nans`` the loop runs under autograd's anomaly mode with
@@ -209,6 +213,7 @@ class Trainer:
         n = -(-n_items // W)
         main = is_main_process()
         val = None
+        step_s = []
         for epoch in range(self.start_epoch, self.epochs):
             if epoch % 2 == 0:
                 self.state = surf.refresh_match_features(self.params, self.state)
@@ -224,10 +229,17 @@ class Trainer:
                     weights = [1.0 if j < n_items else 0.0 for j in picks]
                     idx = order[min(picks[self.rank], n_items - 1)]
                     batch = to_device(self.dataset[int(idx)], self.device)
+                    t_step = time.time()
                     res = dp.dp_train_step(self, batch, step_f, weights)
                 else:
                     batch = to_device(self.dataset[int(order[i])], self.device)
+                    t_step = time.time()
                     res = self.step(batch, step_f)
+                # the clock stops once the card has run the step's update
+                # (data-parallel, the update follows the terms' read)
+                if self.device.type == "cuda":
+                    torch.cuda.synchronize(self.device)
+                step_s.append(time.time() - t_step)
                 rows.append(res)
                 global_step = epoch * n + i
                 if main and global_step % max(int(self.log_freq * n), 1) == 0:
@@ -239,7 +251,8 @@ class Trainer:
                 avg = mean_scalars(rows)
                 save_scalars(self.writer, "train_avg", avg, epoch)
                 print(f"[epoch {epoch} train_avg] " + " ".join(
-                    f"{k} {v:.4f}" for k, v in avg.items()), flush=True)
+                    f"{k} {v:.4f}" for k, v in avg.items())
+                    + f" s/step {np.median(step_s[-n:]):.3f}" + self._peak_mem(), flush=True)
                 if (epoch + 1) % self.save_freq == 0 or epoch + 1 >= self.epochs:
                     self.save(epoch)
             if (epoch + 1) % self.val_freq == 0:
@@ -248,6 +261,18 @@ class Trainer:
                                        base_exp_dir=self.base_exp_dir,
                                        clean_mesh=self.clean_mesh, writer=self.writer)
                 self.validate(val, epoch)
+
+        if main and step_s:
+            warm = step_s[1:] or step_s
+            print(f"[train] {len(step_s)} steps: first {step_s[0]:.3f} s, then s/step median "
+                  f"{np.median(warm):.3f} min {min(warm):.3f} max {max(warm):.3f}"
+                  + self._peak_mem(), flush=True)
+
+    def _peak_mem(self):
+        """The card's peak allocated memory so far, for the printed lines."""
+        if self.device.type != "cuda":
+            return ""
+        return f" peak_mem_gb {torch.cuda.max_memory_allocated(self.device) / 2 ** 30:.2f}"
 
     def save(self, epoch):
         path = os.path.join(self.base_exp_dir, "checkpoints",

@@ -8,9 +8,13 @@
   none of which the card's machine has (checked on the import statements
   with ``ast``: ``surf_tpu_torch`` itself starts with ``surf_tpu``); the
   walk covers every subpackage, the offline evaluation
-  (``surf_tpu_torch/evaluation/``) and the scalar writer
-  (``utils/summary.py``) among them;
-* the entry point refuses to run without a card unless asked for the CPU.
+  (``surf_tpu_torch/evaluation/``), the scalar writer
+  (``utils/summary.py``), the training demo (``train_synthetic.py``),
+  its summary (``summarize_run.py``) and ``val_after_train.py`` among
+  them; nor does any of them
+  import the repository's ``tools``, ``tests`` or ``tiny_conf``;
+* the entry point refuses to run without a card unless asked for the CPU,
+  and its ``--mode`` defaults to the JAX CLI's (main.py), ``train``.
 
 The kernels themselves only run on the card: ``test_kernels_match_plain``
 is marked ``cuda`` and skips here (``python3 chip_smoke.py`` holds every
@@ -123,7 +127,8 @@ def _imports(path):
 def _forbidden(name):
     top = name.split(".")[0]
     return top in ("jax", "jaxlib", "surf_tpu", "cv2", "PIL", "matplotlib", "skimage",
-                   "tensorboardX", "sklearn", "open3d", "trimesh")
+                   "tensorboardX", "sklearn", "open3d", "trimesh", "tools", "tests",
+                   "tiny_conf")
 
 
 def test_port_imports_no_jax_and_no_surf_tpu():
@@ -137,7 +142,8 @@ def test_port_imports_no_jax_and_no_surf_tpu():
         "io/jpeg.py", "data/mvs_generic.py", "data/mvs_scene.py", "parallel/__init__.py",
         "parallel/distribute.py", "parallel/mesh.py", "parallel/ray_shard.py",
         "evaluation/__init__.py", "evaluation/clean_mesh.py", "evaluation/dtu_eval.py",
-        "evaluation/synthetic.py", "utils/summary.py", "utils/experiment.py")} <= {
+        "evaluation/synthetic.py", "utils/summary.py", "utils/experiment.py",
+        "train_synthetic.py", "summarize_run.py", "val_after_train.py")} <= {
         os.path.relpath(f, ROOT) for f in files}
     bad = [(os.path.relpath(f, ROOT), n) for f in files for n in _imports(f)
            if _forbidden(n)]
@@ -147,6 +153,7 @@ def test_port_imports_no_jax_and_no_surf_tpu():
                                        "skimage.morphology", "tensorboardX",
                                        "tensorboardX.proto.event_pb2",
                                        "sklearn.neighbors", "open3d", "trimesh"))
+    assert all(_forbidden(n) for n in ("tools.summarize_run", "tests.tiny_conf", "tiny_conf"))
     assert not _forbidden("zlib") and not _forbidden("scipy.ndimage")
 
 
@@ -156,6 +163,38 @@ def test_entry_point_needs_a_card_unless_cpu(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(SystemExit):
         main.main(["--conf", os.path.join(ROOT, "confs", "surf_synthetic_full.conf")])
+
+
+def _jax_cli_default(flag):
+    """The default of ``flag`` in the JAX CLI's parser (main.py), read from
+    its ``add_argument`` call with ``ast``."""
+    tree = ast.parse(open(os.path.join(ROOT, "main.py")).read())
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Call) and getattr(node.func, "attr", None) == "add_argument" \
+                and node.args and getattr(node.args[0], "value", None) == flag:
+            kw = {k.arg: k.value for k in node.keywords}
+            return ast.literal_eval(kw["default"]), ast.literal_eval(kw["choices"])
+    raise AssertionError(f"main.py has no {flag}")
+
+
+def test_mode_defaults_to_the_jax_clis(monkeypatch):
+    """``python -m surf_tpu_torch.main --conf <conf>`` trains, as ``python
+    main.py --conf <conf>`` does, and ``--mode`` lists its choices in the
+    JAX CLI's order."""
+    import argparse
+    from surf_tpu_torch import main
+    default, choices = _jax_cli_default("--mode")
+    assert default == "train"
+    parsers, real = [], argparse.ArgumentParser.parse_args
+
+    def kept(self, *a, **kw):
+        parsers.append(self)
+        return real(self, *a, **kw)
+    monkeypatch.setattr(argparse.ArgumentParser, "parse_args", kept)
+    assert main.parse_args([]).mode == default
+    assert main.parse_args(["--mode", "val"]).mode == "val"
+    mode = next(a for a in parsers[0]._actions if a.dest == "mode")
+    assert list(mode.choices) == choices
 
 
 def test_train_entry_point_needs_a_card_unless_cpu(monkeypatch):
