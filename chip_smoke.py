@@ -214,8 +214,18 @@ Phases, one line each (any failure exits non-zero, with no result line):
    non-empty with a finite Chamfer, the checkpoint equal bit for bit to
    the run's last parameters and state, ``summarize_run`` on the log,
    every forward and backward kernel launched (each kernel row gains
-   ``launches_in_protocol``).  Prints the per-step losses and PSNRs, the
-   summary, the evaluations, s/step, peak memory and the phase's seconds;
+   ``launches_in_protocol``).  Then, before the directory goes, the
+   finetune chain in miniature (``chain_leg``, scripts/torch_finetune_runs.sh's
+   stages B and D): the checkpoint resumed into ``main --mode finetune``
+   on confs/surf_synthetic_finetune.conf derived by ``derive_conf`` to 100
+   steps, its step -1 and last validates at 256^3 scored by
+   ``evaluation.synthetic.main``, its own launch counts zeroed first:
+   every loss term finite, the mean loss of the last 10 steps below the
+   first 10's, both cleaned meshes non-empty with finite Chamfers
+   (printed, not held to improve), K3, K3b, K1, K1b and K2 launched (each
+   kernel row gains ``launches_in_protocol_finetune``).  Prints the
+   per-step losses and PSNRs, the summary, the evaluations, s/step, peak
+   memory, the leg's losses and Chamfers and the phase's seconds;
 12. reference: the tiny model on the card against the same model on the
    CPU (plain versions, themselves held against the JAX package by the
    tier-1 tests): a validate build + render, and one training step's
@@ -4010,7 +4020,84 @@ def leaves_equal(a, b):
     return a.dtype == b.dtype and a.shape == b.shape and a.tobytes() == b.tobytes()
 
 
-def protocol_phase(dev="cuda", shape=(), steps=60, eval_every=30, mesh_res=256):
+CHAIN_KERNELS = ("sparse_trilinear_multi", "sparse_trilinear_multi_bwd", "bilinear_sample_2d",
+                 "bilinear_sample_2d_bwd", "trilinear_sample_3d")
+FT_CONF = os.path.join(HERE, "confs", "surf_synthetic_finetune.conf")
+
+
+def chain_leg(ckpt, out, dev="cuda", conf_path=FT_CONF, steps=100, mesh_res=256):
+    """scripts/torch_finetune_runs.sh's stages B and D in miniature: the
+    demo's checkpoint ``ckpt`` resumed into ``python -m surf_tpu_torch.main
+    --mode finetune`` (in this process) on ``conf_path`` derived as the
+    script derives stage C's conf (``derive_conf``: ``steps`` steps, a
+    validate and a save at the end only, the step -1 validate kept), its
+    meshes at ``mesh_res``^3 scored by ``evaluation.synthetic.main``, all
+    under ``out``.  The launch counts are zeroed just before and read just
+    after the run.  Checks: every step's loss terms finite; the mean loss
+    of the last 10 steps below that of the first 10; the step -1 and the
+    last mesh non-empty after cleaning with finite Chamfers (printed, not
+    held to improve); K3, K3b, K1, K1b and K2 launched.  Returns
+    (launches, numbers)."""
+    import io
+    import math
+    import torch
+    from surf_tpu_torch import _build, derive_conf, finetune, main as tmain
+    from surf_tpu_torch.evaluation import synthetic
+    cuda = dev == "cuda"
+    conf = os.path.join(out, "chain.conf")
+    derive_conf.write(conf_path, conf, {"train.epochs": steps, "train.val_freq": steps,
+                                        "train.save_freq": steps})
+    terms, step = [], finetune.Finetuner.step
+
+    def recorded(self, batch, i):
+        terms.append(step(self, batch, i))
+        return terms[-1]
+    finetune.Finetuner.step = recorded
+    if cuda:
+        torch.cuda.synchronize()
+    _build.reset_launches()
+    t0 = time.time()
+    try:
+        f = tmain.main(["--conf", conf, "--mode", "finetune", "--resume", ckpt,
+                        "--mesh_resolution", str(mesh_res), "--device", dev,
+                        "--out", os.path.join(out, "chain")])
+        if cuda:
+            torch.cuda.synchronize()
+        launches = dict(_build.launches)
+    finally:
+        finetune.Finetuner.step = step
+    run_s = time.time() - t0
+    bad = [(i, k, v) for i, r in enumerate(terms) for k, v in r.items() if not math.isfinite(v)]
+    if len(terms) != steps or bad:
+        fail(f"protocol chain: {len(terms)} steps of {steps}, non-finite terms {bad[:5]}")
+    first, last = (statistics.mean(r["loss"] for r in part) for part in (terms[:10],
+                                                                        terms[-10:]))
+    say("protocol", "chain loss " + " ".join(f"{r['loss']:.4f}" for r in terms))
+    if not last < first:
+        fail(f"protocol chain: the mean loss of the last 10 steps {last} is not below "
+             f"the first 10's {first}")
+    t1 = time.time()
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rows = synthetic.main([f.base_exp_dir, "--conf", conf])
+    for line in buf.getvalue().splitlines():
+        say("protocol", "chain score: " + line)
+    nums = {"steps": steps, "run_s": run_s, "score_s": time.time() - t1,
+            "loss_first_last": [first, last],
+            "chamfer": {r[0]: {"chamfer": r[1], "d2s": r[2], "s2d": r[3], "vertices": r[4]}
+                        for r in rows}}
+    if [r[0] for r in rows] != [-1, steps - 1] \
+            or any(not r[4] or not math.isfinite(r[1]) for r in rows):
+        fail(f"protocol chain: the step -1 and step {steps - 1} meshes scored {rows}")
+    say("protocol", "chain kernels " + json.dumps(launches))
+    missing = [k for k in CHAIN_KERNELS if launches[k] <= 0]
+    if missing:
+        fail(f"protocol chain: the finetune launched no {missing}")
+    return launches, nums
+
+
+def protocol_phase(dev="cuda", shape=(), steps=60, eval_every=30, mesh_res=256,
+                   chain_conf=FT_CONF, chain_steps=100):
     """The training demo (``surf_tpu_torch.train_synthetic``) in this
     process at the r5 protocol's shape (``train_synthetic.R5_ARGS``: 4
     stages 88^3 -> 704^3, 5 views of 480x640, 512 rays, bf16 matching
@@ -4024,7 +4111,10 @@ def protocol_phase(dev="cuda", shape=(), steps=60, eval_every=30, mesh_res=256):
     steps below that of the first 10 and the mean PSNR above it; each
     evaluation a non-empty cleaned mesh with a finite Chamfer; the checkpoint read back equal bit for bit to the run's last
     parameters and state; ``summarize_run`` on the log; every forward and
-    backward kernel launched.  Returns (launches, numbers).  (``dev``
+    backward kernel launched.  Before the directory goes, ``chain_leg``
+    resumes the checkpoint into ``chain_steps`` finetune steps on
+    ``chain_conf`` (whose model must be ``shape``'s), with its own launch
+    counts.  Returns (launches, numbers, the leg's launches).  (``dev``
     "cpu" rehearses the phase without a card.)"""
     import io
     import math
@@ -4108,15 +4198,21 @@ def protocol_phase(dev="cuda", shape=(), steps=60, eval_every=30, mesh_res=256):
             fail(f"protocol: summarize_run printed {text!r}")
         for line in text.splitlines():
             say("protocol", "summary: " + line)
+        del run
+        say("protocol", "kernels " + json.dumps(launches))
+        missing = [k for k in PROTOCOL_KERNELS if launches[k] <= 0]
+        if missing:
+            fail(f"protocol: the training demo launched no {missing}")
+        if cuda:
+            torch.cuda.empty_cache()
+        t0 = time.time()
+        chain_launches, nums["chain"] = chain_leg(ckpt, out, dev=dev, conf_path=chain_conf,
+                                                  steps=chain_steps, mesh_res=mesh_res)
+        nums["chain"]["leg_s"] = time.time() - t0
     finally:
         tempfile.tempdir = tmp
         shutil.rmtree(out, ignore_errors=True)
-    del run
-    say("protocol", "kernels " + json.dumps(launches))
-    missing = [k for k in PROTOCOL_KERNELS if launches[k] <= 0]
-    if missing:
-        fail(f"protocol: the training demo launched no {missing}")
-    return launches, nums
+    return launches, nums, chain_launches
 
 
 def reference_check():
@@ -4448,10 +4544,14 @@ def main():
     gc.collect()
     torch.cuda.empty_cache()
     t0 = time.time()
-    proto_launches, proto_nums = protocol_phase()
+    proto_launches, proto_nums, chain_launches = protocol_phase()
     proto_nums["phase_s"] = time.time() - t0
     say("protocol", json.dumps(proto_nums))
-    say("protocol", f"phase: {proto_nums['phase_s']:.1f} s")
+    chamfers = proto_nums["chain"]["chamfer"]
+    say("protocol", "chain Chamfer " + " -> ".join(
+        f"{chamfers[k]['chamfer']:.4f} (step {k})" for k in sorted(chamfers)))
+    say("protocol", f"phase: {proto_nums['phase_s']:.1f} s, the chain leg "
+        f"{proto_nums['chain']['leg_s']:.1f} s of it")
     torch.cuda.empty_cache()
 
     t0 = time.time()
@@ -4468,6 +4568,7 @@ def main():
     rows += second_rows
     for r in rows:
         r["launches_in_protocol"] = proto_launches.get(r["name"], 0)
+        r["launches_in_protocol_finetune"] = chain_launches.get(r["name"], 0)
     print(json.dumps({"kernels": rows}))
     print(smi_line)
     print(json.dumps({"ok": True, "device": {

@@ -321,6 +321,34 @@ def parse_file(path: str) -> ConfigTree:
         return parse_string(f.read())
 
 
+def _dump_value(v) -> str:
+    if isinstance(v, bool):
+        return "true" if v else "false"
+    if v is None:
+        return "null"
+    if isinstance(v, (int, float)):
+        return repr(v)
+    if isinstance(v, list):
+        return "[" + ", ".join(_dump_value(x) for x in v) + "]"
+    s = str(v)
+    if '"' in s or "\n" in s:
+        raise ValueError(f"cannot write {s!r} as a quoted HOCON string")
+    return f'"{s}"'
+
+
+def dump_string(tree, indent: int = 0) -> str:
+    """``tree`` as HOCON text that ``parse_string`` reads back to an equal
+    tree: one key a line, blocks indented, strings quoted."""
+    pad = "    " * indent
+    lines = []
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            lines += [f"{pad}{k} {{", dump_string(v, indent + 1), f"{pad}}}"]
+        else:
+            lines.append(f"{pad}{k} = {_dump_value(v)}")
+    return "\n".join(line for line in lines if line)
+
+
 class ConfigFactory:
     """pyhocon-compatible entry point (reference: runner.py:35)."""
 

@@ -10,7 +10,10 @@ dataset download.
         [--log_jsonl <jsonl>] [--mem_stats] [--save_ckpt <npz>] [--device cuda|cpu]
 
 The full-protocol run (the JAX package's tools/run_protocol_r5.sh) is
-``R5_ARGS`` with ``--save_ckpt <npz> --log_jsonl <jsonl>``.
+``R5_ARGS`` with ``--save_ckpt <npz> --log_jsonl <jsonl>``; the mid-scale
+run whose checkpoint feeds confs/surf_synthetic_finetune_mid.conf
+(tools/finetune_hw_chain.sh's stage A) is ``MID_ARGS`` with
+``--save_ckpt <npz>``.
 
 ``protocol_conf`` widens the tiny 2-stage test model (``TINY``) to
 ``--stages`` stages as the JAX tool does.  One Adam over every parameter
@@ -175,6 +178,10 @@ LATTICE_CHUNK = 65536
 R5_ARGS = ("--steps", "300", "--stages", "4", "--base_dim", "88", "--img", "480", "640",
            "--n_src", "4", "--staged", "--schedule", "--match_dtype", "bfloat16",
            "--eval_every", "100", "--mesh_res", "256")
+# tools/finetune_hw_chain.sh's stage A, the demo whose checkpoint feeds
+# confs/surf_synthetic_finetune_mid.conf (3 stages 48^3 -> 192^3, 240x320)
+MID_ARGS = ("--steps", "150", "--stages", "3", "--base_dim", "48", "--img", "240", "320",
+            "--staged", "--schedule", "--eval_every", "75", "--mesh_res", "192")
 
 
 def parse_args(argv=None):

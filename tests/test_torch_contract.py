@@ -136,14 +136,15 @@ def test_port_imports_no_jax_and_no_surf_tpu():
     for d, _, fs in os.walk(os.path.join(ROOT, "surf_tpu_torch")):
         files += [os.path.join(d, f) for f in fs if f.endswith(".py")]
     assert len(files) > 20
-    # the JPEG slice's, the multi-device slice's and the evaluation slice's
-    # modules are walked too
+    # the JPEG slice's, the multi-device slice's, the evaluation slice's and
+    # the finetune chains' modules are walked too
     assert {os.path.join("surf_tpu_torch", *f.split("/")) for f in (
         "io/jpeg.py", "data/mvs_generic.py", "data/mvs_scene.py", "parallel/__init__.py",
         "parallel/distribute.py", "parallel/mesh.py", "parallel/ray_shard.py",
         "evaluation/__init__.py", "evaluation/clean_mesh.py", "evaluation/dtu_eval.py",
         "evaluation/synthetic.py", "utils/summary.py", "utils/experiment.py",
-        "train_synthetic.py", "summarize_run.py", "val_after_train.py")} <= {
+        "train_synthetic.py", "summarize_run.py", "val_after_train.py",
+        "derive_conf.py")} <= {
         os.path.relpath(f, ROOT) for f in files}
     bad = [(os.path.relpath(f, ROOT), n) for f in files for n in _imports(f)
            if _forbidden(n)]

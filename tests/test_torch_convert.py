@@ -21,6 +21,10 @@ from surf_tpu_torch.config import ConfigFactory
 from surf_tpu_torch.nn import surf
 from surf_tpu_torch.utils import load_checkpoint, resume_from, to_torch_tree
 
+# one intra-op thread: the suite's xdist workers share the host's cores,
+# and a thread a core in every worker oversubscribes them many times over
+torch.set_num_threads(1)
+
 FULL_CONF = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
                          "confs", "surf_synthetic_full.conf")
 

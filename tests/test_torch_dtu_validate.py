@@ -18,6 +18,7 @@ import re
 
 import numpy as np
 import pytest
+import torch
 from PIL import Image
 
 from surf_tpu.geometry.clean_mesh import clean_mesh as j_clean_mesh
@@ -29,6 +30,10 @@ from surf_tpu_torch import main, validate
 from surf_tpu_torch.config import ConfigFactory
 from surf_tpu_torch.data.dtu_scene import write_dtu_scene
 from surf_tpu_torch.io import read_png
+
+# one intra-op thread: the suite's xdist workers share the host's cores,
+# and a thread a core in every worker oversubscribes them many times over
+torch.set_num_threads(1)
 
 DTU_VAL = """val_dataset {{
     dataset_name = DTUDataset

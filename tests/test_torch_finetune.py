@@ -54,6 +54,10 @@ from surf_tpu_torch.main import main
 from surf_tpu_torch.utils import load_checkpoint, resume_from, vol_state_from_tree
 from surf_tpu_torch.validate import to_device
 
+# one intra-op thread: the suite's xdist workers share the host's cores,
+# and a thread a core in every worker oversubscribes them many times over
+torch.set_num_threads(1)
+
 FT_BLOCK = """
 finetune_dataset {
     dataset_name = SyntheticDatasetFinetune

@@ -35,6 +35,10 @@ from surf_tpu.nn import reg_net as jrn
 from surf_tpu_torch.ops import grid_sample as tgs, sparse as tsp
 from surf_tpu_torch.nn import reg_net as trn
 
+# one intra-op thread: the suite's xdist workers share the host's cores,
+# and a thread a core in every worker oversubscribes them many times over
+torch.set_num_threads(1)
+
 RTOL, ATOL = 1e-5, 1e-6
 
 

@@ -13,6 +13,10 @@ import torch
 from surf_tpu.ops import grid_sample as jgs
 from surf_tpu_torch.ops import grid_sample as tgs
 
+# one intra-op thread: the suite's xdist workers share the host's cores,
+# and a thread a core in every worker oversubscribes them many times over
+torch.set_num_threads(1)
+
 RNG = np.random.RandomState(11)
 ATOL = 1e-5
 

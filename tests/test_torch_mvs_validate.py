@@ -27,6 +27,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 
 from test_torch_validate import _by_coord, _close
 from tiny_conf import TINY
@@ -45,6 +46,10 @@ from surf_tpu_torch.data.mvs_scene import write_mvs_scene
 from surf_tpu_torch.geometry import Mesh, clean_mesh
 from surf_tpu_torch.nn import implicit_surface as tis
 from surf_tpu_torch.validate import Validator, to_device
+
+# one intra-op thread: the suite's xdist workers share the host's cores,
+# and a thread a core in every worker oversubscribes them many times over
+torch.set_num_threads(1)
 
 VIEWS = [19, 20, 21, 22, 23, 24, 25]
 N_RAYS = 96

@@ -49,6 +49,10 @@ from surf_tpu_torch.train import Trainer
 from surf_tpu_torch.utils import save_checkpoint, to_numpy_tree
 from surf_tpu_torch.validate import to_device
 
+# one intra-op thread: the suite's xdist workers share the host's cores,
+# and a thread a core in every worker oversubscribes them many times over
+torch.set_num_threads(1)
+
 STEP_F = 0.5
 CASES = {"w11": ((0, 1), (1.0, 1.0)), "w10": ((0, 1), (1.0, 0.0))}
 

@@ -21,6 +21,10 @@ from surf_tpu_torch.config import ConfigFactory
 from surf_tpu_torch.parallel import distribute
 from surf_tpu_torch.validate import Validator
 
+# one intra-op thread: the suite's xdist workers share the host's cores,
+# and a thread a core in every worker oversubscribes them many times over
+torch.set_num_threads(1)
+
 RANKS, PER_NODE = 4, 2
 SCENES = ["syn0", "syn1", "syn2"]
 MESH_RES = 24

@@ -42,6 +42,10 @@ from surf_tpu_torch.train import Trainer
 from surf_tpu_torch.utils import save_checkpoint, to_numpy_tree
 from surf_tpu_torch.validate import Validator
 
+# one intra-op thread: the suite's xdist workers share the host's cores,
+# and a thread a core in every worker oversubscribes them many times over
+torch.set_num_threads(1)
+
 MESH_RES = 24
 CHUNK = 96
 RTOL, ATOL = 1e-4, 1e-4

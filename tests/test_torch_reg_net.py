@@ -18,6 +18,10 @@ from surf_tpu_torch.utils import to_torch_tree
 from surf_tpu_torch.nn import core as tcore, reg_net as trn
 from surf_tpu_torch.ops import sparse as tsp
 
+# one intra-op thread: the suite's xdist workers share the host's cores,
+# and a thread a core in every worker oversubscribes them many times over
+torch.set_num_threads(1)
+
 RNG = np.random.RandomState(3)
 
 

@@ -43,6 +43,10 @@ from surf_tpu_torch.train import Trainer
 from surf_tpu_torch.utils import experiment, summary
 from surf_tpu_torch.validate import Validator
 
+# one intra-op thread: the suite's xdist workers share the host's cores,
+# and a thread a core in every worker oversubscribes them many times over
+torch.set_num_threads(1)
+
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TERMS = ("loss", "color_loss", "sparse_loss", "igr_loss", "psnr")
 

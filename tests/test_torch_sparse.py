@@ -16,6 +16,10 @@ import torch
 from surf_tpu.ops import sparse as jsp
 from surf_tpu_torch.ops import sparse as tsp
 
+# one intra-op thread: the suite's xdist workers share the host's cores,
+# and a thread a core in every worker oversubscribes them many times over
+torch.set_num_threads(1)
+
 RNG = np.random.RandomState(5)
 
 

@@ -20,9 +20,9 @@ update against ``optax.multi_transform`` Adam with the runner's schedule
 npz checkpoint layout read bit for bit by the other package, and the
 optimizer-state resume of ``--mode train --resume``: a JAX runner's
 checkpoint resumes in the port (moments and counts bit for bit, the next
-update within the Adam test's 1e-5), the port's checkpoint passes the
-JAX runner's ``_restore_opt_state`` with its fingerprint, and the CLI
-goes on from the saved epoch."""
+update within the Adam test's 1e-5), and the port's checkpoint passes the
+JAX runner's ``_restore_opt_state`` with its fingerprint.  The training
+loop and the CLI are in tests/test_torch_train_loop.py."""
 
 import numpy as np
 import jax
@@ -40,13 +40,16 @@ from surf_tpu.utils.scheduler import warmup_cosine as j_sched
 
 from surf_tpu_torch.config import ConfigFactory
 from surf_tpu_torch.convert import from_jax
-from surf_tpu_torch.io import read_png
 from surf_tpu_torch.losses import compute_loss as t_loss, make_loss_config as t_cfg
 from surf_tpu_torch.nn import surf as tsurf
 from surf_tpu_torch.train import Trainer
 from surf_tpu_torch.utils import checkpoint as tckpt
 from surf_tpu_torch.utils.scheduler import warmup_cosine as t_sched
 from surf_tpu_torch.validate import to_device
+
+# one intra-op thread: the suite's xdist workers share the host's cores,
+# and a thread a core in every worker oversubscribes them many times over
+torch.set_num_threads(1)
 
 ANNEAL = 0.5
 CASES = {"step1_dense": (1.0, 176), "step2.5_hybrid": (2.5, 16)}
@@ -230,83 +233,6 @@ def test_checkpoints_load_bit_for_bit_both_ways(setup, tmp_path):
         assert torch.equal(x, y), p
 
 
-def test_trainer_loop_refreshes_and_saves_a_checkpoint(tmp_path):
-    """``Trainer.train`` over a cut dataset: the frozen matching copy is
-    refreshed on the even epoch, the loss stays finite, and the saved
-    checkpoint loads in the JAX package with the trained parameters."""
-    tconf = ConfigFactory.parse_string(TINY)
-    tconf["train"]["epochs"] = 1
-    trainer = Trainer(tconf, device="cpu", base_exp_dir=str(tmp_path))
-    trainer.dataset.metas = trainer.dataset.metas[:2]
-    trainer.state["match_feature_network"] = jax.tree.map(
-        lambda t: t * 0.0, trainer.state["match_feature_network"])
-    before = [t.detach().clone() for _, t in _paths(trainer.params)]
-    trainer.train()
-    # the tiny conf's val_freq (10) is past the one epoch: nothing validated
-    assert not (tmp_path / "meshes").exists()
-    ck = jckpt.load_checkpoint(str(tmp_path / "checkpoints" / "model_000.ckpt.npz"))
-    assert int(ck["epoch"]) == 0
-    moved = 0
-    for (path, t), b in zip(_paths(trainer.params), before):
-        np.testing.assert_array_equal(np.asarray(_get(ck["model"], path)),
-                                      t.detach().numpy(), err_msg=str(path))
-        moved += not torch.equal(t.detach(), b)
-    assert moved == len(before)
-    for (path, a), (_, b) in zip(_paths(ck["state"]["match_feature_network"]),
-                                 _paths(ck["model"]["feature_network"])):
-        assert np.abs(a).max() > 0, path
-
-
-
-def test_trainer_validates_every_val_freq_epochs_after_the_save(tmp_path):
-    """With ``val_freq`` 1, ``Trainer.train`` validates after the epoch's
-    save: the mesh and the ``val_*`` files under the names
-    ``Validator.validate`` gives them, equal to those of a ``Validator``
-    built afterwards on the trained parameters and state, with the same
-    PSNR."""
-    from surf_tpu_torch.validate import Validator
-    tconf = ConfigFactory.parse_string(TINY)
-    tconf["train"]["epochs"] = 1
-    tconf["train"]["val_freq"] = 1
-    out = tmp_path / "train"
-    trainer = Trainer(tconf, device="cpu", base_exp_dir=str(out), mesh_resolution=24)
-    trainer.dataset.metas = trainer.dataset.metas[:1]
-    seen, validate = [], trainer.validate
-
-    def recorded(val, epoch):
-        assert (out / "checkpoints" / f"model_{epoch:0>3}.ckpt.npz").exists()
-        seen.append((epoch, validate(val, epoch)))
-        return seen[-1][1]
-    trainer.validate = recorded
-    trainer.train()
-    assert [e for e, _ in seen] == [0]
-    ref_dir = tmp_path / "ref"
-    v = Validator(tconf, device="cpu", mesh_resolution=24, base_exp_dir=str(ref_dir),
-                  params=trainer.params, state=trainer.state)
-    with torch.no_grad():
-        ref = v.validate(0)
-    got = seen[0][1]
-    assert [m["scene"] for m in got] == [m["scene"] for m in ref]
-    for a, b in zip(got, ref):
-        assert a["psnr"] == b["psnr"] and a["mesh_faces"] == b["mesh_faces"] > 0
-        scene = a["scene"]
-        assert (out / "meshes" / f"{scene}_epoch0.ply").read_bytes() == \
-            (ref_dir / "meshes" / f"{scene}_epoch0.ply").read_bytes()
-    for sub in ("val_img", "val_normal", "val_render_depth", "val_sdf_depth",
-                "val_auxi_depth"):
-        names = sorted(p.name for p in (ref_dir / sub).iterdir())
-        # Runner.validate's artifacts: 8-bit PNGs of colour and normal, each
-        # depth as a magma PNG and its .npy
-        stems = {n[:n.rindex(".")] for n in names}
-        exts = (".png",) if sub in ("val_img", "val_normal") else (".npy", ".png")
-        assert stems and all(st.endswith("_epoch0") for st in stems), sub
-        assert names == sorted(st + e for st in stems for e in exts), sub
-        assert sorted(p.name for p in (out / sub).iterdir()) == names, sub
-        for n in names:
-            load = np.load if n.endswith(".npy") else lambda p: read_png(str(p))
-            np.testing.assert_array_equal(load(out / sub / n), load(ref_dir / sub / n))
-
-
 # -- optimizer-state resume (``--mode train --resume``) ---------------------------
 
 def _sched(conf):
@@ -426,34 +352,3 @@ def test_port_checkpoint_restores_under_the_jax_runner(setup, tmp_path):
     node[leaf[-1]] = np.zeros((1, 2, 3), np.float32)
     with pytest.raises(ValueError, match="shape mismatch"):
         restore_opt_state(trainer.params, trainer.optimizer, trainer.scheduler, tree)
-
-
-def test_train_resume_through_the_cli(tmp_path):
-    """``--mode train --resume``: a run from epoch 0's checkpoint trains
-    epoch 1 only, its optimizer going on from the saved counts, and writes
-    a checkpoint the JAX runner's ``_restore_opt_state`` accepts."""
-    from surf_tpu.runner import _restore_opt_state
-    from surf_tpu_torch import main
-    text = TINY.replace("n_scenes = 2\n    n_views_total = 6",
-                        "n_scenes = 1\n    n_views_total = 3", 1)
-    assert text != TINY
-    conf_path = tmp_path / "tiny.conf"
-    conf_path.write_text(text)
-    first = main.main(["--conf", str(conf_path), "--mode", "train", "--device", "cpu",
-                       "--out", str(tmp_path / "a")])
-    n = first.steps_per_epoch
-    assert n == 3 and first.scheduler.last_epoch == 2 * n
-    ckpt0 = tmp_path / "a" / "checkpoints" / "model_000.ckpt.npz"
-    resumed = main.main(["--conf", str(conf_path), "--mode", "train", "--device", "cpu",
-                         "--out", str(tmp_path / "b"), "--resume", str(ckpt0)])
-    assert resumed.start_epoch == 1
-    assert sorted(p.name for p in (tmp_path / "b" / "checkpoints").iterdir()) == \
-        ["model_001.ckpt.npz"]
-    ck = jckpt.load_checkpoint(str(tmp_path / "b" / "checkpoints" / "model_001.ckpt.npz"))
-    assert int(ck["epoch"]) == 1
-    adam, sched = ck["opt_state"][0]["mlp"][0]
-    assert int(adam[0]) == int(sched[0]) == 2 * n
-    jconf = tiny_conf()
-    params = jax.tree.map(jnp.asarray, ck["model"])
-    _restore_opt_state(_runner_optimizer(jconf, n), params, ck["opt_state"],
-                       ck["opt_struct"])

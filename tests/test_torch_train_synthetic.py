@@ -63,11 +63,18 @@ from surf_tpu_torch.nn import surf as tsurf
 from surf_tpu_torch.utils import load_checkpoint
 from surf_tpu_torch.validate import to_device
 
+# one intra-op thread: the suite's xdist workers share the host's cores,
+# and a thread a core in every worker oversubscribes them many times over
+torch.set_num_threads(1)
+
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TINY_ARGS = ["--stages", "2", "--base_dim", "16", "--img", "48", "64", "--n_rays", "64"]
 CONF_CASES = {"defaults": [], "r5": list(ts_mod.R5_ARGS),
               "stages3": ["--stages", "3", "--n_depth", "128", "--match_dtype", "bfloat16"]}
 MESH_RES = 32
+# the finetune's validates: at 32^3 the step -1 mesh of the tiny scene
+# keeps fewer faces than cleaning's least component (500)
+FT_MESH_RES = 40
 ADAM_STEPS = 20        # the schedule's length: warmup 2 steps
 
 
@@ -390,9 +397,16 @@ def test_cli_needs_a_card_unless_cpu(monkeypatch):
         ts_mod.main(TINY_ARGS + ["--steps", "1", "--device", "cpu", "--mem_stats"])
 
 
-def test_r5_checkpoint_has_the_finetune_confs_shapes():
-    conf = ts_mod.protocol_conf(ts_mod.parse_args(ts_mod.R5_ARGS))
-    ft = ConfigFactory.parse_file(os.path.join(ROOT, "confs", "surf_synthetic_finetune.conf"))
+@pytest.mark.parametrize("args,ft_conf", [
+    (ts_mod.R5_ARGS, "surf_synthetic_finetune.conf"),
+    (ts_mod.MID_ARGS, "surf_synthetic_finetune_mid.conf")], ids=["r5", "mid"])
+def test_r5_checkpoint_has_the_finetune_confs_shapes(args, ft_conf):
+    """The demo's model at each finetune chain's arguments has its
+    finetune conf's parameter and state shapes, so the chain's checkpoint
+    resumes there (the mid conf says its model must match the demo's
+    ``--stages 3 --base_dim 48`` layout)."""
+    conf = ts_mod.protocol_conf(ts_mod.parse_args(args))
+    ft = ConfigFactory.parse_file(os.path.join(ROOT, "confs", ft_conf))
     a, sa, _ = tsurf.init(conf["model"], device="cpu")
     b, sb, _ = tsurf.init(ft["model"], device="cpu")
     for x, y in ((a, b), (sa, sb)):
@@ -416,23 +430,58 @@ finetune_dataset {
 
 def test_checkpoint_feeds_the_finetune_cli(monkeypatch, tmp_path):
     """The demo's checkpoint resumes ``main --mode finetune`` as
-    tools/finetune_protocol_r5.sh resumes the JAX tool's: at the tiny size
-    the demo's model is the tiny conf's, whose finetune takes two steps
+    scripts/torch_finetune_runs.sh resumes it (stages A to D at the tiny
+    size, where the demo's model is the tiny conf's): two finetune steps
     from the demo's parameters (the feature network, which finetune
-    leaves as it is, equal to the file's) and saves its checkpoint."""
+    leaves as it is, equal to the file's) with the step -1 validate and
+    one at the end, and their checkpoint; ``evaluation.synthetic.main``
+    scores both meshes in step order; a ``--load_vol`` leg on the conf
+    ``derive_conf`` derives as stage C does starts from the saved volumes
+    and implicit surface bit for bit, and its mesh is scored too."""
+    from surf_tpu_torch import derive_conf, finetune
+    from surf_tpu_torch.evaluation import synthetic as ev
     monkeypatch.setattr(tempfile, "tempdir", str(tmp_path))
     ckpt = tmp_path / "run.ckpt.npz"
     run = ts_mod.main(TINY_ARGS + ["--device", "cpu", "--steps", "1", "--mesh_res",
                                    str(MESH_RES), "--save_ckpt", str(ckpt),
                                    "--mesh_out", str(tmp_path / "mesh.ply")])
     text = ts_mod.TINY.replace("./exp/tiny", str(tmp_path / "exp")).replace(
-        "val_freq = 10", "val_freq = 1000").replace("save_freq = 1", "save_freq = 2")
+        "val_freq = 10", "val_freq = 1000\n    val_before_finetune = true").replace(
+        "save_freq = 1", "save_freq = 2")
     assert text != ts_mod.TINY
     conf = tmp_path / "ft.conf"
     conf.write_text(text + FT_BLOCK)
+    starts = []
+    init_volumes = finetune.Finetuner.init_volumes
+
+    def recorded(self):
+        init_volumes(self)
+        starts.append(([v.detach().clone() for v in self.vol_state["volumes"]],
+                       [t.detach().clone() for _, t in _paths(self.params["implicit_surface"])]))
+    monkeypatch.setattr(finetune.Finetuner, "init_volumes", recorded)
     ft = tmain(["--conf", str(conf), "--mode", "finetune", "--resume", str(ckpt),
-                "--device", "cpu", "--mesh_resolution", "24", "--out", str(tmp_path / "out")])
-    assert os.path.exists(os.path.join(ft.base_exp_dir, "checkpoints", "model_001.ckpt.npz"))
+                "--device", "cpu", "--mesh_resolution", str(FT_MESH_RES),
+                "--out", str(tmp_path / "out")])
+    last = os.path.join(ft.base_exp_dir, "checkpoints", "model_001.ckpt.npz")
+    assert os.path.exists(last)
     for p, t in _paths(run["params"]["feature_network"]):
         torch.testing.assert_close(_get(ft.params["feature_network"], p), t.detach(),
                                    rtol=0, atol=0)
+    rows = ev.main([ft.base_exp_dir, "--conf", str(conf)])
+    assert [r[0] for r in rows] == [-1, 1]
+    assert all(np.isfinite(r[1]) and r[4] > 0 for r in rows)
+
+    derived = tmp_path / "C.conf"
+    derive_conf.main([str(conf), str(derived), "train.epochs=1",
+                      "train.val_before_finetune=false", "train.val_freq=1",
+                      "train.save_freq=1"])
+    resumed = tmain(["--conf", str(derived), "--mode", "finetune", "--resume", last,
+                     "--load_vol", "--device", "cpu", "--mesh_resolution", str(FT_MESH_RES),
+                     "--out", str(tmp_path / "resumed")])
+    vols, mlp = starts[1]
+    for a, b in zip(vols, ft.vol_state["volumes"]):
+        assert torch.equal(a, b.detach())
+    for a, (_, b) in zip(mlp, _paths(ft.params["implicit_surface"])):
+        assert torch.equal(a, b.detach())
+    rows = ev.main([resumed.base_exp_dir, "--conf", str(conf)])
+    assert [r[0] for r in rows] == [0] and np.isfinite(rows[0][1]) and rows[0][4] > 0

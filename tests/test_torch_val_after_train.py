@@ -35,6 +35,7 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 import pytest
+import torch
 
 from tiny_conf import TINY
 from surf_tpu.utils.checkpoint import load_checkpoint as j_load
@@ -43,6 +44,10 @@ from surf_tpu_torch.config import ConfigFactory
 from surf_tpu_torch.train import Trainer
 from surf_tpu_torch.val_after_train import scene_metrics, view_metrics
 from surf_tpu_torch.validate import Validator
+
+# one intra-op thread: the suite's xdist workers share the host's cores,
+# and a thread a core in every worker oversubscribes them many times over
+torch.set_num_threads(1)
 
 KEYS = ("psnr", "psnr_in_mask", "psnr_out_of_mask", "render_depth_in_mask",
         "sdf_depth_in_mask")

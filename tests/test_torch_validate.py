@@ -29,6 +29,10 @@ from surf_tpu_torch.convert import from_jax
 from surf_tpu_torch.nn import implicit_surface as tis
 from surf_tpu_torch.validate import Validator, to_device
 
+# one intra-op thread: the suite's xdist workers share the host's cores,
+# and a thread a core in every worker oversubscribes them many times over
+torch.set_num_threads(1)
+
 RTOL, ATOL = 1e-4, 1e-4
 N_RAYS = 96
 MESH_RES, MESH_BLOCK = 24, 16

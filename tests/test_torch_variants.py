@@ -42,6 +42,10 @@ from surf_tpu_torch.config import ConfigFactory as TConf
 from surf_tpu_torch.convert import from_jax
 from surf_tpu_torch.ops import grid_sample as tgs
 
+# one intra-op thread: the suite's xdist workers share the host's cores,
+# and a thread a core in every worker oversubscribes them many times over
+torch.set_num_threads(1)
+
 
 def _close(got, ref, rtol=1e-5, atol=1e-5, err_msg=""):
     """atol relative to max(1, the largest reference entry)."""

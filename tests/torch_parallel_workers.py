@@ -81,7 +81,9 @@ def cli(url, argv, out):
     """``surf_tpu_torch.main`` on this rank; its trainer's parameters,
     Adam moments and schedule go to ``<out>/rank<r>.npz``."""
     from surf_tpu_torch import main
-    torch.set_num_threads(max(1, torch.get_num_threads() // int(os.environ["WORLD_SIZE"])))
+    # one thread a rank: the ranks share the host's cores with the suite's
+    # other workers
+    torch.set_num_threads(1)
     t = main.main(list(argv) + ["--dist_url", url])
     rank = dist.get_rank()
     os.makedirs(out, exist_ok=True)
