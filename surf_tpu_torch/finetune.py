@@ -41,6 +41,7 @@ from .nn.core import tree_leaves
 from .train import anomaly_mode, check_finite
 from .utils import (resume_from, save_checkpoint, to_numpy_tree, vol_state_tree,
                     warmup_cosine)
+from .utils.spans import span
 from .utils.summary import save_scalars, scalar_writer
 from .validate import _sync, extract_mesh, render_full_image, to_device
 
@@ -145,18 +146,20 @@ class Finetuner:
         stages_ff = self.stages_ff()
         feats_ff = [f.index_select(0, batch["view_ids"])
                     for f in self.vol_state["features"]][::-1]
-        out = implicit_surface.render(
-            isf, st, batch["rays_o"], batch["rays_d"], batch["near"], batch["far"],
-            self.vol_state["matching_volume"], stages_ff, feats_ff, batch["imgs"],
-            batch["intrs"], batch["c2ws"], self.cos_anneal_ratio(step),
-            generator=self.generator, match_features=feats_ff, step=float(step),
-            pts_random=pts_random)
-        if "pseudo_pts" in batch:
-            out["pseudo_sdf"] = implicit_surface.pseudo_sdf(isf, st, batch["pseudo_pts"],
-                                                            stages_ff)
-        res = compute_loss(self.loss_cfg, out, batch, float(step), "finetune")
-        res["psnr"] = 20.0 * torch.log10(1.0 / torch.sqrt(torch.mean(
-            (out["color_fine"] - batch["color"]) ** 2)))
+        with span("finetune.render"):
+            out = implicit_surface.render(
+                isf, st, batch["rays_o"], batch["rays_d"], batch["near"], batch["far"],
+                self.vol_state["matching_volume"], stages_ff, feats_ff, batch["imgs"],
+                batch["intrs"], batch["c2ws"], self.cos_anneal_ratio(step),
+                generator=self.generator, match_features=feats_ff, step=float(step),
+                pts_random=pts_random)
+            if "pseudo_pts" in batch:
+                out["pseudo_sdf"] = implicit_surface.pseudo_sdf(isf, st, batch["pseudo_pts"],
+                                                                stages_ff)
+        with span("finetune.loss"):
+            res = compute_loss(self.loss_cfg, out, batch, float(step), "finetune")
+            res["psnr"] = 20.0 * torch.log10(1.0 / torch.sqrt(torch.mean(
+                (out["color_fine"] - batch["color"]) ** 2)))
         if self.debug_nans:
             check_finite(res, f"finetune step {step}")
         return res
@@ -223,21 +226,20 @@ class Finetuner:
         feats_ff = [f.index_select(0, ipts["view_ids"])
                     for f in self.vol_state["features"]][::-1]
         _sync(self.device)
-        t0 = time.time()
-        verts, tris, _ = extract_mesh(isf, st, stages_ff, self.mesh_resolution)
-        mesh_s = time.time() - t0
+        with span("mesh") as mesh_span:
+            verts, tris, _ = extract_mesh(isf, st, stages_ff, self.mesh_resolution)
+        mesh_s = mesh_span.seconds
         mesh = Mesh(verts, tris).apply_transform(np.asarray(raw["scale_mat"]))
         os.makedirs(os.path.join(self.base_exp_dir, "meshes"), exist_ok=True)
         mesh.export(os.path.join(self.base_exp_dir, "meshes", f"{raw['scene']}_step{step}.ply"))
         _sync(self.device)
-        t0 = time.time()
-        color, normal, sdf_depth, render_depth = render_full_image(
-            isf, st, ipts, stages_ff, self.vol_state["matching_volume"], feats_ff,
-            self.val_chunk, self.generator)
-        render_s = time.time() - t0
+        with span("render") as render:
+            color, normal, sdf_depth, render_depth = render_full_image(
+                isf, st, ipts, stages_ff, self.vol_state["matching_volume"], feats_ff,
+                self.val_chunk, self.generator)
         mse = float(((color.reshape(-1, 3) - raw["color"]) ** 2).mean())
         m = {"psnr": 20.0 * np.log10(1.0 / max(np.sqrt(mse), 1e-10)), "mesh_s": mesh_s,
-             "render_rays_per_s": len(raw["rays_o"]) / max(render_s, 1e-9),
+             "render_rays_per_s": len(raw["rays_o"]) / max(render.seconds, 1e-9),
              "mesh_vertices": int(len(verts)), "mesh_faces": int(len(tris)),
              "finite": bool(all(np.isfinite(a).all()
                                 for a in (color, normal, sdf_depth, render_depth)))}

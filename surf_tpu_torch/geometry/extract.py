@@ -20,24 +20,27 @@ import torch
 
 from .marching_cubes import marching_cubes
 from ..ops.sparse import occupied_blocks_host
+from ..utils.spans import span
 
 
 @torch.no_grad()
 def extract_geometry(sdf_fn, stages, resolution, block=64, blocks_per_call=8,
-                     map_rows=None, mesh=True):
+                     map_rows=None, mesh=True, stats=None):
     """sdf_fn(pts (m, 3)) -> (m,) SDF.  Returns (verts in [-1,1], tris, u).
     ``map_rows(fn, n)``: ``fn`` on the rows [0, n) as a host tensor
     (default ``fn(arange(n))``); ``mesh`` false: only evaluate (the rows'
-    values go elsewhere) and return None."""
+    values go elsewhere) and return None.  ``stats``, a dict, gets the
+    seconds of the spans ``mesh.lattice`` (the occupied blocks, their SDF
+    on the card and its host copy), ``mesh.fill`` (the lattice array) and
+    ``mesh.cubes`` (marching cubes and the vertices' rescale) as
+    ``mesh_lattice_s``, ``mesh_fill_s`` and ``mesh_cubes_s``, and the
+    counts ``lattice_points`` (occupied blocks x B^3, the points evaluated)
+    and ``lattice_blocks`` ([occupied, all] blocks)."""
     # a block no larger than the lattice (the skipping is exact either way)
     R, G = int(resolution), int(blocks_per_call)
     B = min(int(block), R)
     dev = stages[0][1].device
-    blocks = occupied_blocks_host(stages, R, B)
-    occupied = np.argwhere(blocks)
-    origins_all = torch.from_numpy(occupied * B).to(dev)
-    ar = torch.arange(B, device=dev)
-    scale = 2.0 / (R - 1.0)
+    stats = {} if stats is None else stats
 
     def eval_blocks(rows):
         """(k,) rows of ``occupied`` -> their (k, B^3) SDF values."""
@@ -60,17 +63,29 @@ def extract_geometry(sdf_fn, stages, resolution, block=64, blocks_per_call=8,
     if map_rows is None:
         def map_rows(fn, n):
             return fn(torch.arange(n, device=dev)).cpu()
-    vals = map_rows(eval_blocks, len(occupied)) if len(occupied) else None
+    with span("mesh.lattice") as lattice:
+        blocks = occupied_blocks_host(stages, R, B)
+        occupied = np.argwhere(blocks)
+        origins_all = torch.from_numpy(occupied * B).to(dev)
+        ar = torch.arange(B, device=dev)
+        scale = 2.0 / (R - 1.0)
+        vals = map_rows(eval_blocks, len(occupied)) if len(occupied) else None
+    stats.update(mesh_lattice_s=lattice.seconds, lattice_points=len(occupied) * B ** 3,
+                 lattice_blocks=[len(occupied), int(blocks.size)])
     if not mesh:
         return None
-    u = np.full((R, R, R), 100.0, np.float32)
-    if vals is not None:
-        vals = vals.numpy().reshape(-1, B, B, B)
-        for (bx, by, bz), v in zip(occupied, vals):
-            sx = slice(bx * B, min((bx + 1) * B, R))
-            sy = slice(by * B, min((by + 1) * B, R))
-            sz = slice(bz * B, min((bz + 1) * B, R))
-            u[sx, sy, sz] = v[:sx.stop - sx.start, :sy.stop - sy.start, :sz.stop - sz.start]
-    verts, tris = marching_cubes(-u, 0.0)
-    verts = verts / (R - 1.0) * 2.0 - 1.0
+    with span("mesh.fill") as fill:
+        u = np.full((R, R, R), 100.0, np.float32)
+        if vals is not None:
+            vals = vals.numpy().reshape(-1, B, B, B)
+            for (bx, by, bz), v in zip(occupied, vals):
+                sx = slice(bx * B, min((bx + 1) * B, R))
+                sy = slice(by * B, min((by + 1) * B, R))
+                sz = slice(bz * B, min((bz + 1) * B, R))
+                u[sx, sy, sz] = v[:sx.stop - sx.start, :sy.stop - sy.start,
+                                  :sz.stop - sz.start]
+    with span("mesh.cubes") as cubes:
+        verts, tris = marching_cubes(-u, 0.0)
+        verts = verts / (R - 1.0) * 2.0 - 1.0
+    stats.update(mesh_fill_s=fill.seconds, mesh_cubes_s=cubes.seconds)
     return verts, tris, u

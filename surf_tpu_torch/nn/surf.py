@@ -25,6 +25,7 @@ import torch
 from . import feature_net, reg_net, matching_field, implicit_surface
 from . import volume as volume_mod
 from ..ops import sparse as sp
+from ..utils.spans import span
 
 
 def init(conf, *, seed=0, device=None):
@@ -149,25 +150,30 @@ def forward(params, state, static, ipts, *, cos_anneal_ratio=1.0, step=None,
     ``forward(..., "train")``).  ``perturb`` jitters the matching-field
     samples, ``render.perturb`` > 0 the render's z-vals; ``generator``
     draws those numbers and the 1024 random SDF probe points, unless
-    ``pts_random`` gives them.  Returns (outputs, new_state)."""
-    features = feature_net.apply(params["feature_network"], ipts["imgs"])
-    outputs, stages, matching, new_state = build_volumes(
-        params, state, static, ipts, features, training=True,
-        perturb=perturb, generator=generator)
-    with torch.no_grad():
+    ``pts_random`` gives them.  Returns (outputs, new_state).  Its parts run
+    in the spans ``train.fpn`` (both feature passes), ``train.cascade`` and
+    ``train.render`` (the render and the pseudo points)."""
+    with span("train.fpn"):
+        features = feature_net.apply(params["feature_network"], ipts["imgs"])
+    with span("train.cascade"):
+        outputs, stages, matching, new_state = build_volumes(
+            params, state, static, ipts, features, training=True,
+            perturb=perturb, generator=generator)
+    with span("train.fpn"), torch.no_grad():
         match_features = feature_net.apply(state["match_feature_network"], ipts["imgs"])
     isf = static["implicit_surface"]
     stages_ff = stages[::-1]
-    render_out = implicit_surface.render(
-        params["implicit_surface"], isf, ipts["rays_o"], ipts["rays_d"],
-        ipts["near"], ipts["far"], matching, stages_ff, features[::-1],
-        ipts["imgs"], ipts["intrs"], ipts["c2ws"], cos_anneal_ratio,
-        generator=generator, match_features=match_features[::-1], step=step,
-        pts_random=pts_random)
-    outputs.update(render_out)
-    if "pseudo_pts" in ipts:
-        outputs["pseudo_sdf"] = implicit_surface.pseudo_sdf(
-            params["implicit_surface"], isf, ipts["pseudo_pts"], stages_ff)
+    with span("train.render"):
+        render_out = implicit_surface.render(
+            params["implicit_surface"], isf, ipts["rays_o"], ipts["rays_d"],
+            ipts["near"], ipts["far"], matching, stages_ff, features[::-1],
+            ipts["imgs"], ipts["intrs"], ipts["c2ws"], cos_anneal_ratio,
+            generator=generator, match_features=match_features[::-1], step=step,
+            pts_random=pts_random)
+        outputs.update(render_out)
+        if "pseudo_pts" in ipts:
+            outputs["pseudo_sdf"] = implicit_surface.pseudo_sdf(
+                params["implicit_surface"], isf, ipts["pseudo_pts"], stages_ff)
     outputs["active_voxels"] = torch.stack([g.cvalid.sum() for g, _ in stages])
     new_state["match_feature_network"] = state["match_feature_network"]
     return outputs, new_state

@@ -12,9 +12,13 @@ a third under ``torch.profiler`` (CPU and CUDA activities), cut into the
 ranges ``forward`` (the loss: cascade and render in training, render
 and pseudo points in finetune), ``backward`` and ``update``, each ending
 in a synchronise.  Prints the card (nvidia-smi name and power limit), the
-step's busy share, each range's host time, the device time of the
-kernels that start in it and their heaviest kernels, and the CUDA
-kernels of the step by device time (all of them in ``<out>/kernels.txt``).
+step's busy share (the union of the device operations' intervals over
+its wall time), for each range and each span inside the forward
+(``train.fpn``, ``train.cascade``, ``train.render``, ``train.loss``;
+``finetune.render``, ``finetune.loss``) its host time, the device time
+of the operations that start in it, its busy share and its heaviest
+operations, and the device operations of the step by time (all of them
+in ``<out>/kernels.txt``; ``profile_validate.report``).
 Needs a card.
 """
 

@@ -6,12 +6,15 @@
 Runs ``Validator.validate`` twice on seeded random weights: once to warm up
 (kernel builds, cuDNN plans, the allocator), then under ``torch.profiler``
 (CPU and CUDA activities).  Prints the card (nvidia-smi name and power
-limit), then for each phase of the profiled pass (the ``build`` / ``mesh``
-/ ``render`` ranges of ``Validator.validate``) its host time, the device
-time of the kernels launched inside it and their ratio (the device's busy
-share; the profiler's own host cost lowers it) with its heaviest kernels,
-and the CUDA kernels of the whole pass by total device time.  The whole
-kernel table goes to ``<out>/kernels.txt``.  Needs a card; the numeric
+limit), the pass's busy share (the union of the device operations'
+intervals over its wall time), then for each span of the profiled pass
+(``Validator.validate``'s ``upload``, ``build`` with ``build.fpn`` and
+``build.cascade``, ``mesh`` with ``mesh.lattice``, ``mesh.fill`` and
+``mesh.cubes``, ``render``, ``write``; ``utils.spans``) its host time,
+the device time of the operations that start inside it, its busy share
+(the profiler's own host cost lowers it) and its heaviest operations,
+and the device operations of the whole pass by total time.  The whole
+table goes to ``<out>/kernels.txt``.  Needs a card; the numeric
 settings are the port's own (``card.set_numerics``).  ``chip_smoke.py``
 reports the warm pass's metrics without the profiler.
 """
@@ -19,6 +22,7 @@ reports the warm pass's metrics without the profiler.
 from __future__ import annotations
 
 import argparse
+import bisect
 import json
 import os
 import time
@@ -29,9 +33,9 @@ from torch.profiler import ProfilerActivity, profile
 
 from .card import nvidia_smi_line, set_numerics
 from .config import ConfigFactory
+from .utils import spans
 from .validate import Validator
 
-PHASES = ("build", "mesh", "render")
 TOP = 25                  # kernels printed; kernels.txt has them all
 PHASE_TOP = 8             # kernels printed per phase
 
@@ -62,50 +66,94 @@ def main(argv=None):
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         v.validate()
         torch.cuda.synchronize()
-    report(prof, PHASES, time.time() - t0, args.out, smi)
+    report(prof, (), time.time() - t0, args.out, smi)
+
+
+def union(intervals):
+    """Sorted (start, end) pairs -> their union, as sorted disjoint
+    [start, end] pairs."""
+    out = []
+    for a, b in intervals:
+        if out and a <= out[-1][1]:
+            out[-1][1] = max(out[-1][1], b)
+        else:
+            out.append([a, b])
+    return out
+
+
+def covered(busy, a, b):
+    """How much of [a, b] the disjoint sorted intervals ``busy`` cover."""
+    i = bisect.bisect_right(busy, [a, float("inf")])
+    if i and busy[i - 1][1] > a:
+        i -= 1
+    total = 0
+    for s, e in busy[i:]:
+        if s >= b:
+            break
+        total += min(e, b) - max(s, a)
+    return total
 
 
 def report(prof, phases, wall_s, out, smi):
-    """Print the profiled pass: its busy share, each phase's host and
-    device time with its heaviest kernels, and the kernels by device time
-    (all of them in ``<out>/kernels.txt``)."""
-    # the phase ranges show up twice: as host ranges and as spans on the
-    # device timeline; neither is a kernel
-    is_kernel = lambda e: e.device_type == DeviceType.CUDA and e.key not in phases
-    run = [e for e in prof.events() if is_kernel(e)]
-    device_s = sum(e.time_range.elapsed_us() for e in run) / 1e6
+    """Print the profiled pass: the device's busy share (the union of its
+    operations' intervals over the pass's wall time), then for each phase
+    (the ranges named in ``phases`` and every span recorded in the pass,
+    ``utils.spans``) its occurrences, host time, the device time of the
+    operations that start inside it (a phase ends in a synchronise where
+    its time is to count; backward kernels launched from the autograd
+    thread start in the range around ``backward``), its busy share and its
+    heaviest operations, and the device operations by time (all of them in
+    ``<out>/kernels.txt``).  Read from the profiler's raw event list;
+    times in nanoseconds there."""
+    names = list(dict.fromkeys([*phases, *(r[0] for r in spans.recorded())]))
+    ranges = {n: [] for n in names}
+    ops = []
+    for e in prof.profiler.kineto_results.events():
+        a = e.start_ns()
+        b = a + e.duration_ns()
+        if e.device_type() == DeviceType.CUDA:
+            # a range's mirror on the device timeline is no operation
+            annotation = getattr(e, "is_user_annotation", None)
+            if e.name() not in ranges and not (annotation and annotation()):
+                ops.append((a, b, e.name()))
+        elif e.name() in ranges:
+            ranges[e.name()].append((a, b))
+    ops.sort()
+    busy = union((a, b) for a, b, _ in ops)
+    busy_s = sum(b - a for a, b in busy) / 1e9
+    device_s = sum(b - a for a, b, _ in ops) / 1e9
     print("[profiled] " + json.dumps({"wall_s": wall_s, "device_s": device_s,
-                                      "busy_share": device_s / wall_s}), flush=True)
-    # a phase's kernels are those that start inside its host range: each
-    # phase ends in a synchronise, and backward kernels launched from the
-    # autograd thread are not children of the range
-    for e in prof.events():
-        if e.key in phases and e.device_type == DeviceType.CPU:
-            a, b = e.time_range.start, e.time_range.end
-            by_name = {}
-            for k in run:
-                if a <= k.time_range.start < b:
-                    by_name[k.key] = by_name.get(k.key, 0) + k.time_range.elapsed_us()
-            dev_s = sum(by_name.values()) / 1e6
-            host_s = (b - a) / 1e6
-            top = sorted(by_name.items(), key=lambda kv: -kv[1])[:PHASE_TOP]
-            print("[phase] " + json.dumps({
-                "phase": e.key, "host_s": host_s, "device_s": dev_s,
-                "busy_share": dev_s / host_s,
-                "top": [{"name": n[:100], "device_ms": t / 1e3} for n, t in top]}),
-                flush=True)
-    kernels = sorted((e for e in prof.key_averages() if is_kernel(e)),
-                     key=lambda e: -e.device_time_total)
+                                      "busy_s": busy_s, "busy_share": busy_s / wall_s}),
+          flush=True)
+    starts = [a for a, _, _ in ops]
+    for name in names:
+        if not ranges[name]:
+            continue
+        by_name, host, inside = {}, 0, 0
+        for a, b in ranges[name]:
+            host += b - a
+            inside += covered(busy, a, b)
+            for s, e, k in ops[bisect.bisect_left(starts, a):bisect.bisect_left(starts, b)]:
+                by_name[k] = by_name.get(k, 0) + e - s
+        top = sorted(by_name.items(), key=lambda kv: -kv[1])[:PHASE_TOP]
+        print("[phase] " + json.dumps({
+            "phase": name, "count": len(ranges[name]), "host_s": host / 1e9,
+            "device_s": sum(by_name.values()) / 1e9, "busy_share": inside / max(host, 1),
+            "top": [{"name": n[:100], "device_ms": t / 1e6} for n, t in top]}), flush=True)
+    totals = {}
+    for a, b, k in ops:
+        n, t = totals.get(k, (0, 0))
+        totals[k] = (n + 1, t + b - a)
+    kernels = sorted(totals.items(), key=lambda kv: -kv[1][1])
     with open(os.path.join(out, "kernels.txt"), "w") as f:
         f.write(f"{smi}\nkernel\tcalls\tdevice_ms\tshare_of_device_time\n")
-        for e in kernels:
-            f.write(f"{e.key}\t{e.count}\t{e.device_time_total / 1e3}\t"
-                    f"{e.device_time_total / 1e6 / device_s}\n")
-    for e in kernels[:TOP]:
+        for k, (n, t) in kernels:
+            f.write(f"{k}\t{n}\t{t / 1e6}\t{t / 1e9 / device_s}\n")
+    for k, (n, t) in kernels[:TOP]:
         print("[kernel] " + json.dumps({
-            "name": e.key[:120], "calls": e.count,
-            "device_ms": e.device_time_total / 1e3,
-            "share": e.device_time_total / 1e6 / device_s}), flush=True)
+            "name": k[:120], "calls": n, "device_ms": t / 1e6,
+            "share": t / 1e9 / device_s}), flush=True)
+
 
 if __name__ == "__main__":
     main()

@@ -63,6 +63,7 @@ from .parallel.distribute import is_main_process, process_count, process_index
 from .utils import load_checkpoint, save_checkpoint, to_numpy_tree, to_torch_tree, \
     warmup_cosine
 from .utils.opt_state import fingerprint, opt_state_tree, restore_opt_state
+from .utils.spans import span
 from .utils.summary import mean_scalars, save_scalars, scalar_writer
 from .validate import Validator, to_device
 
@@ -168,9 +169,10 @@ class Trainer:
             self.params, self.state, self.static, batch, cos_anneal_ratio=anneal,
             step=step_f, perturb=perturb, generator=self.generator,
             pts_random=pts_random)
-        res = compute_loss(self.loss_cfg, outputs, batch, step_f, "train")
-        res["psnr"] = 20.0 * torch.log10(1.0 / torch.sqrt(torch.mean(
-            (outputs["color_fine"] - batch["color"]) ** 2)))
+        with span("train.loss"):
+            res = compute_loss(self.loss_cfg, outputs, batch, step_f, "train")
+            res["psnr"] = 20.0 * torch.log10(1.0 / torch.sqrt(torch.mean(
+                (outputs["color_fine"] - batch["color"]) ** 2)))
         self.active_voxels = outputs["active_voxels"]
         if self.debug_nans:
             check_finite(res, f"step {step_f}")

@@ -10,8 +10,8 @@ Writes the mesh (``meshes/<scene>_epoch<e>.ply``) and the artifacts
 ``Runner.validate`` writes (surf_tpu/runner.py:653-676), under the same
 names: ``val_img`` and ``val_normal`` as 8-bit PNGs, ``val_render_depth``,
 ``val_sdf_depth`` and ``val_auxi_depth`` as magma PNGs plus ``.npy``.
-Returns PSNR, colour L1, masked depth L1 and the timings ``build_s``,
-``mesh_s`` (and ``clean_mesh_s``) and ``render_rays_per_s``; the first
+Returns PSNR, colour L1, masked depth L1, the lattice's counts and the
+timings ``TIMINGS``, each read from a span (``utils.spans``); the first
 rank writes the scenes' mean PSNR, colour and depth L1, ``mesh_s`` and
 ``render_rays_per_s`` as the JAX runner's ``val_img_avg`` scalars (as
 ``mesh_seconds`` and ``rays_per_sec``) under ``<base_exp_dir>/logs``.  Under
@@ -24,11 +24,9 @@ from __future__ import annotations
 
 import functools
 import os
-import time
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from .data import get_dataset
 from .geometry import Mesh, clean_mesh, extract_geometry
@@ -40,6 +38,7 @@ from .nn.implicit_surface import draw_jitter, draw_probe
 from .ops.feature_lookup import fuse_pyramid
 from .parallel.distribute import node_index_and_count, process_count, process_index
 from .parallel.ray_shard import broadcast_object, is_root, padded_chunk, ray_group, shard_rows
+from .utils.spans import span
 from .utils.summary import mean_scalars, save_scalars, scalar_writer
 
 # the JAX runner's val_img_avg tags (surf_tpu/runner.py:680-700) and the
@@ -48,6 +47,14 @@ VAL_SCALARS = (("psnr", "psnr"), ("color_loss", "color_loss"),
                ("render_depth_loss", "render_depth_loss"),
                ("sdf_depth_loss", "sdf_depth_loss"), ("mesh_seconds", "mesh_s"),
                ("rays_per_sec", "render_rays_per_s"))
+
+# a validate's timings, each from the span of its name: ``upload`` (the
+# item to the card), ``build`` (``build.fpn`` and ``build.cascade``),
+# ``mesh`` (``mesh.lattice``, ``mesh.fill``, ``mesh.cubes``), ``render``
+# (as rays a second) and ``write`` (the mesh, its ``clean``ing, the
+# artifacts and the host metrics)
+TIMINGS = ("upload_s", "build_s", "mesh_s", "mesh_lattice_s", "mesh_fill_s", "mesh_cubes_s",
+           "render_rays_per_s", "write_s", "clean_mesh_s")
 
 
 def to_device(inputs, device):
@@ -79,16 +86,17 @@ def sdf_lattice_fn(isf_params, isf_static, stages_ff):
 
 
 @torch.no_grad()
-def extract_mesh(isf_params, isf_static, stages_ff, resolution, block=64, group=None):
+def extract_mesh(isf_params, isf_static, stages_ff, resolution, block=64, group=None,
+                 stats=None):
     """Block-skipped SDF lattice and host marching cubes: (verts in
     [-1, 1], tris, lattice); with a ray ``group`` the lattice's blocks are
     split across its ranks and its first rank gets the result (None on the
-    others)."""
+    others).  ``stats``: as ``extract_geometry``'s."""
     dev = stages_ff[0][1].device
     return extract_geometry(sdf_lattice_fn(isf_params, isf_static, stages_ff), stages_ff,
                             resolution, block=block,
                             map_rows=functools.partial(shard_rows, group=group, device=dev),
-                            mesh=is_root(group))
+                            mesh=is_root(group), stats=stats)
 
 
 def render_full_image(isf_params, isf_static, ipts, stages_ff, matching, feats_ff, chunk,
@@ -184,14 +192,17 @@ class Validator:
     # -- the three phases ---------------------------------------------------
     @torch.no_grad()
     def build(self, ipts):
-        features = feature_net.apply(self.params["feature_network"], ipts["imgs"])
-        outputs, stages, matching, _ = surf.build_volumes(
-            self.params, self.state, self.static, ipts, features)
+        with span("build.fpn"):
+            features = feature_net.apply(self.params["feature_network"], ipts["imgs"])
+        with span("build.cascade"):
+            outputs, stages, matching, _ = surf.build_volumes(
+                self.params, self.state, self.static, ipts, features)
         return outputs, stages, matching, features
 
-    def extract_geometry(self, stages_ff, resolution, block=64):
+    def extract_geometry(self, stages_ff, resolution, block=64, stats=None):
         return extract_mesh(self.params["implicit_surface"], self.static["implicit_surface"],
-                            stages_ff, resolution, block=block, group=self.group)
+                            stages_ff, resolution, block=block, group=self.group,
+                            stats=stats)
 
     def render_full_image(self, ipts, stages_ff, matching, feats_ff):
         return render_full_image(self.params["implicit_surface"],
@@ -218,10 +229,10 @@ class Validator:
             if idx % n_units != unit:
                 continue
             inputs = self.dataset[idx]
-            ipts = to_device(inputs, self.device)
-            _sync(self.device)
-            t0 = time.time()
-            with record_function("build"):
+            with span("upload") as upload:
+                ipts = to_device(inputs, self.device)
+                _sync(self.device)
+            with span("build") as build:
                 if self.vol_state is None:
                     mf_outputs, stages, matching, features = self.build(ipts)
                 else:
@@ -229,22 +240,17 @@ class Validator:
                     mf_outputs, matching, features = {}, vs["matching_volume"], vs["features"]
                     stages = list(zip(vs["grids"], vs["volumes"]))
                 _sync(self.device)
-            build_s = time.time() - t0
             stages_ff = stages[::-1]
             feats_ff = features[::-1]
 
-            t0 = time.time()
-            with record_function("mesh"):
-                lattice = self.extract_geometry(stages_ff, self.mesh_resolution)
-            mesh_s = time.time() - t0
-            if root:
-                mesh, clean = self.write_mesh(inputs, *lattice[:2], epoch)
+            lattice_stats = {}
+            with span("mesh") as mesh_span:
+                lattice = self.extract_geometry(stages_ff, self.mesh_resolution,
+                                                stats=lattice_stats)
 
             _sync(self.device)
-            t0 = time.time()
-            with record_function("render"):
+            with span("render") as render:
                 image = self.render_full_image(ipts, stages_ff, matching, feats_ff)
-            render_s = time.time() - t0
             # the last scene's device state, for inspection and kernel checks
             self.last_scene = {"ipts": ipts, "stages": stages,
                                "matching": matching, "features": features}
@@ -254,37 +260,41 @@ class Validator:
             n_rays = int(ipts["rays_o"].shape[0])
             scene, file_name, d = inputs["scene"], inputs["file_name"], self.base_exp_dir
 
-            auxi = mf_outputs["depth_stage0"].cpu().numpy() \
-                if "depth_stage0" in mf_outputs else None
-            write_artifacts(d, file_name, epoch, color, normal, sdf_depth, render_depth,
-                            auxi)
+            with span("write") as write:
+                mesh, clean = self.write_mesh(inputs, *lattice[:2], epoch)
+                auxi = mf_outputs["depth_stage0"].cpu().numpy() \
+                    if "depth_stage0" in mf_outputs else None
+                write_artifacts(d, file_name, epoch, color, normal, sdf_depth, render_depth,
+                                auxi)
 
-            gt = np.asarray(inputs["color"])
-            mse = float(((color.reshape(-1, 3) - gt) ** 2).mean())
-            m = {"scene": scene,
-                 "psnr": 20.0 * np.log10(1.0 / max(np.sqrt(mse), 1e-10)),
-                 "color_loss": float(np.abs(color.reshape(-1, 3) - gt).mean())}
-            if "depth_ref" in inputs:
-                depth_ref = np.asarray(inputs["depth_ref"])
-                skip = max(depth_ref.shape[0] // render_depth.shape[0], 1)
-                depth_ref = depth_ref[::skip, ::skip][:render_depth.shape[0],
-                                                      :render_depth.shape[1]]
-                mk = depth_ref > 0
-                m["render_depth_loss"] = float(
-                    (np.abs(render_depth - depth_ref) * mk).sum() / (mk.sum() + 1e-8))
-                msdf = mk * (sdf_depth > 0)
-                m["sdf_depth_loss"] = float(
-                    (np.abs(sdf_depth - depth_ref) * msdf).sum() / (msdf.sum() + 1e-8))
-            m.update({
-                "build_s": build_s, "mesh_s": mesh_s, **clean,
-                "render_rays_per_s": n_rays / max(render_s, 1e-9),
-                "active_voxels": [int(g.cvalid.sum()) for g, _ in stages],
-                "mesh_vertices": int(len(mesh.vertices)),
-                "mesh_faces": int(len(mesh.faces)),
-                "finite": bool(np.isfinite(color).all() and np.isfinite(normal).all()
-                               and np.isfinite(sdf_depth).all()
-                               and np.isfinite(render_depth).all()),
-            })
+                gt = np.asarray(inputs["color"])
+                mse = float(((color.reshape(-1, 3) - gt) ** 2).mean())
+                m = {"scene": scene,
+                     "psnr": 20.0 * np.log10(1.0 / max(np.sqrt(mse), 1e-10)),
+                     "color_loss": float(np.abs(color.reshape(-1, 3) - gt).mean())}
+                if "depth_ref" in inputs:
+                    depth_ref = np.asarray(inputs["depth_ref"])
+                    skip = max(depth_ref.shape[0] // render_depth.shape[0], 1)
+                    depth_ref = depth_ref[::skip, ::skip][:render_depth.shape[0],
+                                                          :render_depth.shape[1]]
+                    mk = depth_ref > 0
+                    m["render_depth_loss"] = float(
+                        (np.abs(render_depth - depth_ref) * mk).sum() / (mk.sum() + 1e-8))
+                    msdf = mk * (sdf_depth > 0)
+                    m["sdf_depth_loss"] = float(
+                        (np.abs(sdf_depth - depth_ref) * msdf).sum() / (msdf.sum() + 1e-8))
+                m.update({
+                    "active_voxels": [int(g.cvalid.sum()) for g, _ in stages],
+                    "mesh_vertices": int(len(mesh.vertices)),
+                    "mesh_faces": int(len(mesh.faces)),
+                    "finite": bool(np.isfinite(color).all() and np.isfinite(normal).all()
+                                   and np.isfinite(sdf_depth).all()
+                                   and np.isfinite(render_depth).all()),
+                    **lattice_stats, **clean})
+            m.update({"upload_s": upload.seconds, "build_s": build.seconds,
+                      "mesh_s": mesh_span.seconds,
+                      "render_rays_per_s": n_rays / max(render.seconds, 1e-9),
+                      "write_s": write.seconds})
             results.append(m)
             print(f"[val {scene}] " + " ".join(
                 f"{k}={v:.4f}" if isinstance(v, float) else f"{k}={v}"
@@ -302,10 +312,10 @@ class Validator:
         mesh = Mesh(verts, tris)
         clean = {}
         if self.clean_mesh and "masks" in inputs:
-            t0 = time.time()
-            mesh = clean_mesh(mesh, np.asarray(inputs["masks"]),
-                              np.asarray(inputs["intrs"]), np.asarray(inputs["c2ws"]))
-            clean = {"clean_mesh_s": time.time() - t0,
+            with span("clean") as cleaning:
+                mesh = clean_mesh(mesh, np.asarray(inputs["masks"]),
+                                  np.asarray(inputs["intrs"]), np.asarray(inputs["c2ws"]))
+            clean = {"clean_mesh_s": cleaning.seconds,
                      "mesh_faces_before_clean": int(len(tris))}
         mesh.apply_transform(np.asarray(inputs["scale_mat"]))
         d = self.base_exp_dir

@@ -19,7 +19,7 @@ from tiny_conf import TINY
 import torch_parallel_workers as workers
 from surf_tpu_torch.config import ConfigFactory
 from surf_tpu_torch.parallel import distribute
-from surf_tpu_torch.validate import Validator
+from surf_tpu_torch.validate import TIMINGS, Validator
 
 # one intra-op thread: the suite's xdist workers share the host's cores,
 # and a thread a core in every worker oversubscribes them many times over
@@ -93,12 +93,11 @@ def test_each_node_first_rank_writes_its_artifacts(nodes):
 
 def test_node_results_equal_one_process(nodes):
     single = {m["scene"]: m for m in nodes["single"]}
-    timing = ("build_s", "mesh_s", "render_rays_per_s")
     for r in range(0, RANKS, PER_NODE):
         for m in nodes["ranks"][r]["results"]:
             ref = single[m["scene"]]
-            assert {k: v for k, v in m.items() if k not in timing} == \
-                {k: v for k, v in ref.items() if k not in timing}
+            assert {k: v for k, v in m.items() if k not in TIMINGS} == \
+                {k: v for k, v in ref.items() if k not in TIMINGS}
             assert m["mesh_faces"] > 0
         for p in (nodes["out"] / f"rank{r}").rglob("*.npy"):
             q = nodes["single_dir"] / p.relative_to(nodes["out"] / f"rank{r}")

@@ -35,12 +35,12 @@ import pytest
 import torch
 
 from tiny_conf import TINY
-from surf_tpu_torch import finetune as t_finetune, train as t_train, validate as t_validate
+from surf_tpu_torch import finetune as t_finetune, train as t_train
 from surf_tpu_torch.config import ConfigFactory
 from surf_tpu_torch.finetune import Finetuner
 from surf_tpu_torch.nn.core import tree_leaves
 from surf_tpu_torch.train import Trainer
-from surf_tpu_torch.utils import experiment, summary
+from surf_tpu_torch.utils import experiment, spans, summary
 from surf_tpu_torch.validate import Validator
 
 # one intra-op thread: the suite's xdist workers share the host's cores,
@@ -79,13 +79,17 @@ def _results(seed):
 
 
 class _Clock:
-    """``time.time`` that moves only when a stub says so."""
+    """``time.time`` (and the spans' ``time.time_ns``) that moves only when
+    a stub says so."""
 
     def __init__(self):
         self.now = 1000.0
 
     def time(self):
         return self.now
+
+    def time_ns(self):
+        return round(self.now * 1e9)
 
 
 # -- train --------------------------------------------------------------------
@@ -219,7 +223,7 @@ def test_validate_stream_equals_the_jax_runner(monkeypatch, tmp_path):
     ref = _jax_validate(monkeypatch, tmp_path)
     items, outs = _val_items()
     clock = _Clock()
-    monkeypatch.setattr(t_validate, "time", types.SimpleNamespace(time=clock.time))
+    monkeypatch.setattr(spans, "time", types.SimpleNamespace(time_ns=clock.time_ns))
     v = Validator(_conf(), device="cpu", mesh_resolution=8, base_exp_dir=str(tmp_path / "t"))
     assert v.writer.log_dir == os.path.join(str(tmp_path / "t"), "logs")
     v.writer, v.dataset = Recorder(), items
