@@ -6,9 +6,10 @@
 Phases, one line each (any failure exits non-zero, with no result line):
 
 1. device: the card's name and power limit (nvidia-smi), torch and CUDA;
-2. build: the twelve hand-written kernels (surf_tpu_torch/csrc/*.cu: K1-K4,
-   the backward kernels K1b-K3b and K4w, and the second-order K1g, K1s,
-   K2g, K2s) with nvcc for sm_90a, one process per source, in parallel;
+2. build: the thirteen hand-written kernels (surf_tpu_torch/csrc/*.cu: K1-K4,
+   the backward kernels K1b-K3b and K4w, the second-order K1g, K1s,
+   K2g, K2s, and K5, the mesh lattice's SDF MLP) with nvcc for sm_90a,
+   one process per source, in parallel;
 3. ragged: every kernel against its plain PyTorch version on odd shapes
    with out-of-range points; K1 and K1b also at every channel count their
    kernels specialise and two they do not, with all-zero cotangent rows
@@ -19,8 +20,9 @@ Phases, one line each (any failure exits non-zero, with no result line):
    confs/surf_synthetic_full.conf (4-stage cascade 88^3 -> 704^3, 512^3
    mesh, 144x200 render) with seeded random weights; every kernel's
    launch count is zeroed just before and read just after, and must be
-   > 0; K2's and K3's calls are also counted by call site.  This first
-   call in the process is cold;
+   > 0 (K5's too, and its ``lattice_fused_points`` must equal the
+   lattice's points); K2's and K3's calls are also counted by call site.
+   This first call in the process is cold;
 5. warm: a second validate, for warm metrics, with every gather_conv call
    of ``apply_hybrid`` recorded; its cascade must equal the first one's
    bit for bit;
@@ -40,7 +42,10 @@ Phases, one line each (any failure exits non-zero, with no result line):
    where the path passes a mask, the time without it:
    K2 at build_z_vals and depth_render, K3 at the render chunk, the mesh
    lattice's first call (recorded in the warm validate) and, in its
-   training variant, the training step's render shape.  Then the
+   training variant, the training step's render shape; K5 at the mesh
+   lattice's first call, within 1e-5 of its plain version (the MLP the
+   lattice ran before it, whose time is the yardstick), with the whole
+   lattice function's time before and after (K3 included).  Then the
    grid-form convs (row 7: the four ops indexed through the voxel and
    parent tables, which no path calls) on the warm validate's own 352^3
    and 704^3 grids and recorded inputs: forward, dX and dW by K4/K4w
@@ -624,7 +629,32 @@ def ragged_checks(dev):
     ref = reg_net.gather_conv_dw_plain(x, idx, ct)
     out.append(check_close("K4w ragged", reg_net.gather_conv_dw(x, idx, ct), ref, 1e-4,
                            1e-4 * scale(ref)))
+    out.append(k5_ragged_check(dev))
     return max(out)
+
+
+def k5_ragged_check(dev):
+    """K5 against its plain version on a narrow net (hidden 32, a skip, 3
+    frequencies, 9 feature channels, random weights) at 1001 points (a
+    ragged tile), some outside the box, a third of them empty."""
+    import torch
+    from surf_tpu_torch.config import ConfigFactory
+    from surf_tpu_torch.nn import sdf_net
+    from surf_tpu_torch.nn.core import materialize_weight_norm
+    conf = ConfigFactory.parse_string(
+        "d_out = 5\nd_in = 3\nd_hidden = 32\nn_layers = 4\nskip_in = [2]\nmultires = 3\n"
+        "bias = 0.5\nscale = 1.0\ngeometric_init = false\nweight_norm = true\n"
+        "feat_channels = 9\nfeat_multires = 0")
+    params, static = sdf_net.init(torch.Generator().manual_seed(5), conf)
+    p = {"layers": [{k: t.to(dev) for k, t in lin.items()}
+                    for lin in materialize_weight_norm(params)["layers"]]}
+    g = torch.Generator(device=dev)
+    g.manual_seed(11)
+    pts = torch.rand(1001, 3, device=dev, generator=g) * 2.4 - 1.2
+    feats = torch.randn(1001, 9, device=dev, generator=g)
+    occ = torch.rand(1001, device=dev, generator=g) < 0.67
+    return check_close("K5 ragged", sdf_net.sdf_lattice(p, static, pts, feats, occ),
+                       sdf_net.sdf_lattice_plain(p, static, pts, feats, occ), 0.0, 1e-5)
 
 
 def k4_shapes_check(dev, g):
@@ -1013,6 +1043,57 @@ def k3_entry(what, stages, pts, mode):
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
 
 
+def k5_entry(v, mesh_call):
+    """K5 against its plain version at the mesh lattice's first call (the
+    points of its first ``blocks_per_call`` occupied blocks, K3's features
+    and occupancy there), with the card's time of the kernel, of the plain
+    version (the MLP the lattice ran before K5: cuBLAS's SGEMMs and
+    PyTorch's glue) and of the whole lattice function before and after
+    (K3 included: ``apply_occ`` and the pin, ``LatticeSDF``), and the
+    bound: the layers' multiply-adds (the last layer's SDF column only) at
+    the f32 peak; its bytes (points, features, occupancy, output) are far
+    below."""
+    import torch
+    from surf_tpu_torch.nn import sdf_net
+    from surf_tpu_torch.nn.core import materialize_weight_norm
+    from surf_tpu_torch.ops import sparse as sp
+    from surf_tpu_torch.validate import LatticeSDF
+    stages, pts = mesh_call
+    pts = pts.contiguous()
+    isf, isf_static = v.params["implicit_surface"], v.static["implicit_surface"]
+    p = materialize_weight_norm(isf)["sdf_network"]
+    static = isf_static["sdf"]
+    with torch.no_grad():
+        feats, occ = sp.stage_features(stages, pts)
+        layout = sdf_net.lattice_layout(p, static)
+        got = sdf_net.sdf_lattice(p, static, pts, feats, occ, layout=layout)
+        ref = sdf_net.sdf_lattice_plain(p, static, pts, feats, occ)
+        err = check_close("K5 mesh lattice", got, ref, 0.0, 1e-5)
+        n = pts.shape[0]
+        last = len(p["layers"]) - 1
+        macs = sum(lin["w"].shape[0] * (1 if l == last else lin["w"].shape[1])
+                   for l, lin in enumerate(p["layers"]))
+        b_ms, b_by = bound(nbytes(pts) + nbytes(feats) + nbytes(occ) + nbytes(got),
+                           2 * n * macs)
+        new_fn = LatticeSDF(isf, isf_static, stages)
+
+        def old_fn():
+            out, o = sdf_net.apply_occ(p, static, pts, stages)
+            return torch.where(o, out[:, 0], torch.full_like(out[:, 0], 100.0))
+        del got, ref
+        return {"shape": f"mesh lattice: {n} points, {feats.shape[1]} channels, layers "
+                         f"{[tuple(lin['w'].shape) for lin in p['layers']]}, SDF column only, "
+                         f"{int(occ.sum())} occupied",
+                "max_abs_err": err,
+                "ms": time_ms(lambda: sdf_net.sdf_lattice(p, static, pts, feats, occ,
+                                                          layout=layout)),
+                "plain_ms": time_ms(lambda: sdf_net.sdf_lattice_plain(p, static, pts, feats,
+                                                                      occ), 3),
+                "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+                "lattice_fn_ms": time_ms(lambda: new_fn(pts)),
+                "composite_lattice_fn_ms": time_ms(old_fn, 3)}
+
+
 @contextlib.contextmanager
 def count_call_sites():
     """Counts the K2 and K3 calls made inside the block by call site: K2's
@@ -1214,6 +1295,14 @@ def main_path_kernels(v, launches, k4_calls, mesh_call, sites):
                     "exact: max abs err 0 (equal bit for bit to the plain version), "
                     "occupancy equal",
                     "none: no one PyTorch call samples a sparse voxel set"))
+
+    # K5: the mesh lattice's first call, against the MLP it replaced there
+    rows.append(row("sdf_lattice_mlp", "surf_tpu_torch/csrc/sdf_lattice_mlp.cu",
+                    "none: surf_tpu/nn/sdf_net.py mlp is left to XLA",
+                    [k5_entry(v, mesh_call)],
+                    "|err| <= 1e-5 (the products' sums in another order than cuBLAS's)",
+                    "none: the plain version (sdf_net.mlp: cuBLAS SGEMM and PyTorch's "
+                    "glue) is the yardstick"))
 
     # K4: every gather_conv call of apply_hybrid (352^3 and 704^3) on the
     # warm validate's own tensors; the 704^3 conv0 heads the row (sums in
@@ -4390,7 +4479,7 @@ def main():
 
     t0 = time.time()
     err = ragged_checks(torch.device("cuda"))
-    say("ragged", f"K1-K4, K1b-K3b and K4w match their plain versions, max abs err "
+    say("ragged", f"K1-K5, K1b-K3b and K4w match their plain versions, max abs err "
         f"{err:.3e} "
         f"({time.time() - t0:.1f} s)")
 
@@ -4415,9 +4504,12 @@ def main():
         f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} wall_s={wall:.1f}")
     say("validate", "kernels " + json.dumps(launches) + ", K2 and K3 by call site "
         + json.dumps(sites))
-    missing = [k for k in FWD_KERNELS if launches[k] <= 0]
+    missing = [k for k in FWD_KERNELS + ("sdf_lattice_mlp",) if launches[k] <= 0]
     if missing:
         fail(f"the main path launched no {missing}")
+    if m["lattice_fused_points"] != m["lattice_points"]:
+        fail(f"K5 evaluated {m['lattice_fused_points']} of the lattice's "
+             f"{m['lattice_points']} points")
     if not m["finite"]:
         fail("non-finite render outputs")
     if m["mesh_faces"] <= 0 or m["mesh_vertices"] <= 0:

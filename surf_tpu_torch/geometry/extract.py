@@ -44,21 +44,20 @@ def extract_geometry(sdf_fn, stages, resolution, block=64, blocks_per_call=8,
 
     def eval_blocks(rows):
         """(k,) rows of ``occupied`` -> their (k, B^3) SDF values."""
-        vals = []
+        vals = torch.empty((len(rows), B ** 3), device=dev)
         for s in range(0, len(rows), G):
-            origins = torch.zeros((G, 3), dtype=torch.long, device=dev)
-            sel = rows[s:s + G]
-            origins[:len(sel)] = origins_all[sel]
+            origins = origins_all[rows[s:s + G]]                   # (k, 3), k <= G
+            k = len(origins)
             # lattice indices past R-1 clamp; the host copy drops those rows
             idx = torch.minimum(origins[:, :, None] + ar[None, None, :],
                                 torch.tensor(R - 1, device=dev))
-            p = -1.0 + scale * idx.float()                         # (G, 3, B)
-            shp = (G, B, B, B)
-            pts = torch.stack([p[:, 0, :, None, None].expand(shp),
-                               p[:, 1, None, :, None].expand(shp),
-                               p[:, 2, None, None, :].expand(shp)], dim=-1).reshape(-1, 3)
-            vals.append(sdf_fn(pts).reshape(G, -1)[:len(sel)])
-        return torch.cat(vals)
+            p = -1.0 + scale * idx.float()                         # (k, 3, B)
+            pts = torch.empty((k, B, B, B, 3), device=dev)
+            pts[..., 0] = p[:, 0, :, None, None]
+            pts[..., 1] = p[:, 1, None, :, None]
+            pts[..., 2] = p[:, 2, None, None, :]
+            vals[s:s + k] = sdf_fn(pts.reshape(-1, 3)).reshape(k, -1)
+        return vals
 
     if map_rows is None:
         def map_rows(fn, n):

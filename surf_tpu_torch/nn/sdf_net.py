@@ -15,15 +15,22 @@ autograd of K3's ``SparseTrilinear``; with ``create_graph`` (training)
 all three outputs stay differentiable with respect to the parameters and
 the stage storages (the eikonal term reads grad(sdf), the smoothness
 term H.1).
+
+``sdf_lattice`` is the mesh lattice's own path: the SDF column alone,
+pinned to +100 off the occupancy, no derivatives and no graph; on the card
+one launch of the hand-written kernel K5 (csrc/sdf_lattice_mlp.cu), whose
+weight layout ``lattice_layout`` builds.
 """
 
 from __future__ import annotations
 
+import ctypes
 import math
 
 import torch
 
 from .core import linear_apply, softplus_beta
+from .. import _build
 from ..ops.embedder import embedder
 from ..ops.sparse import stage_features
 
@@ -150,3 +157,129 @@ def value_features_grads(params, static, pts, stages):
 def gradient(params, static, pts, stages):
     """(grad sdf (n, 3), H.1 (n, 3)), detached."""
     return value_features_grads(params, static, pts, stages)[1:]
+
+
+# ---------------------------------------------------------------------------
+# K5: the mesh lattice's SDF (one column, pinned), csrc/sdf_lattice_mlp.cu
+# ---------------------------------------------------------------------------
+
+K5_WIDTH = 128          # the kernel's hidden width: h rows and outputs a layer
+K5_SLICE = 8            # rows of a weight slice
+K5_MAX_ROWS = 416       # canonical rows that fit its shared memory
+K5_MAX_SLICES = 512
+K5_MAX_HIDDEN = 16
+
+
+def sdf_lattice_plain(params, static, pts, feats, occ):
+    """Plain version of K5: the MLP's SDF at pts (n, 3) with their stage
+    features (n, F), +100 where ``occ`` (n,) is false."""
+    sdf = mlp(params, static, pts, feats)[:, 0]
+    return torch.where(occ, sdf, torch.full_like(sdf, 100.0))
+
+
+def lattice_layout(params, static):
+    """The (weight-norm folded) layers of ``params`` in K5's layout.  Each
+    layer reads 8-row slices of a canonical input [h (K5_WIDTH rows) | x_in
+    (E) | features (F)]: the layer's rows are placed there, zero elsewhere
+    (the kernel scales a skip layer's [h, x_in] by 1/sqrt(2) itself).
+    Returns a dict: ``w`` (slices, 8, K5_WIDTH) of the hidden layers,
+    ``slice_row`` (each slice's first row), ``layer_end`` (cumulative slices
+    a layer), ``skip`` (bit l: layer l is a skip layer), ``bias`` (hidden
+    layers, K5_WIDTH), ``w_last`` (rows,) and ``b_last``, the last layer's
+    SDF column, and the sizes ``rows``, ``e_row``, ``f_row``, ``E``,
+    ``F``."""
+    layers = params["layers"]
+    L = static["num_layers"]
+    skip = static["skip_in"]
+    _, E = embedder(static["multires"], 3)
+    _, F = embedder(static["feat_multires"], static["feat_channels"])
+    e_row, f_row = K5_WIDTH, K5_WIDTH + E
+    rows = -(-(f_row + F) // K5_SLICE) * K5_SLICE
+    n_hidden = L - 2
+    if not 1 <= n_hidden <= K5_MAX_HIDDEN or 0 in skip or rows > K5_MAX_ROWS:
+        raise ValueError(f"sdf_lattice: {n_hidden} hidden layers, skip {list(skip)}, "
+                         f"{rows} input rows: beyond the kernel's layout")
+    dev = layers[0]["w"].device
+    blocks, slice_row, layer_end, biases = [], [], [], []
+    w_last = b_last = None
+    for l, lin in enumerate(layers):
+        w = lin["w"].detach().float()
+        segs = [(e_row, E)] if l == 0 else [(0, layers[l - 1]["w"].shape[1])]
+        if l in skip:
+            segs.append((e_row, E))
+        if 0 < l < L - 1:
+            segs.append((f_row, F))
+        if sum(n for _, n in segs) != w.shape[0] or (l < n_hidden and w.shape[1] > K5_WIDTH):
+            raise ValueError(f"sdf_lattice: layer {l} is ({w.shape[0]}, {w.shape[1]}), not "
+                             f"the kernel's [h | x_in | features] with at most "
+                             f"{K5_WIDTH} outputs")
+        cw = torch.zeros((rows, K5_WIDTH if l < n_hidden else 1), device=dev)
+        off = 0
+        for r0, n in segs:
+            part = w[off:off + n, :cw.shape[1]]
+            cw[r0:r0 + n, :part.shape[1]] = part
+            off += n
+        b = lin["b"].detach().float() if "b" in lin else torch.zeros(w.shape[1], device=dev)
+        if l == n_hidden:
+            w_last, b_last = cw[:, 0].contiguous(), float(b[0])
+            break
+        used = sorted({r // K5_SLICE for r0, n in segs for r in range(r0, r0 + n)})
+        blocks += [cw[s * K5_SLICE:(s + 1) * K5_SLICE] for s in used]
+        slice_row += [s * K5_SLICE for s in used]
+        layer_end.append(len(slice_row))
+        biases.append(torch.nn.functional.pad(b, (0, K5_WIDTH - b.shape[0])))
+    if len(slice_row) > K5_MAX_SLICES:
+        raise ValueError(f"sdf_lattice: {len(slice_row)} weight slices, beyond the "
+                         f"kernel's {K5_MAX_SLICES}")
+    return {"w": torch.stack(blocks).contiguous(), "slice_row": slice_row,
+            "layer_end": layer_end, "skip": sum(1 << l for l in skip if l < L),
+            "bias": torch.stack(biases).contiguous(),
+            "w_last": w_last, "b_last": b_last, "rows": rows, "e_row": e_row,
+            "f_row": f_row, "E": E, "F": F}
+
+
+def sdf_lattice(params, static, pts, feats, occ, layout=None):
+    """The SDF (n,) at the lattice's points pts (n, 3), given their stage
+    features (n, F) and nearest occupancy (n,): the MLP's first output
+    column, +100 where ``occ`` is false.  CPU tensors take the plain
+    version; CUDA tensors launch K5 (``layout``: ``lattice_layout``'s,
+    built here when not given), which needs contiguous f32 points and
+    features and a bool occupancy on one card, and raises otherwise."""
+    if pts.device.type == "cpu":
+        return sdf_lattice_plain(params, static, pts, feats, occ)
+    if static["feat_multires"] > 0:
+        fe, _ = embedder(static["feat_multires"], static["feat_channels"])
+        feats = fe(feats).contiguous()
+    _build.require_cuda("sdf_lattice_mlp", pts, feats, occ)
+    n = pts.shape[0]
+    if pts.dtype != torch.float32 or feats.dtype != torch.float32 or \
+            occ.dtype != torch.bool or pts.shape != (n, 3) or occ.shape != (n,) or \
+            feats.dim() != 2 or feats.shape[0] != n:
+        raise ValueError("sdf_lattice_mlp: needs f32 points (n, 3), f32 features (n, F) "
+                         "and a bool occupancy (n,)")
+    if layout is None:
+        layout = lattice_layout(params, static)
+    if feats.shape[1] != layout["F"]:
+        raise ValueError(f"sdf_lattice_mlp: {feats.shape[1]} feature channels, the layers "
+                         f"take {layout['F']}")
+    _build.require_cuda("sdf_lattice_mlp", pts, layout["w"], layout["bias"], layout["w_last"])
+    out = torch.empty((n,), dtype=torch.float32, device=pts.device)
+    if n == 0:
+        return out
+    _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
+    ns, nh = len(layout["slice_row"]), len(layout["layer_end"])
+    slice_row = (ctypes.c_int * ns)(*layout["slice_row"])
+    layer_end = (ctypes.c_int * nh)(*layout["layer_end"])
+    with _build.on_device(pts):
+        fn = _build.kernel_fn("sdf_lattice_mlp", "sdf_lattice_mlp",
+                              [_P, _P, _P, _L, _I, _I, _F, _P, _P, _P, _I, ctypes.c_uint,
+                               _P, _P, _F, _I, _I, _I, _P, _P])
+        rc = fn(pts.data_ptr(), feats.data_ptr(), occ.data_ptr(), n, layout["F"],
+                max(static["multires"], 0), static["scale"], layout["w"].data_ptr(),
+                ctypes.addressof(slice_row), ctypes.addressof(layer_end), nh,
+                layout["skip"], layout["bias"].data_ptr(), layout["w_last"].data_ptr(),
+                layout["b_last"], layout["rows"], layout["e_row"], layout["f_row"],
+                out.data_ptr(), _build.stream_of(pts))
+    _build.check(rc, "sdf_lattice_mlp")
+    _build.launches["sdf_lattice_mlp"] += 1
+    return out

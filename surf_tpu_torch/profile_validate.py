@@ -14,7 +14,10 @@ intervals over its wall time), then for each span of the profiled pass
 the device time of the operations that start inside it, its busy share
 (the profiler's own host cost lowers it) and its heaviest operations,
 and the device operations of the whole pass by total time.  The whole
-table goes to ``<out>/kernels.txt``.  Needs a card; the numeric
+table goes to ``<out>/kernels.txt``.  A last ``[lattice]`` line gives the
+profiled pass's K5 launches (``sdf_lattice_mlp``, one a call of
+``blocks_per_call`` occupied blocks) and its ``lattice_fused_points``,
+``lattice_points`` and ``lattice_blocks``.  Needs a card; the numeric
 settings are the port's own (``card.set_numerics``).  ``chip_smoke.py``
 reports the warm pass's metrics without the profiler.
 """
@@ -31,6 +34,7 @@ import torch
 from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
+from . import _build
 from .card import nvidia_smi_line, set_numerics
 from .config import ConfigFactory
 from .utils import spans
@@ -62,11 +66,21 @@ def main(argv=None):
     v.validate()                                             # warm-up
 
     torch.cuda.synchronize()
+    _build.reset_launches()
     t0 = time.time()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        v.validate()
+        results = v.validate()
         torch.cuda.synchronize()
     report(prof, (), time.time() - t0, args.out, smi)
+    lattice_line(results)
+
+
+def lattice_line(results):
+    """The lattice's K5 launches and counts of the pass ``results``."""
+    keys = ("lattice_fused_points", "lattice_points", "lattice_blocks")
+    print("[lattice] " + json.dumps({
+        "sdf_lattice_mlp_launches": _build.launches["sdf_lattice_mlp"],
+        "scenes": [{k: m.get(k) for k in keys} for m in results]}), flush=True)
 
 
 def union(intervals):

@@ -76,7 +76,7 @@ from .losses import compute_loss, make_loss_config
 from .nn import feature_net, surf
 from .nn.core import tree_leaves
 from .utils import save_checkpoint, to_numpy_tree, warmup_cosine
-from .validate import sdf_lattice_fn, to_device
+from .validate import LatticeSDF, to_device
 
 # the tiny 2-stage model and synthetic scene of the JAX package's tests
 # (tests/tiny_conf.py), which the JAX tool widens
@@ -296,7 +296,7 @@ def adam_step(opt, lr_at, step):
 def sdf_lattice(isf_params, isf_static, stages_ff, res):
     """The SDF at the ``res``^3 lattice over [-1, 1]^3 (numpy's linspace,
     x slowest), +100 outside every stage's occupancy: (res, res, res) f32."""
-    fn = sdf_lattice_fn(isf_params, isf_static, stages_ff)
+    fn = LatticeSDF(isf_params, isf_static, stages_ff)
     dev = stages_ff[0][1].device
     lin = np.linspace(-1, 1, res, dtype=np.float32)
     xs, ys, zs = np.meshgrid(lin, lin, lin, indexing="ij")

@@ -29,7 +29,9 @@ import torch
 
 from surf_tpu_torch import _build
 from surf_tpu_torch.ops import grid_sample as gs, sparse as sp
-from surf_tpu_torch.nn import reg_net
+from surf_tpu_torch.config import ConfigFactory
+from surf_tpu_torch.nn import reg_net, sdf_net
+from surf_tpu_torch.nn.core import materialize_weight_norm
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -43,12 +45,26 @@ def _small_grid(RNG, device="cpu"):
     return grid, storage
 
 
+def _small_sdf_net(device):
+    """A narrow SDF network (hidden 16, a skip, 5 feature channels) with
+    random weights, folded, on ``device``."""
+    conf = ConfigFactory.parse_string(
+        "d_out = 9\nd_in = 3\nd_hidden = 16\nn_layers = 4\nskip_in = [2]\nmultires = 2\n"
+        "bias = 0.5\nscale = 1.0\ngeometric_init = false\nweight_norm = true\n"
+        "feat_channels = 5\nfeat_multires = 0")
+    params, static = sdf_net.init(torch.Generator().manual_seed(3), conf)
+    params = materialize_weight_norm(params)
+    return {"layers": [{k: v.to(device) for k, v in lin.items()}
+                       for lin in params["layers"]]}, static
+
+
 def _calls(device):
     """Each kernel's wrapper on small inputs (the same for every device)."""
     RNG = np.random.RandomState(2)
     t = lambda a: torch.from_numpy(np.asarray(a, np.float32)).to(device)
     grid, storage = _small_grid(RNG, device)
     idx = torch.from_numpy(RNG.randint(-1, 10, size=(7, 27)).astype(np.int32)).to(device)
+    sdf_p, sdf_s = _small_sdf_net(device)
     return {
         "bilinear_sample_2d": lambda: gs.bilinear_sample(
             t(RNG.randn(2, 5, 6, 3)), t(RNG.uniform(-1.2, 1.2, (2, 9, 2)))),
@@ -81,6 +97,9 @@ def _calls(device):
         "trilinear_sample_3d_bwd2_scatter": lambda: gs.trilinear_sample_bwd2_scatter(
             t(RNG.randn(4, 5, 3, 2)), t(RNG.uniform(-1.2, 1.2, (9, 3))),
             t(RNG.randn(9, 3)), t(RNG.randn(9, 2))),
+        "sdf_lattice_mlp": lambda: sdf_net.sdf_lattice(
+            sdf_p, sdf_s, t(RNG.uniform(-1, 1, (9, 3))), t(RNG.randn(9, 5)),
+            torch.from_numpy(RNG.rand(9) < 0.5).to(device)),
     }
 
 
