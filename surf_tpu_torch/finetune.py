@@ -7,13 +7,21 @@ of the scene builds the stage storages, the voxel grids, the dense
 matching volume and the FPN features (``init_volumes``).  From then on
 only the implicit surface and the stage storages are trained: the
 storages are leaves, and their whole gradient is the kernel K3b.  Each
-step renders ``n_rays`` random rays of one view (the views in a seeded
-permutation, redrawn each round), with the features of the batch's view
-order as both the colour features and the patch features, adds |SDF| at
-2048 pseudo points, and takes the ``finetune`` loss (no photometric and
-matching-field depth terms).  The optimizer is Adam with one group for
-the implicit surface at ``mlp_lr`` and one per stage at ``vol_lr[i]``,
-under a ``LambdaLR`` of ``warmup_cosine`` of the raw step count.
+step (``next_batch``, then ``step``) renders ``n_rays`` random rays of one
+view (the views in a seeded permutation, redrawn each round), with the
+features of the batch's view order as both the colour features and the
+patch features, adds |SDF| at 2048 pseudo points, and takes the
+``finetune`` loss (no photometric and matching-field depth terms).  The
+optimizer is Adam with one group for the implicit surface at ``mlp_lr``
+and one per stage at ``vol_lr[i]``, under a ``LambdaLR`` of
+``warmup_cosine`` of the raw step count.
+
+A step runs in the spans ``finetune.rays`` (the host's draw and upload),
+``finetune.render``, ``finetune.loss`` and ``finetune.update`` (Adam and
+the schedule).  While a profiler runs, each step also counts
+``storage_grad_rows``: for each stage, [rows whose gradient is not all
+zero, rows of the storage] (None while no profiler runs, so that an
+untraced step launches nothing more and does not wait on the card).
 
 Every ``log_freq`` steps the loss terms and PSNR go to TensorBoard as
 ``finetune/<term>`` at the step under ``<base_exp_dir>/logs``
@@ -41,7 +49,7 @@ from .nn.core import tree_leaves
 from .train import anomaly_mode, check_finite
 from .utils import (resume_from, save_checkpoint, to_numpy_tree, vol_state_tree,
                     warmup_cosine)
-from .utils.spans import span
+from .utils.spans import recording, span
 from .utils.summary import save_scalars, scalar_writer
 from .validate import _sync, extract_mesh, render_full_image, to_device
 
@@ -100,6 +108,8 @@ class Finetuner:
         self.host_rng = np.random.RandomState(seed)
         self.generator = torch.Generator(device=self.device)
         self.generator.manual_seed(seed + 1)
+        self.perm = None                # the views' order this round
+        self.storage_grad_rows = None
         self.init_volumes()
 
     def cos_anneal_ratio(self, step):
@@ -167,14 +177,35 @@ class Finetuner:
     def update(self):
         """One Adam step of every group at the scheduled LRs, then the
         schedule moves on."""
-        self.optimizer.step()
-        self.scheduler.step()
+        with span("finetune.update"):
+            self.optimizer.step()
+            self.scheduler.step()
+
+    def next_batch(self, step):
+        """The batch of step ``step`` on the device: ``n_rays`` random rays
+        of the permutation's view for the step and 2048 pseudo points, drawn
+        from the host stream; the permutation is redrawn at the start of
+        each round of the views.  Steps are drawn in order from 0."""
+        with span("finetune.rays"):
+            n = self.dataset.num_views
+            if step % n == 0:
+                self.perm = self.host_rng.permutation(n)
+            vid = int(self.perm[step % n])
+            return to_device(self.dataset.get_random_rays(vid, rng=self.host_rng), self.device)
+
+    def _grad_rows(self):
+        """[[rows whose gradient is not all zero, rows], ...] of each stage's
+        storage, coarse to fine."""
+        vols = self.vol_state["volumes"]
+        touched = torch.stack([v.grad.ne(0).any(dim=1).sum() for v in vols]).tolist()
+        return [[t, v.shape[0]] for t, v in zip(touched, vols)]
 
     def step(self, batch, step):
         """One finetune step; returns the loss terms as floats."""
         self.optimizer.zero_grad(set_to_none=True)
         res = self.loss(batch, step)
         res["loss"].backward()
+        self.storage_grad_rows = self._grad_rows() if recording() else None
         self.update()
         return {k: float(v.detach()) if torch.is_tensor(v) else float(v)
                 for k, v in res.items()}
@@ -184,21 +215,15 @@ class Finetuner:
             self._finetune()
 
     def _finetune(self):
-        ds = self.dataset
-        perm = self.host_rng.permutation(ds.num_views)
         if self.val_before:
             self.validate_finetune(-1)
         t0 = time.time()
         for step in range(self.epochs):
-            vid = int(perm[step % len(perm)])
-            batch = to_device(ds.get_random_rays(vid, rng=self.host_rng), self.device)
-            res = self.step(batch, step)
+            res = self.step(self.next_batch(step), step)
             if (step + 1) % max(int(self.log_freq), 1) == 0:
                 save_scalars(self.writer, "finetune", res, step)
                 print(f"[ft {step}] loss {res['loss']:.4f} psnr {res['psnr']:.2f} "
                       f"({(time.time() - t0) / (step + 1):.2f}s/it)", flush=True)
-            if (step + 1) % len(perm) == 0:
-                perm = self.host_rng.permutation(ds.num_views)
             if (step + 1) % self.save_freq == 0 or step + 1 >= self.epochs:
                 self.save_finetune(step)
             if (step + 1) % self.val_freq == 0 or step + 1 >= self.epochs:

@@ -66,12 +66,7 @@ def _trainer(conf, out):
 
 def _finetuner(conf, out):
     f = Finetuner(conf, device="cuda", base_exp_dir=os.path.join(out, "finetune"))
-    perm = f.host_rng.permutation(f.dataset.num_views)
-
-    def batch(i):
-        return to_device(f.dataset.get_random_rays(int(perm[i % len(perm)]), rng=f.host_rng),
-                         "cuda")
-    return batch, f.step, f.loss, f
+    return f.next_batch, f.step, f.loss, f
 
 
 def main(argv=None):

@@ -48,7 +48,7 @@ class span:
         self._parent = False            # not recording (no profiler ran at entry)
 
     def __enter__(self):
-        if _autograd_profiler._is_profiler_enabled:
+        if recording():
             stack = _stack()
             self._parent = stack[-1] if stack else None
             stack.append(self.name)
@@ -65,6 +65,11 @@ class span:
             _stack().pop()
             _records.append((self.name, self._parent, self._start, end))
         return False
+
+
+def recording():
+    """Whether spans record now: a profiler runs."""
+    return bool(_autograd_profiler._is_profiler_enabled)
 
 
 def recorded():
