@@ -6,10 +6,10 @@
 Phases, one line each (any failure exits non-zero, with no result line):
 
 1. device: the card's name and power limit (nvidia-smi), torch and CUDA;
-2. build: the thirteen hand-written kernels (surf_tpu_torch/csrc/*.cu: K1-K4,
+2. build: the fourteen hand-written kernels (surf_tpu_torch/csrc/*.cu: K1-K4,
    the backward kernels K1b-K3b and K4w, the second-order K1g, K1s,
-   K2g, K2s, and K5, the mesh lattice's SDF MLP) with nvcc for sm_90a,
-   one process per source, in parallel;
+   K2g, K2s, K5, the mesh lattice's SDF MLP, and marching cubes on the
+   card) with nvcc for sm_90a, one process per source, in parallel;
 3. ragged: every kernel against its plain PyTorch version on odd shapes
    with out-of-range points; K1 and K1b also at every channel count their
    kernels specialise and two they do not, with all-zero cotangent rows
@@ -20,8 +20,9 @@ Phases, one line each (any failure exits non-zero, with no result line):
    confs/surf_synthetic_full.conf (4-stage cascade 88^3 -> 704^3, 512^3
    mesh, 144x200 render) with seeded random weights; every kernel's
    launch count is zeroed just before and read just after, and must be
-   > 0 (K5's too, and its ``lattice_fused_points`` must equal the
-   lattice's points); K2's and K3's calls are also counted by call site.
+   > 0 (K5's and marching cubes' too, and K5's ``lattice_fused_points``
+   must equal the lattice's points); K2's and K3's calls are also counted
+   by call site.
    This first call in the process is cold;
 5. warm: a second validate, for warm metrics, with every gather_conv call
    of ``apply_hybrid`` recorded; its cascade must equal the first one's
@@ -45,7 +46,11 @@ Phases, one line each (any failure exits non-zero, with no result line):
    training variant, the training step's render shape; K5 at the mesh
    lattice's first call, within 1e-5 of its plain version (the MLP the
    lattice ran before it, whose time is the yardstick), with the whole
-   lattice function's time before and after (K3 included).  Then the
+   lattice function's time before and after (K3 included); marching
+   cubes on the card at the warm validate's whole lattice, equal to its
+   plain version byte for byte, with each pass's time and the whole
+   ``mesh.cubes`` path's beside the host C++'s on the same lattice (the
+   dtu phase's validate's lattice appended).  Then the
    grid-form convs (row 7: the four ops indexed through the voxel and
    parent tables, which no path calls) on the warm validate's own 352^3
    and 704^3 grids and recorded inputs: forward, dX and dW by K4/K4w
@@ -1095,6 +1100,65 @@ def k5_entry(v, mesh_call):
 
 
 @contextlib.contextmanager
+def record_lattices():
+    """The card lattices (``BlockLattice``) that ``extract_geometry`` meshes
+    inside the block, in order."""
+    from surf_tpu_torch.geometry import extract
+    from surf_tpu_torch.geometry.marching_cubes import BlockLattice
+    orig, kept = extract.marching_cubes, []
+
+    def recorded(grid, iso=0.0):
+        if isinstance(grid, BlockLattice):
+            kept.append(grid)
+        return orig(grid, iso)
+    extract.marching_cubes = recorded
+    try:
+        yield kept
+    finally:
+        extract.marching_cubes = orig
+
+
+def mc_entry(what, lat):
+    """Marching cubes on the card (csrc/marching_cubes_lattice.cu) at a
+    validate's lattice against its plain version, byte for byte, with the
+    card's time of the whole path as ``mesh.cubes`` runs it (count pass,
+    prefix sum, the totals' read, emit pass, the mesh's copy to the host)
+    and of each pass alone, the plain version's time, the host C++'s
+    (``cpp_ms``, the path before: the same lattice as an array, host
+    clock) and the bound: the occupied blocks' values read once and the
+    mesh written once."""
+    import importlib
+    import torch
+    mc = importlib.import_module("surf_tpu_torch.geometry.marching_cubes")
+    v, t = mc.marching_cubes(lat, 0.0)
+    cells = lat.cells
+    vp, tp = (x.cpu().numpy() for x in mc.marching_cubes_plain(lat, 0.0))
+    if v.tobytes() != vp.tobytes() or t.tobytes() != tp.tobytes():
+        fail(f"marching cubes on the card, {what}: its arrays differ from the plain version's")
+    u = -lat.dense().cpu().numpy()
+    cpp_s = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        mc.marching_cubes(u, 0.0)
+        cpp_s.append(time.perf_counter() - t0)
+    del u
+    cnt, masks = mc.lattice_counts(lat)
+    incl = torch.cumsum(cnt[:2], dim=1, dtype=torch.int64)
+    b_ms, b_by = bound(nbytes(lat.vals) + v.nbytes + t.nbytes, 0)
+    return {"shape": f"{what}: {lat.resolution}^3 lattice, {len(lat.vals)} occupied blocks of "
+                     f"{lat.block}^3, {len(lat.walked)} walked, {len(v)} vertices, "
+                     f"{len(t)} triangles",
+            "max_abs_err": 0.0, "cells": cells,
+            "ms": time_ms(lambda: mc.marching_cubes(lat, 0.0)),
+            "count_ms": time_ms(lambda: mc.lattice_counts(lat)),
+            "emit_ms": time_ms(lambda: mc.lattice_emit(lat, 0.0, cnt, masks, incl, len(v),
+                                                       len(t))),
+            "plain_ms": time_ms(lambda: mc.marching_cubes_plain(lat, 0.0), 3),
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+            "cpp_ms": statistics.median(cpp_s) * 1e3}
+
+
+@contextlib.contextmanager
 def count_call_sites():
     """Counts the K2 and K3 calls made inside the block by call site: K2's
     by its caller (``build_z_vals`` in nn/implicit_surface.py,
@@ -1205,11 +1269,12 @@ def render_chunk_points(scene, static, chunk):
     return (ro[:, None] + rd[:, None] * mid[..., None]).reshape(-1, 3), ro, rd, near, far
 
 
-def main_path_kernels(v, launches, k4_calls, mesh_call, sites):
+def main_path_kernels(v, launches, k4_calls, mesh_call, sites, lattice=None):
     """One row per kernel: its headline call site, and ``also_checked``
     entries for its other call sites on the main path; K2's and K3's
     entries carry their call site's launches (``sites``, counted in the
-    same validate as ``launches``)."""
+    same validate as ``launches``); marching cubes on the card at the
+    warm validate's ``lattice`` (``record_lattices``; none on the CPU)."""
     import torch
     from surf_tpu_torch.ops import sparse as sp
     from surf_tpu_torch.ops.feature_lookup import fuse_pyramid
@@ -1303,6 +1368,16 @@ def main_path_kernels(v, launches, k4_calls, mesh_call, sites):
                     "|err| <= 1e-5 (the products' sums in another order than cuBLAS's)",
                     "none: the plain version (sdf_net.mlp: cuBLAS SGEMM and PyTorch's "
                     "glue) is the yardstick"))
+
+    # marching cubes on the card, at the whole lattice, against the host C++
+    if lattice is not None:
+        rows.append(row("marching_cubes_lattice",
+                        "surf_tpu_torch/csrc/marching_cubes_lattice.cu",
+                        "none: host marching cubes, surf_tpu/geometry/marching_cubes.py:49",
+                        [mc_entry("the warm validate's lattice", lattice)],
+                        "exact: the plain version's bytes",
+                        "none: the host C++ (csrc/marching_cubes.cpp, cpp_ms) is the "
+                        "yardstick"))
 
     # K4: every gather_conv call of apply_hybrid (352^3 and 704^3) on the
     # warm validate's own tensors; the 704^3 conv0 heads the row (sums in
@@ -2443,7 +2518,8 @@ def dtu_phase(dev="cuda", conf_path=None, ft_conf_path=None, image_hw=(1200, 160
         try:
             sync()
             _build.reset_launches()
-            with record_forward_calls() as fwd, record_k4_train_calls() as (_, k4):
+            with record_forward_calls() as fwd, record_k4_train_calls() as (_, k4), \
+                    record_lattices() as lattices:
                 (m,) = v.validate()
             sync()
         finally:
@@ -2479,8 +2555,13 @@ def dtu_phase(dev="cuda", conf_path=None, ft_conf_path=None, image_hw=(1200, 160
         del v, item, written
         t0 = time.time()
         entries = {"validate": largest_call_entries("dtu validate", fwd, k4, {})}
+        if lattices:
+            e = mc_entry("dtu validate", lattices[0])
+            e["call_site"] = "dtu validate"
+            entries["validate"]["marching_cubes_lattice"] = [e]
+            say("kernel", "marching_cubes_lattice in the dtu validate: " + json.dumps(e))
         nums["validate_kernel_checks_s"] = time.time() - t0
-        del fwd, k4
+        del fwd, k4, lattices
         if cuda:
             torch.cuda.empty_cache()
 
@@ -4504,7 +4585,8 @@ def main():
         f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} wall_s={wall:.1f}")
     say("validate", "kernels " + json.dumps(launches) + ", K2 and K3 by call site "
         + json.dumps(sites))
-    missing = [k for k in FWD_KERNELS + ("sdf_lattice_mlp",) if launches[k] <= 0]
+    missing = [k for k in FWD_KERNELS + ("sdf_lattice_mlp", "marching_cubes_lattice")
+               if launches[k] <= 0]
     if missing:
         fail(f"the main path launched no {missing}")
     if m["lattice_fused_points"] != m["lattice_points"]:
@@ -4518,7 +4600,8 @@ def main():
         fail(f"cascade active sets {m['active_voxels']}")
 
     cold = v.last_scene
-    m, k4_calls, mesh_call = warm_validate(v)
+    with record_lattices() as lattices:
+        m, k4_calls, mesh_call = warm_validate(v)
     say("warm", f"build_s={m['build_s']:.3f} mesh_s={m['mesh_s']:.3f} "
         f"render_rays_per_s={m['render_rays_per_s']:.1f} "
         f"active_voxels={m['active_voxels']} gather_conv calls recorded: {len(k4_calls)}")
@@ -4528,8 +4611,8 @@ def main():
         "features) equal bit for bit to the first validate's")
     del cold
 
-    rows = main_path_kernels(v, launches, k4_calls, mesh_call, sites)
-    del mesh_call
+    rows = main_path_kernels(v, launches, k4_calls, mesh_call, sites, lattices[0])
+    del mesh_call, lattices
     t0 = time.time()
     grid_rows = grid_form_kernels(k4_calls)
     say("kernel", f"row 7 (grid-form convs): {time.time() - t0:.1f} s")

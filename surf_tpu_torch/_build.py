@@ -37,6 +37,7 @@ CUDA_SOURCES = {
     "sparse_trilinear": "sparse_trilinear.cu",
     "gather_conv": "gather_conv.cu",
     "sdf_lattice_mlp": "sdf_lattice_mlp.cu",
+    "marching_cubes_lattice": "marching_cubes_lattice.cu",
 }
 
 # -fmad=false: no contraction of a*b+c, so the kernels round like the plain
@@ -177,7 +178,7 @@ launches = {"bilinear_sample_2d": 0, "trilinear_sample_3d": 0,
             "sparse_trilinear_multi_bwd": 0, "gather_conv_dw": 0,
             "bilinear_sample_2d_bwd2_gather": 0, "bilinear_sample_2d_bwd2_scatter": 0,
             "trilinear_sample_3d_bwd2_gather": 0, "trilinear_sample_3d_bwd2_scatter": 0,
-            "sdf_lattice_mlp": 0}
+            "sdf_lattice_mlp": 0, "marching_cubes_lattice": 0}
 
 
 def reset_launches():

@@ -4,13 +4,14 @@ ranks of a node (the counterpart of surf_tpu/parallel/ray_shard.py).
 The per-ray and per-point work is embarrassingly parallel: each rank of
 the node's group evaluates its rows of a chunk (rays of a render chunk,
 occupied blocks of the mesh lattice) and the group's first rank gathers
-the whole chunk back on the host.  The render chunk is rounded up to a
-multiple of the rank count, as the JAX runner sizes it
-(surf_tpu/runner.py:518-522); the random numbers of a chunk (the z jitter
-under ``render.perturb``, the SDF probe points) are drawn whole, by every
-rank from the same-seeded generator, and each rank keeps its rows, so
-the sharded render equals the one-process render with or without
-perturbation.
+the whole chunk, which it copies to the host (the mesh lattice's values
+also stay on its card under nccl, for marching cubes there).  The render
+chunk is rounded up to a multiple of the rank count, as the JAX runner
+sizes it (surf_tpu/runner.py:518-522); the random numbers of a chunk (the
+z jitter under ``render.perturb``, the SDF probe points) are drawn whole,
+by every rank from the same-seeded generator, and each rank keeps its
+rows, so the sharded render equals the one-process render with or
+without perturbation.
 """
 
 from __future__ import annotations
@@ -69,25 +70,25 @@ def to_host(t):
 
 def gather_rows(t, group):
     """Every rank's ``t`` (k, ...) concatenated in rank order on the
-    group's first rank, as a host tensor (``to_host``); None on the
-    other ranks.  Host tensors under gloo, card tensors under nccl."""
+    group's first rank, where the group gathers: host tensors under gloo,
+    card tensors under nccl; None on the other ranks."""
     dev = t.device if dist.get_backend(group) == "nccl" else torch.device("cpu")
     x = t.detach().to(dev).contiguous()
     ranks = dist.get_process_group_ranks(group)
     out = [torch.empty_like(x) for _ in ranks] if is_root(group) else None
     dist.gather(x, out, dst=ranks[0], group=group)
-    return to_host(torch.cat(out)) if out is not None else None
+    return torch.cat(out) if out is not None else None
 
 
 def shard_rows(fn, n, group, device=None):
     """Rows [0, n) evaluated across ``group``: rank r calls ``fn(rows)``
     on rows [r k, (r + 1) k), k = ceil(n / ranks), the rows past n
     repeating row n - 1, and ``fn`` returns (k, ...); the first rank gets
-    all n rows (a host tensor: ``to_host``), the others None.  Without a
-    group, ``fn`` takes all n rows and its result is returned on the
-    host."""
+    all n rows (where ``gather_rows`` leaves them), the others None.
+    Without a group, ``fn`` takes all n rows and its result is returned
+    where it lies.  The caller copies them to the host (``to_host``)."""
     if group is None:
-        return to_host(fn(torch.arange(n, device=device)))
+        return fn(torch.arange(n, device=device))
     w, r = group_size(group), dist.get_rank(group)
     k = -(-n // w)
     rows = torch.arange(r * k, (r + 1) * k, device=device).clamp_(max=n - 1)

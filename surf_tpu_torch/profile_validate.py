@@ -16,8 +16,9 @@ the device time of the operations that start inside it, its busy share
 and the device operations of the whole pass by total time.  The whole
 table goes to ``<out>/kernels.txt``.  A last ``[lattice]`` line gives the
 profiled pass's K5 launches (``sdf_lattice_mlp``, one a call of
-``blocks_per_call`` occupied blocks) and its ``lattice_fused_points``,
-``lattice_points`` and ``lattice_blocks``.  Needs a card; the numeric
+``blocks_per_call`` occupied blocks) and marching cubes' on the card (one
+a mesh) and its ``lattice_fused_points``, ``lattice_points``,
+``lattice_blocks`` and ``mesh_cubes_cells``.  Needs a card; the numeric
 settings are the port's own (``card.set_numerics``).  ``chip_smoke.py``
 reports the warm pass's metrics without the profiler.
 """
@@ -76,10 +77,12 @@ def main(argv=None):
 
 
 def lattice_line(results):
-    """The lattice's K5 launches and counts of the pass ``results``."""
-    keys = ("lattice_fused_points", "lattice_points", "lattice_blocks")
+    """The lattice's K5 and marching cubes launches and counts of the pass
+    ``results``."""
+    keys = ("lattice_fused_points", "lattice_points", "lattice_blocks", "mesh_cubes_cells")
     print("[lattice] " + json.dumps({
         "sdf_lattice_mlp_launches": _build.launches["sdf_lattice_mlp"],
+        "marching_cubes_lattice_launches": _build.launches["marching_cubes_lattice"],
         "scenes": [{k: m.get(k) for k in keys} for m in results]}), flush=True)
 
 

@@ -39,7 +39,7 @@ from .ops.feature_lookup import fuse_pyramid
 from .ops.sparse import stage_features
 from .parallel.distribute import node_index_and_count, process_count, process_index
 from .parallel.ray_shard import (broadcast_object, gather_rows, is_root, padded_chunk,
-                                  ray_group, shard_rows)
+                                  ray_group, shard_rows, to_host)
 from .utils.spans import span
 from .utils.summary import mean_scalars, save_scalars, scalar_writer
 
@@ -158,7 +158,9 @@ def render_full_image(isf_params, isf_static, ipts, stages_ff, matching, feats_f
                       * r["inside_sphere"][..., None]).sum(1)
             return torch.cat([r["color_fine"], normal, r["sdf_depth"].reshape(-1, 1),
                               r["render_depth"].reshape(-1, 1)], dim=1)
-        outs.append(shard_rows(chunk_rows, m, group, device=dev))
+        rows = shard_rows(chunk_rows, m, group, device=dev)
+        if rows is not None:
+            outs.append(to_host(rows))
     if not is_root(group):
         return None
     h, w = [int(x) for x in ipts["hw"].reshape(-1)]

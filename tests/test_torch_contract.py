@@ -30,6 +30,7 @@ import torch
 from surf_tpu_torch import _build
 from surf_tpu_torch.ops import grid_sample as gs, sparse as sp
 from surf_tpu_torch.config import ConfigFactory
+from surf_tpu_torch.geometry.marching_cubes import BlockLattice, lattice_mesh
 from surf_tpu_torch.nn import reg_net, sdf_net
 from surf_tpu_torch.nn.core import materialize_weight_norm
 
@@ -65,6 +66,9 @@ def _calls(device):
     grid, storage = _small_grid(RNG, device)
     idx = torch.from_numpy(RNG.randint(-1, 10, size=(7, 27)).astype(np.int32)).to(device)
     sdf_p, sdf_s = _small_sdf_net(device)
+    # a 10^3 lattice of 4^3 blocks, three of them held (one at its edge)
+    blocks = np.zeros((3, 3, 3), bool)
+    blocks[0, 0, 0] = blocks[1, 1, 0] = blocks[2, 1, 2] = True
     return {
         "bilinear_sample_2d": lambda: gs.bilinear_sample(
             t(RNG.randn(2, 5, 6, 3)), t(RNG.uniform(-1.2, 1.2, (2, 9, 2)))),
@@ -100,6 +104,8 @@ def _calls(device):
         "sdf_lattice_mlp": lambda: sdf_net.sdf_lattice(
             sdf_p, sdf_s, t(RNG.uniform(-1, 1, (9, 3))), t(RNG.randn(9, 5)),
             torch.from_numpy(RNG.rand(9) < 0.5).to(device)),
+        "marching_cubes_lattice": lambda: lattice_mesh(BlockLattice(
+            t(RNG.randn(3, 64)), blocks, 10, 4)),
     }
 
 

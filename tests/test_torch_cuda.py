@@ -910,7 +910,7 @@ def test_mvs_layout_validate_on_the_card(tmp_path, monkeypatch, name):
                                   "bilinear_sample_2d_bwd2_scatter",
                                   "trilinear_sample_3d_bwd2_gather",
                                   "trilinear_sample_3d_bwd2_scatter",
-                                  "sdf_lattice_mlp"])
+                                  "sdf_lattice_mlp", "marching_cubes_lattice"])
 def test_kernels_launch_on_their_tensors_card(name):
     """A rank whose current card is cuda:0 and whose tensors are on cuda:1
     (no ``set_device``): every wrapper launches its kernel on cuda:1 and
