@@ -38,19 +38,4 @@ echo "card: $CARD" > "$LOG_B"
 python -m surf_tpu_torch.main --conf confs/surf_synthetic_full.conf --out "$EXP_B" \
     2>&1 | tee -a "$LOG_B"
 echo "=== event file: train_avg/* and val_img_avg/* by epoch ===" | tee -a "$LOG_B"
-python3 - "$EXP_B/logs" <<'EOF' 2>&1 | tee -a "$LOG_B"
-import glob
-import os
-import sys
-sys.path.insert(0, os.getcwd())
-from chip_smoke import read_events
-(path,) = glob.glob(os.path.join(sys.argv[1], "events.out.tfevents.*"))
-_, scalars = read_events(path)
-for prefix in ("train_avg/", "val_img_avg/"):
-    epochs = sorted({s for tag, s, _ in scalars if tag.startswith(prefix)})
-    for e in epochs:
-        print(f"{prefix} epoch {e}: " + " ".join(
-            f"{tag[len(prefix):]} {v:.6g}" for tag, s, v in scalars
-            if s == e and tag.startswith(prefix)))
-EOF
-
+python3 scripts/tb_scalars.py "$EXP_B/logs" 2>&1 | tee -a "$LOG_B"

@@ -4,7 +4,7 @@ validation sets ``BMVSDataset``, ``TanksDataset`` and ``ETH3DDataset``
 (``mvs_generic.GenericMVSDataset``), and the procedural
 ``SyntheticDataset`` / ``SyntheticDatasetFinetune``, which need no
 download (``dtu_scene.write_dtu_scene`` and ``mvs_scene.write_mvs_scene``,
-fixtures of the tests and of ``chip_smoke.py``, write that scene as a DTU
+fixtures of the tests, write that scene as a DTU
 scan and in the three JPEG layouts).  In mode ``finetune`` the bare
 dataset is the loader (its ``get_random_rays`` draws the batches)."""
 

@@ -1,4 +1,4 @@
-"""A fixture for the tests and ``chip_smoke.py``'s ``dtu`` phase, not a
+"""A fixture for the tests, not a
 loader (no loader imports it): writes the procedural synthetic scene
 (``SyntheticDataset``'s textured sphere and ring of cameras) as a DTU scan
 on disk, in the layout the DTU loaders read, so that the DTU data path

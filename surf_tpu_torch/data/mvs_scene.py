@@ -1,4 +1,4 @@
-"""A fixture for the tests and ``chip_smoke.py``'s ``mvs`` phase, not a
+"""A fixture for the tests, not a
 loader (no loader imports it): writes the procedural synthetic scene
 (``SyntheticDataset``'s textured sphere and ring of cameras) in the on-disk
 layout of one of ``mvs_generic``'s datasets, so that the BlendedMVS, Tanks

@@ -17,10 +17,10 @@ and the device operations of the whole pass by total time.  The whole
 table goes to ``<out>/kernels.txt``.  A last ``[lattice]`` line gives the
 profiled pass's K5 launches (``sdf_lattice_mlp``, one a call of
 ``blocks_per_call`` occupied blocks) and marching cubes' on the card (one
-a mesh) and its ``lattice_fused_points``, ``lattice_points``,
-``lattice_blocks`` and ``mesh_cubes_cells``.  Needs a card; the numeric
-settings are the port's own (``card.set_numerics``).  ``chip_smoke.py``
-reports the warm pass's metrics without the profiler.
+a mesh) and its ``lattice_points``, ``lattice_blocks`` and
+``mesh_cubes_cells``.  Needs a card; the numeric settings are the port's
+own (``card.set_numerics``).  ``chip_smoke.py`` reports the warm pass's
+metrics without the profiler.
 """
 
 from __future__ import annotations
@@ -79,7 +79,7 @@ def main(argv=None):
 def lattice_line(results):
     """The lattice's K5 and marching cubes launches and counts of the pass
     ``results``."""
-    keys = ("lattice_fused_points", "lattice_points", "lattice_blocks", "mesh_cubes_cells")
+    keys = ("lattice_points", "lattice_blocks", "mesh_cubes_cells")
     print("[lattice] " + json.dumps({
         "sdf_lattice_mlp_launches": _build.launches["sdf_lattice_mlp"],
         "marching_cubes_lattice_launches": _build.launches["marching_cubes_lattice"],

@@ -38,8 +38,8 @@ from .nn.implicit_surface import draw_jitter, draw_probe
 from .ops.feature_lookup import fuse_pyramid
 from .ops.sparse import stage_features
 from .parallel.distribute import node_index_and_count, process_count, process_index
-from .parallel.ray_shard import (broadcast_object, gather_rows, is_root, padded_chunk,
-                                  ray_group, shard_rows, to_host)
+from .parallel.ray_shard import (broadcast_object, is_root, padded_chunk, ray_group,
+                                  shard_rows, to_host)
 from .utils.spans import span
 from .utils.summary import mean_scalars, save_scalars, scalar_writer
 
@@ -80,17 +80,15 @@ class LatticeSDF:
     """pts -> SDF of the implicit surface ``isf_params``, pinned to +100
     outside the active set: one K3 launch gives the features and the
     occupancy, ``sdf_net.sdf_lattice`` the SDF (K5 on the card, its weight
-    layout built at the first call).  ``fused_points`` counts the points
-    K5 evaluated.  (An object, not a closure that counts on itself: such a
-    closure is a reference cycle, which would keep the stages on the card
-    until the garbage collector ran.)"""
+    layout built at the first call).  (An object, not a function that keeps
+    the layout on itself: such a function is a reference cycle, which
+    would keep the stages on the card until the garbage collector ran.)"""
 
     def __init__(self, isf_params, isf_static, stages_ff):
         self.params = materialize_weight_norm(isf_params)["sdf_network"]
         self.static = isf_static["sdf"]
         self.stages = stages_ff
         self.layout = None
-        self.fused_points = 0
 
     def __call__(self, pts):
         feats, occ = stage_features(self.stages, pts)
@@ -98,7 +96,6 @@ class LatticeSDF:
             return sdf_net.sdf_lattice(self.params, self.static, pts, feats, occ)
         if self.layout is None:
             self.layout = sdf_net.lattice_layout(self.params, self.static)
-        self.fused_points += pts.shape[0]
         return sdf_net.sdf_lattice(self.params, self.static, pts, feats, occ,
                                    layout=self.layout)
 
@@ -106,24 +103,15 @@ class LatticeSDF:
 @torch.no_grad()
 def extract_mesh(isf_params, isf_static, stages_ff, resolution, block=64, group=None,
                  stats=None):
-    """Block-skipped SDF lattice and host marching cubes: (verts in
+    """Block-skipped SDF lattice and marching cubes: (verts in
     [-1, 1], tris, lattice); with a ray ``group`` the lattice's blocks are
     split across its ranks and its first rank gets the result (None on the
-    others).  ``stats``: as ``extract_geometry``'s, and
-    ``lattice_fused_points``, the points K5 evaluated (the group's on its
-    first rank)."""
+    others).  ``stats``: as ``extract_geometry``'s."""
     dev = stages_ff[0][1].device
-    fn = LatticeSDF(isf_params, isf_static, stages_ff)
-    out = extract_geometry(fn, stages_ff, resolution, block=block,
-                           map_rows=functools.partial(shard_rows, group=group, device=dev),
-                           mesh=is_root(group), stats=stats)
-    fused = fn.fused_points
-    if group is not None:
-        counts = gather_rows(torch.tensor([[fused]], device=dev), group)
-        fused = int(counts.sum()) if counts is not None else fused
-    if stats is not None:
-        stats["lattice_fused_points"] = fused
-    return out
+    return extract_geometry(LatticeSDF(isf_params, isf_static, stages_ff), stages_ff,
+                            resolution, block=block,
+                            map_rows=functools.partial(shard_rows, group=group, device=dev),
+                            mesh=is_root(group), stats=stats)
 
 
 def render_full_image(isf_params, isf_static, ipts, stages_ff, matching, feats_ff, chunk,

@@ -2,7 +2,9 @@
 
 * a kernel wrapper given CPU tensors takes its plain version and counts
   no launch; given tensors on another device it raises (no fallback);
-* no module of surf_tpu_torch, nor chip_smoke.py, imports jax or
+* no module of surf_tpu_torch, nor chip_smoke.py (whose one import from
+  outside the port, ``surfbench.counts``, surfbench's own tests hold to
+  the same rule), imports jax or
   anything of surf_tpu, nor ``cv2``, ``PIL``, ``matplotlib``,
   ``skimage``, ``tensorboardX``, ``sklearn``, ``open3d`` or ``trimesh``,
   none of which the card's machine has (checked on the import statements
@@ -17,8 +19,10 @@
   and its ``--mode`` defaults to the JAX CLI's (main.py), ``train``.
 
 The kernels themselves only run on the card: ``test_kernels_match_plain``
-is marked ``cuda`` and skips here (``python3 chip_smoke.py`` holds every
-kernel against its plain version at the main path's shapes)."""
+is marked ``cuda`` and skips here (the ``cuda``-marked tests,
+tests/*_cuda.py and tests/test_torch_cuda.py, hold every kernel against
+its plain version on the card; ``python3 chip_smoke.py`` times each at the
+main path's shapes)."""
 
 import ast
 import os
@@ -174,6 +178,8 @@ def test_port_imports_no_jax_and_no_surf_tpu():
     bad = [(os.path.relpath(f, ROOT), n) for f in files for n in _imports(f)
            if _forbidden(n)]
     assert not bad, bad
+    # chip_smoke.py takes its yardstick from the benchmark's
+    assert "surfbench.counts" in _imports(files[0])
     assert _forbidden("surf_tpu.ops") and not _forbidden("surf_tpu_torch.ops")
     assert all(_forbidden(n) for n in ("cv2", "PIL.Image", "matplotlib.cm",
                                        "skimage.morphology", "tensorboardX",

@@ -5,7 +5,8 @@ they run on the card's machine: ``python -m pytest tests/test_torch_cuda.py
 
 * K1b, K2b, K3b and K4w against their plain versions on odd shapes with
   points outside the image / volume / grid;
-* K2b at C = 1, 3, 5 in f32 and bf16, both forms of a bf16 volume's
+* K2b at C = 1, 3, 4, 5, 16 in f32 and bf16 (and at C = 3 with both
+  ``align_corners``), both forms of a bf16 volume's
   gradient, with and without d_coords, on a band of samples in a few
   bricks, a whole-volume scatter, a one-voxel pile-up and all-zero
   cotangents; K3b for every subset of its cotangents at 1-4 stages, with
@@ -40,6 +41,8 @@ they run on the card's machine: ``python -m pytest tests/test_torch_cuda.py
 * the tiny model's ``--clean_mesh`` validate on the card against the CPU
   on a DTU-layout scene and on the BlendedMVS, Tanks and ETH3D layouts
   (JPEG images, 3, 5 and 7 views)."""
+
+import contextlib
 
 import numpy as np
 import pytest
@@ -88,7 +91,8 @@ def _ragged_stages(g, dev):
 @pytest.mark.parametrize("kernel", ["K1b", "K2b", "K3b", "K4w"])
 def test_backward_kernel_matches_plain_on_ragged_shapes(kernel):
     """Each backward kernel against its plain version on the card, on odd
-    shapes with points outside the image / volume / grid.  The kernels sum
+    shapes with points outside the image / volume / grid (K1b and K2b with
+    both ``align_corners``).  The kernels sum
     with atomics in a run-dependent order: rtol 1e-5, atol 1e-5 times
     max(1, the largest entry), one bf16 step for a bf16 volume's gradient."""
     if not torch.cuda.is_available():
@@ -111,9 +115,10 @@ def test_backward_kernel_matches_plain_on_ragged_shapes(kernel):
             vol = torch.randn(13, 9, 11, 3, generator=g).to(dev, dt)
             pts = (torch.rand(2003, 3, generator=g) * 2.5 - 1.25).to(dev)
             ct = torch.randn(2003, 3, generator=g).to(dev)
-            kw = dict(align_corners=False)
-            cases.append((tgs.trilinear_sample_bwd(vol, pts, ct, **kw),
-                          tgs.trilinear_sample_bwd_plain(vol, pts, ct, **kw)))
+            for align in (False, True):
+                kw = dict(align_corners=align)
+                cases.append((tgs.trilinear_sample_bwd(vol, pts, ct, **kw),
+                              tgs.trilinear_sample_bwd_plain(vol, pts, ct, **kw)))
         name = "trilinear_sample_3d_bwd"
     elif kernel == "K3b":
         stages = _ragged_stages(g, dev)
@@ -644,6 +649,32 @@ def test_k3b_matches_plain(subset):
     assert _build.launches["sparse_trilinear_multi_bwd"] == n_calls
 
 
+@contextlib.contextmanager
+def plain_versions():
+    """Every kernel's wrapper replaced by its plain PyTorch version (the
+    callers and the autograd functions look the wrappers up as module
+    attributes at call time), so the same code runs with no kernel."""
+    swaps = [(tgs, "bilinear_sample", tgs.bilinear_sample_plain),
+             (tgs, "bilinear_sample_bwd", tgs.bilinear_sample_bwd_plain),
+             (tgs, "trilinear_sample", tgs.trilinear_sample_plain),
+             (tgs, "trilinear_sample_bwd", tgs.trilinear_sample_bwd_plain),
+             (tsp, "sparse_trilinear_multi", tsp.sparse_trilinear_multi_plain),
+             (tsp, "sparse_trilinear_multi_bwd", tsp.sparse_trilinear_multi_bwd_plain),
+             (trn, "gather_conv", trn.gather_conv_plain),
+             (trn, "gather_conv_dw", trn.gather_conv_dw_plain)]
+    swaps += [(tgs, attr, getattr(tgs, attr + "_plain"))
+              for attr in ("bilinear_sample_bwd2_gather", "bilinear_sample_bwd2_scatter",
+                           "trilinear_sample_bwd2_gather", "trilinear_sample_bwd2_scatter")]
+    orig = [getattr(m, n) for m, n, _ in swaps]
+    for m, n, f in swaps:
+        setattr(m, n, f)
+    try:
+        yield
+    finally:
+        for (m, n, _), f in zip(swaps, orig):
+            setattr(m, n, f)
+
+
 @pytest.mark.cuda
 def test_tiny_train_step_on_the_card_matches_the_cpu():
     """loss.backward() of the tiny model on the card (K1b, K2b, K3b, K4w),
@@ -655,11 +686,6 @@ def test_tiny_train_step_on_the_card_matches_the_cpu():
     three leaves whose gradient is 0 by softmax shift invariance."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
-    import contextlib
-    import os
-    import sys
-    sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-    from chip_smoke import plain_versions
     from surf_tpu_torch import _build
     from surf_tpu_torch.card import set_numerics
     set_numerics()
@@ -746,6 +772,7 @@ K4_RAGGED = {
     "T 8, Cin 5, Cout 7": (8, 5, 7, "random"),
     "T 27, Cin 1, Cout 3": (27, 1, 3, "random"),
     "T 13, Cin 13, Cout 1": (13, 13, 1, "random"),
+    "T 27, Cin 13, Cout 7": (27, 13, 7, "random"),
     "T 27, Cin 32, Cout 32": (27, 32, 32, "random"),
     "T 27, Cin 32, Cout 5": (27, 32, 5, "random"),
     "all -1": (27, 16, 8, "empty"),
@@ -791,7 +818,7 @@ def test_dtu_layout_validate_on_the_card(tmp_path, monkeypatch):
     ``data.dtu_scene`` at 96x128, read by ``DTUDataset`` at 48x64) with
     ``clean_mesh`` on, on the card against the same on the CPU, the render
     unperturbed and the hybrid U-Net at stage 1: K1-K4 launched; colour, normal and depths within 1e-4
-    (the tiny model's card-against-CPU tolerance in chip_smoke.py); a
+    (the tiny model's card-against-CPU tolerance); a
     non-empty mesh that cleaning does not grow; the PNG and ``.npy``
     artifacts written."""
     if not torch.cuda.is_available():

@@ -11,7 +11,8 @@ tests/test_torch_sdf_lattice_cuda.py):
   at others (feature channels, skips, embedding, scale, feature
   embedding, no weight norm, geometric init);
 * the lattice through ``extract_mesh`` equals the old composite over the
-  whole lattice, and counts ``lattice_fused_points`` 0 on the CPU;
+  whole lattice, and the lattice function takes the plain version on the
+  CPU;
 * the layout refuses what the kernel cannot hold."""
 
 import math
@@ -173,18 +174,16 @@ def test_lattice_through_extract_mesh_equals_the_old_composite():
     np.testing.assert_allclose(u, old.numpy(), rtol=1e-6, atol=1e-6)
     occupied, total = stats["lattice_blocks"]
     assert 0 < occupied < total and stats["lattice_points"] == occupied * 8 ** 3
-    assert stats["lattice_fused_points"] == 0
 
 
 @torch.no_grad()
-def test_lattice_fn_counts_no_fused_points_on_the_cpu():
+def test_lattice_fn_takes_the_plain_version_on_the_cpu():
     p, static = model()
     stages = stages_for(28)
     fn = LatticeSDF({"sdf_network": p}, {"sdf": static}, stages)
     pts = points(700)
     feats, occ = sp.stage_features(stages, pts)
     assert torch.equal(fn(pts), sdf_net.sdf_lattice_plain(p, static, pts, feats, occ))
-    assert fn.fused_points == 0
 
 
 @pytest.mark.parametrize("over", [dict(d_hidden=256), dict(skip_in=[0]),

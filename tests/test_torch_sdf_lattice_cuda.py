@@ -9,7 +9,8 @@ tests/test_torch_sdf_lattice_cuda.py -m cuda --noconftest``):
   path) and a mix of occupied and empty points: max abs gap <= 1e-5, the
   empty points exactly 100, one launch a call;
 * at other widths (14 and 21 feature channels, two skips with scale 0.5
-  and 6 frequencies, a narrow net without embedding, embedded features);
+  and 6 frequencies, a narrow net without embedding, 32 hidden units with
+  3 frequencies and 9 feature channels, embedded features);
 * a non-contiguous input, tensors on the CPU and the card together and
   a wrong dtype raise, and launch nothing."""
 
@@ -31,6 +32,8 @@ WIDTHS = {
     "two_skips_scale_multires_6": dict(skip_in=[2, 4], scale=0.5, multires=6),
     "narrow_no_embedding": dict(d_hidden=64, n_layers=4, skip_in=[2], multires=0,
                                 feat_channels=7, d_out=9),
+    "hidden_32_multires_3": dict(d_hidden=32, n_layers=4, skip_in=[2], multires=3,
+                                 feat_channels=9, d_out=5),
     "feature_embedding": dict(feat_channels=7, feat_multires=1),
 }
 
